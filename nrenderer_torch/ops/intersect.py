@@ -1,0 +1,286 @@
+"""Ray-primitive intersection over an unrolled static scene, on torch tensors.
+
+Counterpart of the dense path of `nrenderer_tpu/ops/intersect.py`
+(`StaticScene`, `make_static_scene`, `intersect_scene_unrolled`,
+`intersect_area_lights_unrolled`), which ports the reference's PT
+intersection routines (`simple_path_tracing/src/intersections/intersections.cpp:1-95`):
+
+  - triangle: Möller-Trumbore with det-sign folding, parallel reject at
+    det < 1e-6, `t >= tMin` acceptance, stored (unnormalized) normal returned
+  - sphere: both quadratic roots tried in order, normal = (p-c)/r
+  - plane: parallelogram patch via the precomputed inverse of [u, v, u x v],
+    near-parallel reject at (nd < 1e-7) & (nd > -1e-8)
+  - area light: the plane test on (position, u, v) with normal cross(u, v)
+
+The primitive loop runs in Python over the host-side `StaticScene`, with
+each primitive's constants as Python floats and zero terms dropped before
+any tensor op (`_lin3`, `_dota`), in the same order as the JAX module: the
+float32 results are the ones the JAX functions compute.  This is the plain
+torch form; the CUDA kernel (`ops/pt_cuda.py`) evaluates the same tests per
+thread from a packed table."""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from ..scene.arrays import (
+    MAT_ABSORBED, MAT_ALBEDO, MAT_DIFFUSE, MAT_ETA_I, MAT_ETA_R, MAT_F0,
+    MAT_IOR, MAT_METALNESS, MAT_ROUGHNESS, MAT_SPECULAR, MAT_SPECULAR_EX,
+    MAT_SPECULAR_MAP, SceneArrays,
+)
+from .soa import V3, dot3
+
+T_MIN_PT = 1e-6       # PT epsilon (`SimplePathTracer.cpp:108`)
+
+
+class StaticScene(NamedTuple):
+    """Host-side (numpy) scene view: the primitive lists the renderers
+    unroll (plain form) or pack into a device table (kernel)."""
+    sph: list    # (cx, cy, cz, r, mat)
+    tri: list    # (v1, e1, e2, n, mat) tuples of np arrays
+    pln: list    # (pos, n, inv0, inv1, mat)
+    al: list     # (pos, n, inv0, inv1, radiance)
+    mats: list   # per-material dict of params (numpy)
+    ambient_type: int
+    ambient_constant: tuple
+    n_mats: int
+    # per-tri texture coords, parallel to `tri`: (u1x, u1y, e1x, e1y,
+    # e2x, e2y, tex_id, stex_id) plain-float tuples; () when the scene has
+    # no textured faces.  This slice renders untextured scenes only.
+    tri_uv: tuple = ()
+
+
+def make_static_scene(scene_arrays: SceneArrays) -> StaticScene:
+    a = scene_arrays
+    f = lambda x: np.asarray(x)
+    sph = [(float(p[0]), float(p[1]), float(p[2]), float(r), int(m))
+           for p, r, m, v in zip(f(a.sph_pos), f(a.sph_radius), f(a.sph_mat),
+                                 f(a.sph_valid)) if v]
+    tri = [(f(v1), f(e1), f(e2), f(n), int(m))
+           for v1, e1, e2, n, m, v in zip(f(a.tri_v1), f(a.tri_e1),
+                                          f(a.tri_e2), f(a.tri_normal),
+                                          f(a.tri_mat), f(a.tri_valid)) if v]
+    pln = [(f(p), f(n), f(i)[0], f(i)[1], int(m))
+           for p, n, i, m, v in zip(f(a.pln_pos), f(a.pln_normal),
+                                    f(a.pln_inv), f(a.pln_mat),
+                                    f(a.pln_valid)) if v]
+    al = [(f(p), f(n), f(i)[0], f(i)[1], f(r))
+          for p, n, i, r, v in zip(f(a.al_pos), f(a.al_normal), f(a.al_inv),
+                                   f(a.al_radiance), f(a.al_valid)) if v]
+    mats = []
+    mp = f(a.mat_params)
+    for mi in range(mp.shape[0]):
+        mats.append({
+            "type": int(f(a.mat_type)[mi]),
+            "diffuse": mp[mi, MAT_DIFFUSE],
+            "specular": mp[mi, MAT_SPECULAR],
+            "specular_ex": float(mp[mi, MAT_SPECULAR_EX]),
+            "ior": float(mp[mi, MAT_IOR]),
+            "absorbed": mp[mi, MAT_ABSORBED],
+            "eta_r": mp[mi, MAT_ETA_R],
+            "eta_i": mp[mi, MAT_ETA_I],
+            "albedo": mp[mi, MAT_ALBEDO],
+            "roughness": float(mp[mi, MAT_ROUGHNESS]),
+            "f0": float(mp[mi, MAT_F0]),
+            "metalness": float(mp[mi, MAT_METALNESS]),
+            "stex": (float(mp[mi, MAT_SPECULAR_MAP])
+                     if mp.shape[1] > MAT_SPECULAR_MAP else -1.0),
+        })
+    tri_uv = ()
+    valid = f(a.tri_valid)
+    if np.any((f(a.tri_tex)[valid] >= 0) | (f(a.tri_stex)[valid] >= 0)):
+        tri_uv = tuple(
+            (float(u1[0]), float(u1[1]), float(e1[0]), float(e1[1]),
+             float(e2[0]), float(e2[1]), int(tx), int(sx))
+            for u1, e1, e2, tx, sx, v in zip(f(a.tri_uv1), f(a.tri_uve1),
+                                             f(a.tri_uve2), f(a.tri_tex),
+                                             f(a.tri_stex), valid) if v)
+    return StaticScene(sph=sph, tri=tri, pln=pln, al=al, mats=mats,
+                       ambient_type=int(np.asarray(a.ambient_type).reshape(())),
+                       ambient_constant=tuple(f(a.ambient_constant)),
+                       n_mats=mp.shape[0], tri_uv=tri_uv)
+
+
+def _is_zero(v) -> bool:
+    return isinstance(v, (int, float)) and float(v) == 0.0
+
+
+def _lin3(c, x, y, z):
+    """c[0]*x + c[1]*y + c[2]*z for Python-float `c`, with zero terms
+    dropped and unit factors skipped before any tensor op (the JAX module's
+    trace-time fold, kept so the float32 results match).  Operands may be
+    literal 0.0 from an earlier fold."""
+    terms = []
+    for cc, v in ((float(c[0]), x), (float(c[1]), y), (float(c[2]), z)):
+        if cc == 0.0 or _is_zero(v):
+            continue
+        terms.append(v if cc == 1.0 else cc * v)
+    if not terms:
+        return 0.0
+    out = terms[0]
+    for t in terms[1:]:
+        out = out + t
+    return out
+
+
+def _dota(pairs):
+    """Sum of a*b products with literal-zero operands folded away."""
+    terms = [a * b for a, b in pairs if not (_is_zero(a) or _is_zero(b))]
+    if not terms:
+        return 0.0
+    out = terms[0]
+    for t in terms[1:]:
+        out = out + t
+    return out
+
+
+def _full(v, like: torch.Tensor) -> torch.Tensor:
+    """A folded-away literal as a tensor shaped like the rays."""
+    if isinstance(v, torch.Tensor):
+        return v
+    return torch.full_like(like, float(v))
+
+
+class HitUnrolled(NamedTuple):
+    t: torch.Tensor       # (N,), +inf on miss
+    valid: torch.Tensor   # (N,) bool
+    point: V3
+    normal: V3
+    mat_id: torch.Tensor  # (N,) float material id of the hit (0 if miss)
+    prim_id: torch.Tensor  # (N,) float primitive id (enumeration order:
+    #                        spheres, triangles, planes; -1 if miss)
+    channels: tuple       # per-ray tracked material constants ((N,) each)
+
+
+def intersect_scene_unrolled(ss: StaticScene, o: V3, d: V3,
+                             t_min: float = T_MIN_PT,
+                             mat_channels=None) -> HitUnrolled:
+    """Closest hit with the primitive loop unrolled in Python.
+
+    Running per-ray state: best t, best normal, and the material constants
+    the caller needs: `mat_channels` is a list over materials of k-tuples
+    (e.g. the albedo rgb), updated with each closer prim's constants."""
+    inf = float("inf")
+    k = len(mat_channels[0]) if mat_channels else 0
+    t_best = torch.full_like(o.x, inf)
+    nx = torch.zeros_like(o.x)
+    ny = torch.zeros_like(o.x)
+    nz = torch.zeros_like(o.x)
+    mid = torch.zeros_like(o.x)  # material id as float
+    pid_best = torch.full_like(o.x, -1.0)  # primitive id as float
+    chans = tuple(torch.zeros_like(o.x) for _ in range(k))
+    prim_counter = [0]
+
+    def upd(hit_mask, t, nxx, nyy, nzz, m, state):
+        t_best, nx, ny, nz, mid, pid_best, chans = state
+        pid = prim_counter[0]
+        prim_counter[0] += 1
+        closer = hit_mask & (t < t_best)
+        new_chans = tuple(
+            torch.where(closer, float(mat_channels[m][i]), chans[i])
+            for i in range(k))
+        return (torch.where(closer, t, t_best), torch.where(closer, nxx, nx),
+                torch.where(closer, nyy, ny), torch.where(closer, nzz, nz),
+                torch.where(closer, float(m), mid),
+                torch.where(closer, float(pid), pid_best), new_chans)
+
+    state = (t_best, nx, ny, nz, mid, pid_best, chans)
+
+    for (cx, cy, cz, r, m) in ss.sph:
+        ocx, ocy, ocz = o.x - cx, o.y - cy, o.z - cz
+        b = ocx * d.x + ocy * d.y + ocz * d.z
+        c = ocx * ocx + ocy * ocy + ocz * ocz - r * r
+        a = dot3(d, d)
+        disc = b * b - a * c
+        sq = torch.sqrt(torch.clamp(disc, min=0.0))
+        inv_a = 1.0 / a
+        t1 = (-b - sq) * inv_a
+        t2 = (-b + sq) * inv_a
+        ok = disc > 0
+        t = torch.where(ok & (t1 >= t_min), t1,
+                        torch.where(ok & (t2 >= t_min), t2, inf))
+        inv_r = 1.0 / r
+        px = o.x + t * d.x
+        py = o.y + t * d.y
+        pz = o.z + t * d.z
+        state = upd(torch.isfinite(t), t, (px - cx) * inv_r,
+                    (py - cy) * inv_r, (pz - cz) * inv_r, m, state)
+
+    for (v1, e1, e2, nrm, m) in ss.tri:
+        # P = d x e2 (e2 constant -> linear in d; zero terms folded)
+        px = _lin3((0.0, e2[2], -e2[1]), d.x, d.y, d.z)
+        py = _lin3((-e2[2], 0.0, e2[0]), d.x, d.y, d.z)
+        pz = _lin3((e2[1], -e2[0], 0.0), d.x, d.y, d.z)
+        det0 = _full(_lin3(e1, px, py, pz), o.x)
+        sign = torch.where(det0 > 0, 1.0, -1.0)
+        det = det0 * sign
+        tx = (o.x - v1[0]) * sign
+        ty = (o.y - v1[1]) * sign
+        tz = (o.z - v1[2]) * sign
+        u = _full(_dota([(tx, px), (ty, py), (tz, pz)]), o.x)
+        qx = _lin3((0.0, e1[2], -e1[1]), tx, ty, tz)
+        qy = _lin3((-e1[2], 0.0, e1[0]), tx, ty, tz)
+        qz = _lin3((e1[1], -e1[0], 0.0), tx, ty, tz)
+        v = _full(_dota([(d.x, qx), (d.y, qy), (d.z, qz)]), o.x)
+        w = _lin3(e2, qx, qy, qz) / torch.where(det == 0, 1.0, det)
+        ok = ((det >= 1e-6) & (u >= 0) & (u <= det) & (v >= 0)
+              & (u + v <= det) & (w >= t_min))
+        state = upd(ok, torch.where(ok, w, inf), float(nrm[0]),
+                    float(nrm[1]), float(nrm[2]), m, state)
+
+    for (pos, nrm, inv0, inv1, m) in ss.pln:
+        ok, t = _patch_hit(pos, nrm, inv0, inv1, o, d, t_min)
+        state = upd(ok, torch.where(ok, t, inf), float(nrm[0]),
+                    float(nrm[1]), float(nrm[2]), m, state)
+
+    t_best, nx, ny, nz, mid, pid_best, chans = state
+    valid = torch.isfinite(t_best)
+    # fold miss t=inf to the origin so masked shading never computes
+    # 0 * inf = NaN
+    t_pt = torch.where(valid, t_best, 0.0)
+    point = V3(o.x + t_pt * d.x, o.y + t_pt * d.y, o.z + t_pt * d.z)
+    return HitUnrolled(t=t_best, valid=valid, point=point,
+                       normal=V3(nx, ny, nz), mat_id=mid, prim_id=pid_best,
+                       channels=chans)
+
+
+def _patch_hit(pos, nrm, inv0, inv1, o: V3, d: V3, t_min: float):
+    """Parallelogram test shared by planes and area lights: (ok, t)."""
+    nd = _full(_lin3(nrm, d.x, d.y, d.z), o.x)
+    parallel = (nd < 1e-7) & (nd > -1e-8)
+    dp = float(np_dot(pos, nrm))
+    t = (dp - _lin3(nrm, o.x, o.y, o.z)) / torch.where(parallel, 1.0, nd)
+    rx = o.x + t * d.x - float(pos[0]) if pos[0] else o.x + t * d.x
+    ry = o.y + t * d.y - float(pos[1]) if pos[1] else o.y + t * d.y
+    rz = o.z + t * d.z - float(pos[2]) if pos[2] else o.z + t * d.z
+    u = _full(_lin3(inv0, rx, ry, rz), o.x)
+    v = _full(_lin3(inv1, rx, ry, rz), o.x)
+    ok = (~parallel & (t >= t_min) & (u >= 0) & (u <= 1) & (v >= 0)
+          & (v <= 1))
+    return ok, t
+
+
+def intersect_area_lights_unrolled(ss: StaticScene, o: V3, d: V3,
+                                   t_min: float = T_MIN_PT):
+    """Unrolled `closestHitLight`; returns (t, radiance V3)."""
+    inf = float("inf")
+    t_best = torch.full_like(o.x, inf)
+    rx = torch.zeros_like(o.x)
+    ry = torch.zeros_like(o.x)
+    rz = torch.zeros_like(o.x)
+    for (pos, nrm, inv0, inv1, rad) in ss.al:
+        ok, t = _patch_hit(pos, nrm, inv0, inv1, o, d, t_min)
+        closer = ok & (t < t_best)
+        t_best = torch.where(closer, t, t_best)
+        rx = torch.where(closer, float(rad[0]), rx)
+        ry = torch.where(closer, float(rad[1]), ry)
+        rz = torch.where(closer, float(rad[2]), rz)
+    return t_best, V3(rx, ry, rz)
+
+
+def np_dot(a, b) -> float:
+    """Dot product in the arrays' own precision (float32 for scene
+    arrays), as the JAX module computes the plane offset."""
+    return float(a[0] * b[0] + a[1] * b[1] + a[2] * b[2])

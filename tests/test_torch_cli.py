@@ -1,0 +1,106 @@
+"""The port's entry points: `python -m nrenderer_torch render/list-renderers`,
+the registry and ComponentManager surface, and the rule that the package
+never imports JAX and never runs on the CPU when asked for CUDA."""
+import pathlib
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from nrenderer_torch import cli
+
+torch.set_num_threads(1)
+
+REPO = pathlib.Path(__file__).resolve().parent.parent
+SCENE = str(REPO / "resource" / "cornell_box.scn")
+SMALL = ["--scene", SCENE, "--renderer", "SimplePathTracer", "--width", "16",
+         "--height", "16", "--spp", "4", "--depth", "3"]
+
+
+def _run(args, timeout=120):
+    return subprocess.run([sys.executable, *args], cwd=REPO,
+                          capture_output=True, text=True, timeout=timeout)
+
+
+def test_module_render_cpu_writes_png(tmp_path):
+    out = tmp_path / "cornell.png"
+    proc = _run(["-m", "nrenderer_torch", "render", *SMALL, "--device", "cpu",
+                 "--out", str(out)])
+    assert proc.returncode == 0, proc.stderr
+    assert "SimplePathTracer[cpu]" in proc.stdout
+    from nrenderer_torch.io.image import read_png
+    img = read_png(str(out))
+    assert img is not None and img.shape == (16, 16, 3)
+
+
+def test_no_jax_imported_after_render(tmp_path):
+    argv = ["render", *SMALL, "--device", "cpu", "--out",
+            str(tmp_path / "x.png")]
+    code = (
+        "import sys\n"
+        "import nrenderer_torch\n"
+        "from nrenderer_torch.cli import main\n"
+        f"rc = main({argv!r})\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or "
+        "m.startswith(('jax.', 'jaxlib', 'nrenderer_tpu')))\n"
+        "assert rc == 0, rc\n"
+        "assert not bad, bad\n"
+        "print('clean')\n")
+    proc = _run(["-c", code])
+    assert proc.returncode == 0, proc.stderr
+    assert "clean" in proc.stdout
+
+
+def test_list_renderers(capsys):
+    assert cli.main(["list-renderers"]) == 0
+    assert "NR.Render.SimplePathTracer" in capsys.readouterr().out
+
+
+def test_cuda_without_gpu_fails_instead_of_cpu(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: --device cuda renders there")
+    out = tmp_path / "x.png"
+    rc = cli.main(["render", *SMALL, "--device", "cuda", "--out", str(out)])
+    assert rc != 0
+    assert not out.exists()
+
+
+@pytest.mark.parametrize("args", [
+    ["--renderer", "NoSuchRenderer"],
+    ["--scene", "does/not/exist.scn"],
+    ["--device", "tpu"],
+])
+def test_render_errors_exit_2(tmp_path, args):
+    base = dict(zip(SMALL[::2], SMALL[1::2]))
+    base.update(dict(zip(args[::2], args[1::2])))
+    argv = ["render", *[x for kv in base.items() for x in kv],
+            "--device", base.get("--device", "cpu"),
+            "--out", str(tmp_path / "x.png")]
+    assert cli.main(argv) == 2
+
+
+def test_component_manager_exec_wait():
+    """The README's Python API: registered component, background thread,
+    state machine, (H, W, 4) pixels posted to the Screen."""
+    import nrenderer_torch
+    from nrenderer_torch.renderers.simple_pt import SimplePathTracerRenderer
+    from nrenderer_torch.server.manager import ComponentManager, State
+    from nrenderer_torch.server.registry import get_server
+    nrenderer_torch._register_builtin_renderers()
+    scene = nrenderer_torch.load_scn(SCENE)
+    ro = scene.render_option
+    ro.width, ro.height, ro.samples_per_pixel, ro.depth = 8, 6, 2, 2
+    mgr = ComponentManager()
+    mgr.exec("SimplePathTracer", scene,
+             component=SimplePathTracerRenderer(seed=1, device="cpu"))
+    result = mgr.wait(timeout=120)
+    assert mgr.state == State.IDLING
+    assert result.pixels.shape == (6, 8, 4)
+    assert np.isfinite(result.pixels).all()
+    assert ((result.pixels >= 0) & (result.pixels <= 1)).all()
+    np.testing.assert_array_equal(get_server().screen.get_pixels(),
+                                  result.pixels)
+    info = get_server().component_factory.get_components_info("Render")
+    assert "NR.Render.SimplePathTracer" in [i.id for i in info]
