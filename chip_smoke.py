@@ -11,14 +11,25 @@ exits non-zero without a result line:
   3. the kernel's device hash against the plain torch `hash_uniform`, bit
      for bit, over a grid of (pixel, sample, draw, seed) with negative and
      wrapping seeds;
-  4. the path-tracing kernel against its plain torch version on the same
-     CUDA inputs: the Cornell box at 64x64, 16 spp, depth 4, and at the main
-     path's own shapes (512x512, depth 20, a few spp), with times for both;
+  4. each instantiation of the path-tracing kernel against its plain torch
+     version on the same CUDA inputs, at 64x64, 16 spp, depth 4 and at its
+     main path's own shapes (512x512, a few spp, the path's depth), with
+     times for both and the least time the card could take (the bound):
+     the diffuse form on the Cornell box, the BSDF form on
+     `resource/pt_glass_box.scn`, the diffuse and BSDF env forms on
+     `resource/env_spheres.scn` under `resource/env_sky.png`;
   5. the main path, `nrenderer_torch.cli.main(["render", ...])` at 512x512,
      2048 spp, depth 20 on the GPU: once to warm up, once timed with its
      kernel launches counted; the image must be finite, in [0, 1], within a
-     plausible brightness band and bright where the light is.
+     plausible brightness band and bright where the light is;
+  6. the AccPathTracer path: `cli.main` on `pt_glass_box.scn` at 512x512,
+     2048 spp, depth 20, checked the same way;
+  7. the env-map paths: `cli.main --env-map` on `env_spheres.scn` at
+     512x512, 1024 spp, depth 8, with AccPathTracer and SimplePathTracer;
+     the image must be finite, in [0, 1], in its band, and the sky bright.
 
+Each of phases 5-7 sets every launch count to 0 just before its run and
+reads the counts just after; a kernel its path runs must have launched.
 The last two lines are the kernels' JSON record and
 `{"ok": true, "device": {...}}`.  Imports nothing of JAX.
 """
@@ -34,7 +45,11 @@ import numpy as np
 import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-SCENE = os.path.join(ROOT, "resource", "cornell_box.scn")
+RES = os.path.join(ROOT, "resource")
+SCENE = os.path.join(RES, "cornell_box.scn")
+GLASS_SCENE = os.path.join(RES, "pt_glass_box.scn")
+ENV_SCENE = os.path.join(RES, "env_spheres.scn")
+ENV_MAP = os.path.join(RES, "env_sky.png")
 OUT_PNG = os.path.join(ROOT, "build", "smoke_cornell.png")
 
 # Phase-4 bars on the gamma'd film.  Kernel and plain version draw the same
@@ -47,9 +62,30 @@ MEAN_ABS_MAX = 2e-3
 WITHIN = 1e-4
 WITHIN_SHARE_MIN = 0.995
 
-# Phase-5 image bars: a converged 512x512 render of resource/cornell_box.scn
-# has a mean near 0.45 (plain version on the CPU, 128x128, 512 spp).
+# Image bars: a converged render of resource/cornell_box.scn has a mean
+# near 0.45 (plain version on the CPU, 128x128, 512 spp), pt_glass_box.scn
+# near 0.42 (64x64, 256 spp, depth 20), env_spheres.scn under env_sky.png
+# near 0.67 with AccPathTracer and 0.66 with SimplePathTracer, its top-left
+# corner (sky) near 0.82 (64x64, 256 spp, depth 8).
 MEAN_BAND = (0.25, 0.75)
+GLASS_MEAN_BAND = (0.25, 0.65)
+ENV_MEAN_BAND = (0.45, 0.85)
+SKY_MIN = 0.7
+
+# The card's peaks for the bound (NVIDIA's H100 SXM data sheet, at the full
+# 700 W power limit): FP32 outside the tensor cores and HBM bandwidth.
+PEAK_FP32_FLOPS = 67e12
+PEAK_BYTES_PER_S = 3.35e12
+
+# FP32 operations the kernel does, counted from csrc/pt_kernel.cu (each
+# add, sub, mul, div, sqrt, rsqrt, sin, cos, min/max and float compare as
+# one; the integer hash not counted): per sample (camera ray, ambient, film
+# add), per bounce of a live path (one test per primitive, plus the
+# cheapest scatter, the Lambertian lobe), and per env lookup.
+FLOPS_SAMPLE = 40
+FLOPS_SPHERE, FLOPS_TRIANGLE, FLOPS_PATCH = 33, 52, 38
+FLOPS_SCATTER = 80
+FLOPS_ENV_LOOKUP = 45
 
 
 def gpu_name_power() -> str:
@@ -124,13 +160,15 @@ def phase_hash() -> None:
                              f"{n_diff} of {n} draws")
 
 
-def _setup(device):
+def _setup(device, scene_path=SCENE, env=False):
     from nrenderer_torch import build_scene_arrays, load_scn
+    from nrenderer_torch.io.image import load_image
     from nrenderer_torch.ops.camera import make_camera
     from nrenderer_torch.ops.intersect import make_static_scene
-    scene = load_scn(SCENE)
+    scene = load_scn(scene_path)
     ss = make_static_scene(build_scene_arrays(scene))
-    return ss, make_camera(scene.camera, device=device)
+    env_map = load_image(ENV_MAP)[:, :, :3] if env else None
+    return ss, make_camera(scene.camera, device=device), env_map
 
 
 def _time_ms(fn, reps: int) -> float:
@@ -144,32 +182,60 @@ def _time_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def phase_parity(width, height, spp, depth, seed=0) -> dict:
-    print(f"== phase 4: kernel vs plain, {width}x{height}, {spp} spp, "
-          f"depth {depth}")
+def bound_ms(ss, n_pix: int, work: dict, env_map) -> tuple:
+    """The least time the card could take for one kernel call: the larger
+    of its FP32 operations over the FP32 peak and the bytes it must move
+    (film read and written, scene table and env tables read once) over the
+    memory rate.  `work` is the plain version's count of samples and of
+    bounces of live paths on the same inputs (data-dependent)."""
+    from nrenderer_torch.ops.pt_cuda import pack_scene
+    per_bounce = (len(ss.sph) * FLOPS_SPHERE + len(ss.tri) * FLOPS_TRIANGLE
+                  + (len(ss.pln) + len(ss.al)) * FLOPS_PATCH + FLOPS_SCATTER)
+    flops = work["samples"] * FLOPS_SAMPLE + work["bounces"] * per_bounce
+    n_bytes = 2 * n_pix * 3 * 4 + pack_scene(ss)[0].nbytes
+    if env_map is not None:
+        flops += work["samples"] * FLOPS_ENV_LOOKUP
+        n_bytes += env_map.size * 4 + 3 * 32 * 128 * 4
+    ops_ms = flops / PEAK_FP32_FLOPS * 1e3
+    bytes_ms = n_bytes / PEAK_BYTES_PER_S * 1e3
+    return max(ops_ms, bytes_ms), ("operations" if ops_ms >= bytes_ms
+                                   else "bytes")
+
+
+def phase_parity(width, height, spp, depth, seed=0, scene=SCENE,
+                 bsdf=False, env=False) -> dict:
     from nrenderer_torch.ops.pt_core import scene_epsilon
     from nrenderer_torch.ops.pt_cuda import (
-        pt_accumulate_plain, render_pt_linear)
-    ss, cam = _setup("cuda")
+        kernel_name, make_env_tables, pt_accumulate, pt_accumulate_plain)
+    name = kernel_name(bsdf, env)
+    print(f"== phase 4: {name} vs plain, {os.path.basename(scene)}, "
+          f"{width}x{height}, {spp} spp, depth {depth}")
+    ss, cam, env_map = _setup("cuda", scene, env)
     t_min = scene_epsilon(ss)
     n_pix = width * height
+    tables = make_env_tables(env_map, "cuda") if env else None
+    work = {}
 
     def kernel():
-        return render_pt_linear(ss, cam, width, height, spp, depth,
-                                seed=seed, t_min=t_min, device="cuda")
+        film = torch.zeros((n_pix, 3), dtype=torch.float32, device="cuda")
+        return pt_accumulate(film, ss, cam, width, height, 0, spp, depth,
+                             seed, t_min, bsdf=bsdf, env=tables)
 
-    def plain():
+    def plain(stats=None):
         film = torch.zeros((n_pix, 3), dtype=torch.float32, device="cuda")
         return pt_accumulate_plain(film, ss, cam, width, height, 0, spp,
-                                   depth, seed, t_min)
+                                   depth, seed, t_min, bsdf=bsdf, env=tables,
+                                   stats=stats)
 
     lin_k = kernel()
-    lin_p = plain()
+    lin_p = plain(work)
     torch.cuda.synchronize()
     img = lambda f: torch.sqrt(torch.clamp(f * (1.0 / spp), min=0.0))
     diff = (img(lin_k) - img(lin_p)).abs()
     pix = diff.max(dim=1).values
+    b_ms, b_by = bound_ms(ss, n_pix, work, env_map)
     st = {
+        "kernel": name,
         "max_abs_err": float(diff.max()),
         "mean_abs_err": float(diff.mean()),
         "share_within_1e-4": float((pix <= WITHIN).float().mean()),
@@ -177,94 +243,158 @@ def phase_parity(width, height, spp, depth, seed=0) -> dict:
         "finite": bool(torch.isfinite(lin_k).all()),
         "kernel_ms": _time_ms(kernel, 3),
         "plain_ms": _time_ms(plain, 1),
+        "bound_ms": b_ms, "bound_by": b_by,
+        "bounces_per_sample": work["bounces"] / work["samples"],
     }
     print(json.dumps({"shape": [width, height, spp, depth], **st}))
     if not st["finite"]:
-        raise AssertionError("kernel film has non-finite values")
+        raise AssertionError(f"{name} film has non-finite values")
     if st["mean_abs_err"] > MEAN_ABS_MAX:
-        raise AssertionError(f"mean |kernel - plain| {st['mean_abs_err']} "
-                             f"> {MEAN_ABS_MAX}")
+        raise AssertionError(f"{name}: mean |kernel - plain| "
+                             f"{st['mean_abs_err']} > {MEAN_ABS_MAX}")
     if st["share_within_1e-4"] < WITHIN_SHARE_MIN:
         raise AssertionError(
-            f"only {st['share_within_1e-4']:.4f} of pixels within {WITHIN} "
-            f"(need {WITHIN_SHARE_MIN})")
+            f"{name}: only {st['share_within_1e-4']:.4f} of pixels within "
+            f"{WITHIN} (need {WITHIN_SHARE_MIN})")
     return st
 
 
-def _main_path_argv(width, height, spp, depth):
-    return ["render", "--scene", SCENE, "--renderer", "SimplePathTracer",
+def _cli_argv(scene, renderer, width, height, spp, depth, out, env=False):
+    argv = ["render", "--scene", scene, "--renderer", renderer,
             "--width", str(width), "--height", str(height), "--spp",
             str(spp), "--depth", str(depth), "--device", "cuda",
-            "--out", OUT_PNG]
+            "--out", out]
+    return argv + (["--env-map", ENV_MAP] if env else [])
 
 
-def phase_main_path(width=512, height=512, spp=2048, depth=20) -> dict:
-    print(f"== phase 5: main path, cli render {width}x{height}, {spp} spp, "
-          f"depth {depth}")
+def phase_cli(phase, label, argv, kernels, width, height, spp, depth,
+              band, check) -> dict:
+    """One path through `cli.main`: a warm-up run, then a timed run with
+    every launch count set to 0 just before it and read just after."""
+    print(f"== phase {phase}: {label}, cli render {width}x{height}, "
+          f"{spp} spp, depth {depth}")
     from nrenderer_torch import cli
     from nrenderer_torch.ops import pt_cuda
     from nrenderer_torch.server.registry import get_server
-    os.makedirs(os.path.dirname(OUT_PNG), exist_ok=True)
-    argv = _main_path_argv(width, height, spp, depth)
+    out = argv[argv.index("--out") + 1]
+    os.makedirs(os.path.dirname(out), exist_ok=True)
     t0 = time.perf_counter()
     if cli.main(argv) != 0:
-        raise AssertionError("warm-up render failed")
+        raise AssertionError(f"{label}: warm-up render failed")
     torch.cuda.synchronize()
     warm_s = time.perf_counter() - t0
 
-    pt_cuda.KERNEL_LAUNCHES = pt_cuda.HASH_LAUNCHES = 0
+    pt_cuda.reset_launch_counts()
     t0 = time.perf_counter()
     rc = cli.main(argv)
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
-    launches = pt_cuda.KERNEL_LAUNCHES
+    launches = dict(pt_cuda.KERNEL_LAUNCHES)
     if rc != 0:
-        raise AssertionError("timed render failed")
-    if launches <= 0:
-        raise AssertionError("the main path launched no path-tracing kernel")
+        raise AssertionError(f"{label}: timed render failed")
+    for name in kernels:
+        if launches[name] <= 0:
+            raise AssertionError(f"{label} launched no {name}")
 
     px = get_server().screen.get_pixels()[:, :, :3]
     if px.shape != (height, width, 3):
-        raise AssertionError(f"image shape {px.shape}")
+        raise AssertionError(f"{label}: image shape {px.shape}")
     if not np.isfinite(px).all() or px.min() < 0.0 or px.max() > 1.0:
-        raise AssertionError("image not finite or outside [0, 1]")
+        raise AssertionError(f"{label}: image not finite or outside [0, 1]")
     mean = float(px.mean())
-    light = float(px[int(0.09 * height):int(0.14 * height),
-                     int(0.45 * width):int(0.55 * width)].mean())
-    if not MEAN_BAND[0] <= mean <= MEAN_BAND[1]:
-        raise AssertionError(f"image mean {mean} outside {MEAN_BAND}")
-    if not light > mean:
-        raise AssertionError(f"light region {light} not brighter than the "
-                             f"mean {mean}")
-    if not os.path.getsize(OUT_PNG) > 0:
-        raise AssertionError("no PNG written")
-    st = {"seconds": secs, "warmup_seconds": warm_s, "launches": launches,
-          "spp_per_s": spp / secs,
+    if not band[0] <= mean <= band[1]:
+        raise AssertionError(f"{label}: image mean {mean} outside {band}")
+    region, region_min = check(px, mean)
+    if not os.path.getsize(out) > 0:
+        raise AssertionError(f"{label}: no PNG written")
+    st = {"path": label, "seconds": secs, "warmup_seconds": warm_s,
+          "launches": launches, "spp_per_s": spp / secs,
           "mbounce_rays_per_s": width * height * spp * depth / secs / 1e6,
-          "image_mean": mean, "light_region_mean": light}
+          "image_mean": mean, "check_region_mean": region}
     print(json.dumps(st))
+    if not region > region_min:
+        raise AssertionError(f"{label}: checked region {region} not above "
+                             f"{region_min}")
     return st
+
+
+def _light_brighter(px, mean):
+    """The area light's region of the Cornell image, against the mean."""
+    h, w = px.shape[:2]
+    light = float(px[int(0.09 * h):int(0.14 * h),
+                     int(0.45 * w):int(0.55 * w)].mean())
+    return light, mean
+
+
+def _sky_bright(px, mean):
+    """The top-left corner of the env image sees the sky."""
+    h, w = px.shape[:2]
+    return float(px[:h // 8, :w // 8].mean()), SKY_MIN
+
+
+def phase_main_path(width=512, height=512, spp=2048, depth=20) -> dict:
+    argv = _cli_argv(SCENE, "SimplePathTracer", width, height, spp, depth,
+                     OUT_PNG)
+    return phase_cli(5, "main path (SimplePathTracer)", argv,
+                     ["pt_diffuse_kernel"], width, height, spp, depth,
+                     MEAN_BAND, _light_brighter)
+
+
+def phase_acc_path(width=512, height=512, spp=2048, depth=20) -> dict:
+    out = os.path.join(ROOT, "build", "smoke_glass.png")
+    argv = _cli_argv(GLASS_SCENE, "AccPathTracer", width, height, spp,
+                     depth, out)
+    return phase_cli(6, "AccPathTracer", argv, ["pt_bsdf_kernel"], width,
+                     height, spp, depth, GLASS_MEAN_BAND, _light_brighter)
+
+
+def phase_env_paths(width=512, height=512, spp=1024, depth=8) -> tuple:
+    runs = []
+    for renderer, kernel in (("AccPathTracer", "pt_bsdf_env_kernel"),
+                             ("SimplePathTracer", "pt_diffuse_env_kernel")):
+        out = os.path.join(ROOT, "build", f"smoke_env_{renderer}.png")
+        argv = _cli_argv(ENV_SCENE, renderer, width, height, spp, depth, out,
+                         env=True)
+        runs.append(phase_cli(7, f"env map ({renderer})", argv, [kernel],
+                              width, height, spp, depth, ENV_MEAN_BAND,
+                              _sky_bright))
+    return tuple(runs)
 
 
 def main() -> int:
     gpu = phase_toolchain()
     phase_build()
     phase_hash()
-    small = phase_parity(64, 64, 16, 4)
-    full = phase_parity(512, 512, 4, 20)
-    main_run = phase_main_path()
+    # (kernel name, its main path's parity shape) -> stats
+    parity = {}
+    for scene, bsdf, env, depth in ((SCENE, False, False, 20),
+                                    (GLASS_SCENE, True, False, 20),
+                                    (ENV_SCENE, False, True, 8),
+                                    (ENV_SCENE, True, True, 8)):
+        phase_parity(64, 64, 16, 4, scene=scene, bsdf=bsdf, env=env)
+        st = phase_parity(512, 512, 4, depth, scene=scene, bsdf=bsdf,
+                          env=env)
+        parity[st["kernel"]] = st
+    paths = [phase_main_path(), phase_acc_path(), *phase_env_paths()]
+    launches = {}
+    for run in paths:
+        for name, n in run["launches"].items():
+            if n:
+                launches[name] = n
     from nrenderer_torch.ops import pt_cuda
-    print(f"plain vs kernel at 64x64/16/4: {small['plain_ms']:.3f} ms vs "
-          f"{small['kernel_ms']:.3f} ms; main path {main_run['seconds']:.3f} "
-          f"s, {main_run['spp_per_s']:.1f} spp/s, "
-          f"{main_run['mbounce_rays_per_s']:.1f} Mbounce-rays/s on {gpu}")
+    for run in paths:
+        print(f"{run['path']}: {run['seconds']:.3f} s, "
+              f"{run['spp_per_s']:.1f} spp/s, "
+              f"{run['mbounce_rays_per_s']:.1f} Mbounce-rays/s on {gpu}")
     print(gpu)
     print(json.dumps({"kernels": [{
-        "name": "pt_diffuse_kernel", "route": "cuda",
-        "source": pt_cuda.KERNEL_SOURCE, "replaces": pt_cuda.REPLACES,
-        "launches": main_run["launches"],
-        "max_abs_err": full["max_abs_err"],
-        "ms": full["kernel_ms"], "plain_ms": full["plain_ms"]}]}))
+        "name": name, "route": "cuda", "source": pt_cuda.KERNEL_SOURCE,
+        "replaces": pt_cuda.REPLACES[name],
+        "launches": launches.get(name, 0),
+        "max_abs_err": st["max_abs_err"],
+        "ms": st["kernel_ms"], "plain_ms": st["plain_ms"],
+        "bound_ms": st["bound_ms"], "bound_by": st["bound_by"],
+        "library_ms": None} for name, st in parity.items()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -4,6 +4,9 @@
     python -m nrenderer_torch render --scene resource/cornell_box.scn \
         --renderer SimplePathTracer --spp 2048 --width 512 --height 512 \
         --depth 20 --out out.png [--device cuda|cpu]
+    python -m nrenderer_torch render --scene resource/env_spheres.scn \
+        --env-map resource/env_sky.png --renderer AccPathTracer \
+        [--checkpoint film.npz] ...
 
 Render settings defaults mirror the UI's `RenderSettingsManager.hpp:20-24`
 (500x500, spp=16, depth=20); the camera defaults mirror `Camera.hpp:22-29`.
@@ -30,7 +33,28 @@ def _build_scene(args):
     ro.height = args.height
     ro.depth = args.depth
     ro.samples_per_pixel = args.spp
+    # global microfacet knobs (reference RenderSettingsManager.hpp:15-17);
+    # None = unset, per-material properties win (scene/model.RenderOption)
+    if args.roughness is not None:
+        ro.roughness = args.roughness
+    if args.f0 is not None:
+        ro.f0 = args.f0
+    if args.metalness is not None:
+        ro.metalness = args.metalness
+    if args.env_map:
+        from .io.image import load_image
+        from .scene.model import AmbientType, Texture
+        pixels = load_image(args.env_map)
+        if pixels is None:
+            raise EnvMapError(f"cannot decode env map {args.env_map}")
+        scene.ambient.environment_map = len(scene.textures)
+        scene.textures.append(Texture(name=args.env_map, pixels=pixels))
+        scene.ambient.type = AmbientType.ENVIRONMENT_MAP
     return scene
+
+
+class EnvMapError(ValueError):
+    pass
 
 
 def _cmd_render(args) -> int:
@@ -52,11 +76,23 @@ def _cmd_render(args) -> int:
     except ScnParseError as exc:
         print(f"error: scene import failed: {exc}", file=sys.stderr)
         return 2
+    except EnvMapError as exc:
+        print(f"error: {exc}", file=sys.stderr)
+        return 2
 
     component = None
     if args.renderer == "SimplePathTracer":
+        if args.checkpoint:
+            print("error: --checkpoint for SimplePathTracer needs its "
+                  "progressive route (ROADMAP A4), not ported yet",
+                  file=sys.stderr)
+            return 2
         from .renderers.simple_pt import SimplePathTracerRenderer
         component = SimplePathTracerRenderer(seed=args.seed, device=device)
+    elif args.renderer == "AccPathTracer":
+        from .renderers.acc_pt import AccPathTracerRenderer
+        component = AccPathTracerRenderer(
+            seed=args.seed, checkpoint_path=args.checkpoint, device=device)
 
     mgr = ComponentManager()
     t0 = time.perf_counter()
@@ -69,7 +105,11 @@ def _cmd_render(args) -> int:
         print(f"error: unknown renderer {args.renderer!r}; "
               f"available: {names}", file=sys.stderr)
         return 2
-    result = mgr.wait()
+    try:
+        result = mgr.wait()
+    except NotImplementedError as exc:
+        print(f"error: {exc}", file=sys.stderr)
+        return 2
     wall = time.perf_counter() - t0
     if result is None:
         print("render failed", file=sys.stderr)
@@ -106,6 +146,16 @@ def main(argv=None) -> int:
     pr.add_argument("--spp", type=int, default=16)
     pr.add_argument("--seed", type=int, default=0)
     pr.add_argument("--out", default="out.png")
+    pr.add_argument("--env-map", help="environment map image (PNG)")
+    pr.add_argument("--roughness", type=float,
+                    help="global microfacet roughness override")
+    pr.add_argument("--f0", type=float,
+                    help="global microfacet F0 override")
+    pr.add_argument("--metalness", type=float,
+                    help="global microfacet metalness override")
+    pr.add_argument("--checkpoint",
+                    help="checkpoint file for resumable rendering "
+                         "(AccPathTracer)")
     pr.add_argument("--device", default="cuda",
                     help="'cuda' (the CUDA kernel; fails without a GPU) or "
                          "'cpu' (the plain torch version)")

@@ -1,8 +1,13 @@
-// Diffuse path-tracing megakernel for NVIDIA Hopper (sm_90a).
+// Path-tracing megakernel for NVIDIA Hopper (sm_90a), in four forms.
 //
-// Replaces the TPU kernel nrenderer_tpu/ops/pt_pallas.py::_pt_kernel in its
-// diffuse form (bsdf=False; no env map, no textures, no mesh sweep).  The
-// Python wrapper, its plain torch version and the launch counter are in
+// Replaces the TPU kernel nrenderer_tpu/ops/pt_pallas.py:123 _pt_kernel on
+// analytic scenes (spheres, triangles, planes; no textures, no mesh sweep),
+// in its forms bsdf=False / bsdf=True, each without or with the env-map
+// terms (env_rows / env_exact).  pt_kernel<kBsdf, kEnv> is instantiated four
+// times: pt_diffuse_kernel <false, false> (SimplePathTracer's main path),
+// pt_bsdf_kernel <true, false> (AccPathTracer), pt_diffuse_env_kernel
+// <false, true> and pt_bsdf_env_kernel <true, true>.  The Python wrapper,
+// its plain torch version and the launch counters are in
 // nrenderer_torch/ops/pt_cuda.py.
 //
 // What it computes, per pixel and per sample: a jittered camera ray (thin
@@ -10,14 +15,33 @@
 // up to `depth` bounces, each drawing hash_uniform(pid, sample, 4/5,
 // seed + b * 0x9E3779B1): the closest hit over spheres, triangles and planes,
 // the closest area-light crossing, the light's radiance if the light comes
-// first, otherwise a uniform-hemisphere Lambertian bounce (throughput *=
-// 2 * albedo * cos).  A path that survives the depth cap sees the ambient
-// constant.  The math and its float32 operation order are those of
-// nrenderer_torch/ops/{camera,intersect,pt_core}.py, which mirror the JAX
-// package.  Built with -fmad=false, the kernel gives the plain torch version's
-// film bit for bit on the card (sinf/cosf/rsqrtf are the same device
-// functions there); against the JAX kernel on the CPU the last ulp of the
-// transcendentals differs.
+// first, otherwise a scatter.  The diffuse form scatters Lambertian (uniform
+// hemisphere, throughput *= 2 * albedo * cos).  The BSDF form switches on
+// the material's effective lobe, computed on the host by the JAX select
+// chain's rule (pt_core.effective_lobe): Lambertian, conductor (complex
+// Fresnel mirror), glass (one of reflect/refract chosen by Schlick F with
+// the draw-6 uniform), GGX microfacet, plastic (mirror or diffuse chosen by
+// Schlick F with the draw-6 uniform).  The JAX select chain returns one
+// lobe's values unchanged, so evaluating only that lobe is exact.  A path
+// that survives the depth cap sees the ambient constant.
+//
+// The env form: a path that misses everything at bounce 0 adds throughput *
+// the native-resolution texel of its direction; a later miss records its
+// throughput and direction (a path dies at its miss, so one record), and
+// after the loop one lookup in the mean-pooled 32x128 bin table adds
+// throughput * bin.  Both index with the Pallas kernel's polynomial
+// atan2/asin.  The Pallas kernel reads the bounce-0 texel from per-pixel
+// PxP windows gathered on the host because Mosaic cannot gather; here it is
+// a direct read of the map, the same texel whenever the window fits.  As
+// the Pallas kernel peels bounce 0, the env form runs it even at depth 0.
+//
+// The math and its float32 operation order are those of
+// nrenderer_torch/ops/{camera,intersect,pt_core,env}.py, which mirror the
+// JAX package (x ** 5 is spelled x * ((x * x) * (x * x)), JAX's
+// integer_pow).  Built with -fmad=false, the kernel gives the plain torch
+// version's film bit for bit on the card (sinf/cosf/sqrtf/rsqrtf are the
+// same device functions there); against the JAX kernel on the CPU the last
+// ulp of the transcendentals differs.
 //
 // Design: one thread per pixel; each thread loops over its samples and their
 // bounces in registers and stops a path as soon as it dies (a dead path
@@ -26,23 +50,26 @@
 // row, so both draw the same hash values.  The scene is a small packed
 // float32 table in device memory; every thread of a warp reads the same
 // address at the same time, so the reads are broadcasts served from L1.  The
-// camera basis and t_min are kernel arguments.
+// env map and its bin table are read per miss (at most two reads per sample).
+// The camera basis and t_min are kernel arguments.
 //
 // The film is a linear (W*H, 3) float32 SUM that each launch adds samples
 // [sp0, sp0 + n_spp) into IN PLACE, one sample after another per pixel: a
 // render split over several launches gives the same sums as one launch.  The
 // wrapper scales by 1/spp and applies the sqrt gamma.
 //
-// What bounds it on the H100: FP32 ALU work (about 16 primitive tests per
-// bounce for the Cornell box) and warp divergence as paths die at different
-// bounces; memory traffic is one film read and write per pixel per launch.
+// What bounds it on the H100: FP32 issue (about 16 primitive tests per
+// bounce for the Cornell box, plus the lobe's math) and warp divergence, as
+// paths die at different bounces and, in the BSDF form, as lanes of a warp
+// take different lobes of the material switch; memory traffic is one film
+// read and write per pixel per launch plus a few env texels per sample.
 // This first design does nothing about either yet: no per-scene
-// specialisation, no path regeneration or compaction of dead lanes.
+// specialisation, no path regeneration, no sorting of rays by material.
 //
 // Built with nvcc for sm_90a without --use_fast_math (the hit tests and the
 // hash need IEEE division and sqrt) and with -fmad=false (see above; the
 // flags are in nrenderer_torch/_build.py).  Plain C interface, loaded with
-// ctypes: each launcher returns cudaGetLastError().
+// ctypes: the launcher returns cudaGetLastError().
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -56,8 +83,18 @@ constexpr int SPH_STRIDE = 6;   // cx cy cz r*r 1/r mat
 constexpr int TRI_STRIDE = 13;  // v1[3] e1[3] e2[3] n[3] mat
 constexpr int PLN_STRIDE = 14;  // pos[3] n[3] inv0[3] inv1[3] dot(pos,n) mat
 constexpr int AL_STRIDE = 16;   // pos[3] n[3] inv0[3] inv1[3] dot(pos,n) rad[3]
-constexpr int MAT_STRIDE = 3;   // albedo rgb
+// A material row: the 20 floats of pt_core.make_mat_channels, then the
+// effective lobe: type, diffuse rgb, albedo rgb, ior, absorbed rgb, eta_r
+// rgb, eta_i rgb, roughness, f0, metalness, lobe.
+constexpr int MAT_STRIDE = 21;
+constexpr int M_DIFFUSE = 1, M_ALBEDO = 4, M_IOR = 7, M_ABSORBED = 8,
+              M_ETA_R = 11, M_ETA_I = 14, M_ROUGH = 17, M_F0 = 18,
+              M_METAL = 19, M_LOBE = 20;
 // then 3 floats of ambient constant
+
+// Binned env table (3, ENV_ROWS, ENV_LANES), pt_cuda.EnvTables.bins.
+constexpr int ENV_ROWS = 32;
+constexpr int ENV_LANES = 128;
 
 struct SceneCounts {
   int n_sph, n_tri, n_pln, n_al, n_mat;
@@ -69,7 +106,12 @@ struct CamArgs {
 };
 constexpr int CAM_FLOATS = 22;
 
-constexpr float TWO_PI = (float)(2.0 * 3.14159265358979323846);
+constexpr double PI_D = 3.14159265358979323846;
+constexpr float TWO_PI = (float)(2.0 * PI_D);
+constexpr float HALF_PI_F = (float)(0.5 * PI_D);
+constexpr float PI_F = (float)PI_D;
+constexpr float INV_2PI_F = (float)(0.5 / PI_D);
+constexpr float INV_PI_F = (float)(1.0 / PI_D);
 
 // lowbias32-style hash of (pixel, sample, draw site, seed) -> [0, 1); the
 // same bits as pt_core.hash_uniform (uint32 arithmetic wraps, shifts are
@@ -105,11 +147,240 @@ __device__ __forceinline__ float patch_t(const float* __restrict__ p, float ox,
   return ok ? t : INFINITY;
 }
 
+struct F3 {
+  float x, y, z;
+};
+
+__device__ __forceinline__ float dot3(const F3 a, const F3 b) {
+  return a.x * b.x + a.y * b.y + a.z * b.z;
+}
+
+// soa.normalize3(a, eps=1e-20 or 1e-12): both floors fall to 1.2e-38
+__device__ __forceinline__ F3 normalize3(const F3 a) {
+  const float inv = rsqrtf(fmaxf(dot3(a, a), 1.2e-38f));
+  return F3{a.x * inv, a.y * inv, a.z * inv};
+}
+
+__device__ __forceinline__ F3 reflect3(const F3 d, const F3 n) {
+  const float k = 2.0f * dot3(d, n);
+  return F3{d.x - k * n.x, d.y - k * n.y, d.z - k * n.z};
+}
+
+// x ** 5 as JAX's integer_pow computes it
+__device__ __forceinline__ float pow5(const float x) {
+  const float x2 = x * x;
+  return x * (x2 * x2);
+}
+
+// pt_core.hemisphere_from_uv
+__device__ __forceinline__ F3 hemisphere(const float u1, const float u2) {
+  const float r = sqrtf(fmaxf(0.0f, 1.0f - u1 * u1));
+  const float phi = TWO_PI * u2;
+  return F3{cosf(phi) * r, sinf(phi) * r, u1};
+}
+
+// pt_core.onb_local: the reference Onb about w applied to `vec`
+__device__ __forceinline__ F3 onb_local(const F3 w, const F3 vec) {
+  const bool big_x = fabsf(w.x) > 0.9f;
+  const float ax = big_x ? 0.0f : 1.0f, ay = big_x ? 1.0f : 0.0f;
+  const F3 v = normalize3(F3{w.y * 0.0f - w.z * ay, w.z * ax - w.x * 0.0f,
+                             w.x * ay - w.y * ax});
+  const F3 u{w.y * v.z - w.z * v.y, w.z * v.x - w.x * v.z,
+             w.x * v.y - w.y * v.x};
+  return F3{vec.x * u.x + vec.y * v.x + vec.z * w.x,
+            vec.x * u.y + vec.y * v.y + vec.z * w.y,
+            vec.x * u.z + vec.y * v.z + vec.z * w.z};
+}
+
+// pt_core.fresnel_conductor, one channel
+__device__ __forceinline__ float fresnel_chan(const float cos_i,
+                                              const float cos2,
+                                              const float sin2,
+                                              const float sin4, const float er,
+                                              const float ei) {
+  const float temp1 = er * er - ei * ei - sin2;
+  const float a2pb2 =
+      sqrtf(fmaxf(temp1 * temp1 + 4.0f * ei * ei * er * er, 0.0f));
+  const float a = sqrtf(fmaxf(0.5f * (a2pb2 + temp1), 0.0f));
+  const float t1 = a2pb2 + cos2;
+  const float t2 = 2.0f * cos_i * a;
+  const float t3 = a2pb2 * cos2 + sin4;
+  const float t4 = t2 * sin2;
+  const float r_s = (t1 - t2) / (t1 + t2);
+  const float r_p = r_s * (t3 - t4) / (t3 + t4);
+  return 0.5f * (r_s + r_p);
+}
+
+// pt_core._smith_g1
+__device__ __forceinline__ float smith_g1(const F3 v, const F3 h, const F3 n,
+                                          const float alpha2) {
+  const float cos_vn = dot3(v, n);
+  const bool bad = cos_vn * dot3(v, h) <= 0.0f;
+  const float cos2 = cos_vn * cos_vn;
+  const float tan2 = (1.0f - cos2) / fmaxf(cos2, 1e-12f);
+  float g = 2.0f / (1.0f + sqrtf(1.0f + alpha2 * tan2));
+  g = (fabsf(cos_vn - 1.0f) < 1e-7f) ? 1.0f : g;
+  return bad ? 0.0f : g;
+}
+
+// One BSDF scatter (pt_core.bsdf_bounce's selected lobe) at a hit with
+// stored normal `nrm`, incoming direction `d` and material row `mt`: the new
+// direction and the throughput weight.  `u3` is drawn only by the lobes
+// that use it.
+__device__ __forceinline__ void bsdf_scatter(
+    const float* __restrict__ mt, const F3 d, const F3 nrm, const float u1,
+    const float u2, const uint32_t upid, const uint32_t sp,
+    const uint32_t bseed, F3* new_d, F3* w) {
+  switch ((int)mt[M_LOBE]) {
+    case 1: {  // conductor_scatter
+      const F3 n = normalize3(nrm);
+      const F3 l = normalize3(reflect3(d, n));
+      const float cos_l = fabsf(dot3(l, n));
+      const float cos2 = cos_l * cos_l;
+      const float sin2 = 1.0f - cos2;
+      const float sin4 = sin2 * sin2;
+      const float* er = mt + M_ETA_R;
+      const float* ei = mt + M_ETA_I;
+      const float* al = mt + M_ALBEDO;
+      *new_d = l;
+      *w = F3{fresnel_chan(cos_l, cos2, sin2, sin4, er[0], ei[0]) * cos_l *
+                  al[0],
+              fresnel_chan(cos_l, cos2, sin2, sin4, er[1], ei[1]) * cos_l *
+                  al[1],
+              fresnel_chan(cos_l, cos2, sin2, sin4, er[2], ei[2]) * cos_l *
+                  al[2]};
+      return;
+    }
+    case 2: {  // glass_scatter
+      const float u3 = hash_uniform(upid, sp, 6u, bseed);
+      const float ior = mt[M_IOR];
+      const F3 n0 = normalize3(nrm);
+      const bool inside = dot3(d, n0) > 0.0f;
+      const F3 n = inside ? F3{-n0.x, -n0.y, -n0.z} : n0;
+      const float ior_rel = inside ? 1.0f / ior : ior;
+      const F3 reflex = normalize3(reflect3(d, n));
+      const float n12 = (ior_rel - 1.0f) / (ior_rel + 1.0f);
+      const float f0 = n12 * n12;
+      const float vdotn = fabsf(dot3(d, n));
+      const float one_m = 1.0f - vdotn;
+      const float f = f0 + (1.0f - f0) * pow5(one_m);
+      const float x_ = one_m / ior_rel;
+      const bool choose_reflect = (x_ > 1.0f) || (u3 < f);
+      if (choose_reflect) {
+        *new_d = reflex;
+      } else {
+        const F3 xa =
+            normalize3(F3{reflex.x + d.x, reflex.y + d.y, reflex.z + d.z});
+        const F3 ya{-n.x, -n.y, -n.z};
+        const float y_ = sqrtf(fmaxf(1.0f - x_ * x_, 0.0f));
+        *new_d = normalize3(F3{xa.x * x_ + ya.x * y_, xa.y * x_ + ya.y * y_,
+                               xa.z * x_ + ya.z * y_});
+      }
+      *w = F3{mt[M_ABSORBED], mt[M_ABSORBED + 1], mt[M_ABSORBED + 2]};
+      return;
+    }
+    case 3: {  // microfacet_scatter
+      const F3 n = normalize3(nrm);
+      const float rough = mt[M_ROUGH];
+      const float alpha2 = rough * rough;
+      const float phi = TWO_PI * u2;
+      const float tan_theta2 = alpha2 * u1 / fmaxf(1.0f - u1, 1e-12f);
+      const float cos_theta = 1.0f / sqrtf(1.0f + tan_theta2);
+      const float sin_theta =
+          sqrtf(fmaxf(1.0f - cos_theta * cos_theta, 0.0f));
+      const F3 h = normalize3(onb_local(
+          n, F3{sin_theta * cosf(phi), sin_theta * sinf(phi), cos_theta}));
+      const F3 l = normalize3(reflect3(d, h));
+      const F3 v{-d.x, -d.y, -d.z};
+      const float cos_i = dot3(l, n);
+      const bool valid = (dot3(d, n) < 0.0f) && (cos_i > 0.0f);
+      const float f0 = mt[M_F0], metal = mt[M_METAL];
+      const float* al = mt + M_ALBEDO;
+      const float ldoth = fabsf(dot3(l, h));
+      const float om = pow5(1.0f - ldoth);
+      const float g = smith_g1(l, h, n, alpha2) * smith_g1(v, h, n, alpha2);
+      const float cos_o = fabsf(dot3(n, v));
+      const float wt = valid ? g * ldoth / fmaxf(cos_o, 1e-12f) : 0.0f;
+      float fr[3];
+      for (int c = 0; c < 3; ++c) {
+        const float spec_f0 = (1.0f - metal) * f0 + metal * al[c];
+        fr[c] = spec_f0 + (1.0f - spec_f0) * om;
+      }
+      *new_d = l;
+      *w = F3{fr[0] * wt * al[0], fr[1] * wt * al[1], fr[2] * wt * al[2]};
+      return;
+    }
+    case 4: {  // plastic_scatter
+      const float u3 = hash_uniform(upid, sp, 6u, bseed);
+      const float ior = mt[M_IOR];
+      const F3 n = normalize3(nrm);
+      const float cos_i = fabsf(dot3(d, n));
+      const float n12 = (ior - 1.0f) / (ior + 1.0f);
+      const float f0 = n12 * n12;
+      const float f = f0 + (1.0f - f0) * pow5(1.0f - cos_i);
+      if (u3 < f) {
+        *new_d = normalize3(reflect3(d, n));
+        *w = F3{mt[M_ALBEDO], mt[M_ALBEDO + 1], mt[M_ALBEDO + 2]};
+      } else {
+        const F3 dd = normalize3(onb_local(n, hemisphere(u1, u2)));
+        const float cos_d = dot3(n, dd);
+        const float* df = mt + M_DIFFUSE;
+        *new_d = dd;
+        *w = F3{df[0] * 2.0f * cos_d, df[1] * 2.0f * cos_d,
+                df[2] * 2.0f * cos_d};
+      }
+      return;
+    }
+    default: {  // Lambertian lobe about the stored normal
+      const F3 dd = normalize3(onb_local(nrm, hemisphere(u1, u2)));
+      const float cos_d = dot3(nrm, dd);
+      const float* df = mt + M_DIFFUSE;
+      *new_d = dd;
+      *w = F3{df[0] * 2.0f * cos_d, df[1] * 2.0f * cos_d,
+              df[2] * 2.0f * cos_d};
+      return;
+    }
+  }
+}
+
+// The Pallas kernel's polynomial atan2 (pt_pallas._atan2_approx)
+__device__ __forceinline__ float atan2_approx(const float y, const float x) {
+  const float ax = fabsf(x), ay = fabsf(y);
+  const float mx = fmaxf(ax, ay), mn = fminf(ax, ay);
+  const float a = mn / fmaxf(mx, 1e-30f);
+  const float s = a * a;
+  float r = a * (0.99997726f +
+                 s * (-0.33262347f +
+                      s * (0.19354346f +
+                           s * (-0.11643287f +
+                                s * (0.05265332f - 0.01172120f * s)))));
+  r = (ay > ax) ? HALF_PI_F - r : r;
+  r = (x < 0.0f) ? PI_F - r : r;
+  return (y < 0.0f) ? -r : r;
+}
+
+// equirect (u, v) of a unit direction, with the polynomial angles
+__device__ __forceinline__ void env_uv(const float dx, const float dy,
+                                       const float dz, float* u, float* v) {
+  const float yc = fminf(fmaxf(dy, -1.0f), 1.0f);
+  const float asin_y =
+      atan2_approx(yc, sqrtf(fmaxf(1.0f - yc * yc, 0.0f)));
+  *u = 0.5f + atan2_approx(dz, dx) * INV_2PI_F;
+  *v = 0.5f - asin_y * INV_PI_F;
+}
+
+__device__ __forceinline__ int clamp_index(const float x, const int n) {
+  return min(max((int)x, 0), n - 1);
+}
+
+template <bool kBsdf, bool kEnv>
 __global__ void __launch_bounds__(128)
-pt_diffuse_kernel(float* __restrict__ film, const float* __restrict__ scene,
-                  const SceneCounts nc, const CamArgs cam, const int width,
-                  const int height, const int sp0, const int n_spp,
-                  const int depth, const uint32_t seed) {
+pt_kernel(float* __restrict__ film, const float* __restrict__ scene,
+          const SceneCounts nc, const CamArgs cam, const int width,
+          const int height, const int sp0, const int n_spp, const int depth,
+          const uint32_t seed, const float* __restrict__ env_bin,
+          const float* __restrict__ env_map, const int env_h,
+          const int env_w) {
   const int pid = blockIdx.x * blockDim.x + threadIdx.x;
   if (pid >= width * height) return;
   const int py = pid / width;
@@ -125,6 +396,8 @@ pt_diffuse_kernel(float* __restrict__ film, const float* __restrict__ scene,
   const float* __restrict__ mat = al + nc.n_al * AL_STRIDE;
   const float* __restrict__ amb = mat + nc.n_mat * MAT_STRIDE;
   const float amb_r = amb[0], amb_g = amb[1], amb_b = amb[2];
+  // the env form peels bounce 0, so it runs it even at depth 0
+  const int n_bounces = (kEnv && depth < 1) ? 1 : depth;
 
   float fr = film[3 * pid + 0];
   float fg = film[3 * pid + 1];
@@ -158,7 +431,11 @@ pt_diffuse_kernel(float* __restrict__ film, const float* __restrict__ scene,
     float tr = 1.0f, tg = 1.0f, tb = 1.0f;
     float rr = 0.0f, rg = 0.0f, rb = 0.0f;
     bool alive = true;
-    for (int b = 0; b < depth; ++b) {
+    // env form: throughput and direction at a miss after bounce 0
+    bool missed = false;
+    float mr = 0.0f, mg = 0.0f, mb = 0.0f;
+    float mdx = 0.0f, mdy = 0.0f, mdz = 1.0f;
+    for (int b = 0; b < n_bounces; ++b) {
       const uint32_t bseed = seed + (uint32_t)b * 0x9E3779B1u;
       const float u1 = hash_uniform(upid, sp, 4u, bseed);
       const float u2 = hash_uniform(upid, sp, 5u, bseed);
@@ -249,48 +526,91 @@ pt_diffuse_kernel(float* __restrict__ film, const float* __restrict__ scene,
           rr += tr * lr_;
           rg += tg * lg_;
           rb += tb * lb_;
+        } else if (kEnv) {  // a miss: env-map candidate
+          if (b == 0) {     // native-resolution texel
+            float u, v;
+            env_uv(dx, dy, dz, &u, &v);
+            const float* e = env_map + 3 * (clamp_index(v * env_h, env_h) *
+                                                env_w +
+                                            clamp_index(u * env_w, env_w));
+            rr += tr * e[0];
+            rg += tg * e[1];
+            rb += tb * e[2];
+          } else {  // recorded; one binned lookup after the loop
+            missed = true;
+            mr = tr;
+            mg = tg;
+            mb = tb;
+            mdx = dx;
+            mdy = dy;
+            mdz = dz;
+          }
         }
         alive = false;
         break;
       }
 
-      // Lambertian bounce: uniform hemisphere about the stored normal
-      const float hr = sqrtf(fmaxf(0.0f, 1.0f - u1 * u1));
-      const float phi = TWO_PI * u2;
-      const float lx = cosf(phi) * hr, ly = sinf(phi) * hr, lz = u1;
-      // Onb (Onb.hpp:17-27): a = big_x ? (0,1,0) : (1,0,0)
-      const bool big_x = fabsf(nx) > 0.9f;
-      const float ax_ = big_x ? 0.0f : 1.0f, ay_ = big_x ? 1.0f : 0.0f;
-      float vx = ny * 0.0f - nz * ay_;
-      float vy = nz * ax_ - nx * 0.0f;
-      float vz = nx * ay_ - ny * ax_;
-      const float vinv =
-          rsqrtf(fmaxf(vx * vx + vy * vy + vz * vz, 1.2e-38f));
-      vx *= vinv;
-      vy *= vinv;
-      vz *= vinv;
-      const float ux = ny * vz - nz * vy;
-      const float uy = nz * vx - nx * vz;
-      const float uz = nx * vy - ny * vx;
-      float ndx = lx * ux + ly * vx + lz * nx;
-      float ndy = lx * uy + ly * vy + lz * ny;
-      float ndz = lx * uz + ly * vz + lz * nz;
-      const float dinv =
-          rsqrtf(fmaxf(ndx * ndx + ndy * ndy + ndz * ndz, 1.2e-38f));
-      ndx *= dinv;
-      ndy *= dinv;
-      ndz *= dinv;
-      const float scale = 2.0f * (nx * ndx + ny * ndy + nz * ndz);
-      const float* alb = mat + m_best * MAT_STRIDE;
-      tr = tr * (alb[0] * scale);
-      tg = tg * (alb[1] * scale);
-      tb = tb * (alb[2] * scale);
-      ox = ox + t_best * dx;
-      oy = oy + t_best * dy;
-      oz = oz + t_best * dz;
-      dx = ndx;
-      dy = ndy;
-      dz = ndz;
+      if constexpr (kBsdf) {
+        F3 nd, w;
+        bsdf_scatter(mat + m_best * MAT_STRIDE, F3{dx, dy, dz},
+                     F3{nx, ny, nz}, u1, u2, upid, sp, bseed, &nd, &w);
+        tr = tr * w.x;
+        tg = tg * w.y;
+        tb = tb * w.z;
+        ox = ox + t_best * dx;
+        oy = oy + t_best * dy;
+        oz = oz + t_best * dz;
+        dx = nd.x;
+        dy = nd.y;
+        dz = nd.z;
+      } else {
+        // Lambertian bounce: uniform hemisphere about the stored normal
+        const float hr = sqrtf(fmaxf(0.0f, 1.0f - u1 * u1));
+        const float phi = TWO_PI * u2;
+        const float lx = cosf(phi) * hr, ly = sinf(phi) * hr, lz = u1;
+        // Onb (Onb.hpp:17-27): a = big_x ? (0,1,0) : (1,0,0)
+        const bool big_x = fabsf(nx) > 0.9f;
+        const float ax_ = big_x ? 0.0f : 1.0f, ay_ = big_x ? 1.0f : 0.0f;
+        float vx = ny * 0.0f - nz * ay_;
+        float vy = nz * ax_ - nx * 0.0f;
+        float vz = nx * ay_ - ny * ax_;
+        const float vinv =
+            rsqrtf(fmaxf(vx * vx + vy * vy + vz * vz, 1.2e-38f));
+        vx *= vinv;
+        vy *= vinv;
+        vz *= vinv;
+        const float ux = ny * vz - nz * vy;
+        const float uy = nz * vx - nx * vz;
+        const float uz = nx * vy - ny * vx;
+        float ndx = lx * ux + ly * vx + lz * nx;
+        float ndy = lx * uy + ly * vy + lz * ny;
+        float ndz = lx * uz + ly * vz + lz * nz;
+        const float dinv =
+            rsqrtf(fmaxf(ndx * ndx + ndy * ndy + ndz * ndz, 1.2e-38f));
+        ndx *= dinv;
+        ndy *= dinv;
+        ndz *= dinv;
+        const float scale = 2.0f * (nx * ndx + ny * ndy + nz * ndz);
+        const float* alb = mat + m_best * MAT_STRIDE + M_DIFFUSE;
+        tr = tr * (alb[0] * scale);
+        tg = tg * (alb[1] * scale);
+        tb = tb * (alb[2] * scale);
+        ox = ox + t_best * dx;
+        oy = oy + t_best * dy;
+        oz = oz + t_best * dz;
+        dx = ndx;
+        dy = ndy;
+        dz = ndz;
+      }
+    }
+    if (kEnv && missed) {  // binned equirect lookup
+      float u, v;
+      env_uv(mdx, mdy, mdz, &u, &v);
+      const int bin = clamp_index(v * ENV_ROWS, ENV_ROWS) * ENV_LANES +
+                      clamp_index(u * ENV_LANES, ENV_LANES);
+      rr += mr * env_bin[bin];
+      rg += mg * env_bin[ENV_ROWS * ENV_LANES + bin];
+      rb += mb * env_bin[2 * ENV_ROWS * ENV_LANES + bin];
     }
     if (alive) {  // depth cap: ambient constant
       rr += tr * amb_r;
@@ -322,11 +642,15 @@ __global__ void hash_fill_kernel(const int32_t* __restrict__ pid,
 extern "C" {
 
 // Adds samples [sp0, sp0 + n_spp) of every pixel into `film` ((W*H, 3)
-// float32, device) in place.  `counts` (host): n_sph n_tri n_pln n_al n_mat;
-// `cam` (host): the 22 floats of CamArgs.
-int nr_pt_diffuse(float* film, const float* scene, const int* counts,
-                  const float* cam, int width, int height, int sp0, int n_spp,
-                  int depth, int seed, void* stream) {
+// float32, device) in place, with the instantiation `bsdf` and the env
+// tables select.  `counts` (host): n_sph n_tri n_pln n_al n_mat; `cam`
+// (host): the 22 floats of CamArgs; `env_bin` (device): the (3, ENV_ROWS,
+// ENV_LANES) bin table and `env_map` (device): the (env_h, env_w, 3) map,
+// both null for no env map.
+int nr_pt_render(float* film, const float* scene, const int* counts,
+                 const float* cam, int width, int height, int sp0, int n_spp,
+                 int depth, int seed, int bsdf, const float* env_bin,
+                 const float* env_map, int env_h, int env_w, void* stream) {
   SceneCounts nc{counts[0], counts[1], counts[2], counts[3], counts[4]};
   CamArgs ca;
   const float* c = cam;
@@ -345,8 +669,19 @@ int nr_pt_diffuse(float* film, const float* scene, const int* counts,
   const int n_pix = width * height;
   const int threads = 128;
   const int blocks = (n_pix + threads - 1) / threads;
-  pt_diffuse_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
-      film, scene, nc, ca, width, height, sp0, n_spp, depth, (uint32_t)seed);
+  cudaStream_t st = (cudaStream_t)stream;
+  const bool env = env_bin != nullptr && env_map != nullptr;
+#define NR_LAUNCH(B, E)                                                      \
+  pt_kernel<B, E><<<blocks, threads, 0, st>>>(film, scene, nc, ca, width,    \
+                                              height, sp0, n_spp, depth,     \
+                                              (uint32_t)seed, env_bin,       \
+                                              env_map, env_h, env_w)
+  if (bsdf) {
+    if (env) NR_LAUNCH(true, true); else NR_LAUNCH(true, false);
+  } else {
+    if (env) NR_LAUNCH(false, true); else NR_LAUNCH(false, false);
+  }
+#undef NR_LAUNCH
   return (int)cudaGetLastError();
 }
 
@@ -364,7 +699,17 @@ int nr_hash_uniform_fill(const int32_t* pid, const int32_t* sample,
   return (int)cudaGetLastError();
 }
 
-int nr_cam_floats() { return CAM_FLOATS; }
+// The table layout this library was built with: 0 camera floats,
+// 1 material stride, 2 env bin rows, 3 env bin lanes.
+int nr_layout(int what) {
+  switch (what) {
+    case 0: return CAM_FLOATS;
+    case 1: return MAT_STRIDE;
+    case 2: return ENV_ROWS;
+    case 3: return ENV_LANES;
+    default: return -1;
+  }
+}
 
 const char* nr_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);

@@ -1,47 +1,84 @@
-"""The diffuse path tracer's kernel: CUDA launch wrapper, plain torch version
-and launch counter.
+"""The path-tracing kernel: CUDA launch wrapper, plain torch version and
+launch counters, for the kernel's four forms.
 
-Counterpart of `nrenderer_tpu/ops/pt_pallas.py` in its diffuse form
-(`render_simple_pt_pallas`, `render_pt_pallas_linear`).  The kernel,
-`csrc/pt_kernel.cu`, replaces the Pallas `_pt_kernel`; its source header says
-what it computes and how.
+Counterpart of `nrenderer_tpu/ops/pt_pallas.py` for analytic scenes
+(`render_simple_pt_pallas`, `render_pt_pallas_linear`,
+`render_bsdf_pt_pallas`): the diffuse estimator (SimplePathTracer) or the
+five-lobe BSDF one (AccPathTracer), each without or with an environment
+map.  The kernel, `csrc/pt_kernel.cu`, replaces the Pallas `_pt_kernel` in
+those forms; its source header says what it computes and how.
 
 `pt_accumulate` is the wrapper: for a film tensor on a CUDA device it
-launches the kernel (and raises if the build or the launch fails); for a
-film on the CPU it runs `pt_accumulate_plain`, the same estimator as torch
-ops over an (N,)-ray wavefront built from `ops.camera`, `ops.intersect` and
-`ops.pt_core`.  Both draw every random number from `pt_core.hash_uniform`
-with the Pallas kernel's (pixel, sample, draw, seed) numbering, so kernel,
-plain version and the JAX kernel agree pixel by pixel up to float rounding.
+launches the kernel instantiation the form needs (and raises if the build or
+the launch fails); for a film on the CPU it runs `pt_accumulate_plain`, the
+same estimator as torch ops over an (N,)-ray wavefront built from
+`ops.camera`, `ops.intersect`, `ops.pt_core` and `ops.env`.  Both draw every
+random number from `pt_core.hash_uniform` with the Pallas kernel's (pixel,
+sample, draw, seed) numbering, so kernel, plain version and the JAX kernel
+agree pixel by pixel up to float rounding.
+
+Env-map form: a path that misses at bounce 0 reads the map's native texel
+(the Pallas kernel's exact bounce-0 term); a later miss records its
+throughput and direction, and one lookup in the mean-pooled 32x128 bin table
+per sample follows the bounce loop, as in the Pallas kernel.  Both index
+with the Pallas kernel's polynomial angles (`ops.env`).
 
 Both add into a linear film SUM in place and sample by sample, so a render
 split into several calls over consecutive sample ranges gives the same sums
-as one call.  Entry points return the JAX contract: `render_simple_pt` an
-(H, W, 3) gamma'd image with row 0 = bottom, `render_pt_linear` the
-(W*H, 3) linear SUM."""
+as one call.  Entry points return the JAX contract: `render_simple_pt` /
+`render_bsdf_pt` an (H, W, 3) gamma'd image with row 0 = bottom,
+`render_pt_linear` the (W*H, 3) linear SUM."""
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
 
 from .camera import CameraParams, shoot_v3
+from .env import (
+    ENV_LANES, ENV_ROWS, bin_env_map, env_bin_lookup, env_native_lookup,
+)
 from .intersect import StaticScene, np_dot
 from .pt_core import (
-    PI, bounce_seed, diffuse_bounce, finish_ambient, hash_uniform,
+    PI, bounce_seed, bsdf_bounce, diffuse_bounce, effective_lobe,
+    finish_ambient, hash_uniform, lobe_order, make_mat_channels,
     scene_epsilon,
 )
 from .soa import V3, normalize3
 
-# Kernel launches made by `pt_accumulate` (one per spp chunk), and by
-# `hash_uniform_fill`.  Plain integers: a caller resets and reads them to
-# show that a run went through the kernels.
-KERNEL_LAUNCHES = 0
+KERNEL_SOURCE = "nrenderer_torch/csrc/pt_kernel.cu"
+_PALLAS = "nrenderer_tpu/ops/pt_pallas.py:123 _pt_kernel"
+
+# The kernel's instantiations by (bsdf, env), and the Pallas form each
+# replaces.
+KERNELS = {
+    (False, False): "pt_diffuse_kernel",
+    (True, False): "pt_bsdf_kernel",
+    (False, True): "pt_diffuse_env_kernel",
+    (True, True): "pt_bsdf_env_kernel",
+}
+REPLACES = {
+    "pt_diffuse_kernel": f"{_PALLAS}, bsdf=False",
+    "pt_bsdf_kernel": f"{_PALLAS}, bsdf=True",
+    "pt_diffuse_env_kernel": f"{_PALLAS}, bsdf=False, env_rows/env_exact",
+    "pt_bsdf_env_kernel": f"{_PALLAS}, bsdf=True, env_rows/env_exact",
+}
+
+# Kernel launches made by `pt_accumulate` (one per spp chunk), by
+# instantiation name, and by `hash_uniform_fill`.  Plain integers: a caller
+# resets and reads them to show that a run went through the kernels.
+KERNEL_LAUNCHES = {name: 0 for name in KERNELS.values()}
 HASH_LAUNCHES = 0
 
-KERNEL_SOURCE = "nrenderer_torch/csrc/pt_kernel.cu"
-REPLACES = "nrenderer_tpu/ops/pt_pallas.py:123"
+
+def reset_launch_counts() -> None:
+    global HASH_LAUNCHES
+    for name in KERNEL_LAUNCHES:
+        KERNEL_LAUNCHES[name] = 0
+    HASH_LAUNCHES = 0
+
 
 # One kernel launch covers at most this many pixel-samples (a 512x512 film
 # takes 32 spp per launch); the plain version traces at most this many rays
@@ -49,11 +86,21 @@ REPLACES = "nrenderer_tpu/ops/pt_pallas.py:123"
 PIXEL_SAMPLES_PER_LAUNCH = 1 << 23
 PLAIN_RAYS_PER_WAVEFRONT = 1 << 20
 
-# Packed scene-table strides; csrc/pt_kernel.cu reads the same layout.
-SPH_STRIDE, TRI_STRIDE, PLN_STRIDE, AL_STRIDE, MAT_STRIDE = 6, 13, 14, 16, 3
+# The slice's size limit: the kernel tests triangles one by one, so a scene
+# past this count belongs to the mesh engines.  The JAX package's
+# brute-force limit (its AccPathTracer's ACC_TYPE0_MAX_TRIS).
+MAX_TRIS = 2048
+
+# Packed scene-table strides; csrc/pt_kernel.cu reads the same layout.  A
+# material row is the 20 `make_mat_channels` floats plus its effective lobe.
+SPH_STRIDE, TRI_STRIDE, PLN_STRIDE, AL_STRIDE, MAT_STRIDE = 6, 13, 14, 16, 21
 CAM_FLOATS = 22
 
 _bound = None
+
+
+def kernel_name(bsdf: bool, env: bool) -> str:
+    return KERNELS[(bool(bsdf), bool(env))]
 
 
 def check_device(device) -> torch.device:
@@ -72,21 +119,42 @@ def check_device(device) -> torch.device:
 
 def check_supported(ss: StaticScene) -> None:
     """Refuse scenes that need a kernel form this slice lacks."""
-    if ss.ambient_type == 1:
-        raise NotImplementedError(
-            "environment-map ambient (ambient_type 1) needs the env-map form "
-            "of the path-tracing kernel (ROADMAP B1c), not ported yet")
     if ss.tri_uv:
         raise NotImplementedError(
             "textured faces need the texture form of the path-tracing "
             "kernel (ROADMAP B1d), not ported yet")
+    if len(ss.tri) > MAX_TRIS:
+        raise NotImplementedError(
+            f"{len(ss.tri)} triangles is past the analytic kernel's limit "
+            f"of {MAX_TRIS}: meshes need the mesh slice (ROADMAP A7, B2), "
+            "not ported yet")
+
+
+class EnvTables(NamedTuple):
+    """An env map as the kernel reads it, float32 on one device."""
+    bins: torch.Tensor    # (3, ENV_ROWS, ENV_LANES) mean-pooled bin table
+    native: torch.Tensor  # (He, We, 3) the map itself
+
+
+def make_env_tables(env_map, device) -> EnvTables:
+    """`env_map` ((He, We, 3) float array) -> EnvTables on `device`."""
+    e = np.ascontiguousarray(np.asarray(env_map, np.float32)[..., :3])
+    if e.ndim != 3 or e.shape[0] < 1 or e.shape[1] < 1 \
+            or e.size >= 1 << 31:
+        raise ValueError(f"unsupported env map shape {e.shape}")
+    return EnvTables(
+        bins=torch.as_tensor(bin_env_map(e, ENV_ROWS, ENV_LANES),
+                             device=device),
+        native=torch.as_tensor(e, device=device))
 
 
 def pack_scene(ss: StaticScene):
     """The kernel's float32 scene table and its counts
     (n_sph, n_tri, n_pln, n_al, n_mat).  Constants are rounded to float32
     exactly where the plain form rounds them: r*r and 1/r in double, the
-    plane offset dot(pos, n) in float32 (`intersect.np_dot`)."""
+    plane offset dot(pos, n) in float32 (`intersect.np_dot`).  Each
+    material row ends with its effective lobe (`pt_core.effective_lobe`),
+    so the kernel switches on one integer."""
     rows = []
     for (cx, cy, cz, r, m) in ss.sph:
         rows.append([cx, cy, cz, r * r, 1.0 / r, m])
@@ -96,8 +164,9 @@ def pack_scene(ss: StaticScene):
         rows.append([*pos, *n, *inv0, *inv1, np_dot(pos, n), m])
     for (pos, n, inv0, inv1, rad) in ss.al:
         rows.append([*pos, *n, *inv0, *inv1, np_dot(pos, n), *rad])
-    for m in ss.mats:
-        rows.append(list(m["diffuse"]))
+    lobes = lobe_order(ss)
+    for ch in make_mat_channels(ss):
+        rows.append([*ch, effective_lobe(ch[0], lobes)])
     rows.append(list(ss.ambient_constant))
     table = np.asarray([float(x) for row in rows for x in row], np.float32)
     counts = (len(ss.sph), len(ss.tri), len(ss.pln), len(ss.al),
@@ -135,18 +204,19 @@ def _kernels() -> ctypes.CDLL:
         from .. import _build
         lib = _build.load_library()
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.nr_pt_diffuse.argtypes = [
+        lib.nr_pt_render.argtypes = [
             vp, vp, ctypes.POINTER(ci), ctypes.POINTER(ctypes.c_float),
-            ci, ci, ci, ci, ci, ci, vp]
-        lib.nr_pt_diffuse.restype = ci
+            ci, ci, ci, ci, ci, ci, ci, vp, vp, ci, ci, vp]
+        lib.nr_pt_render.restype = ci
         lib.nr_hash_uniform_fill.argtypes = [vp, vp, vp, vp, vp, ci, vp]
         lib.nr_hash_uniform_fill.restype = ci
-        lib.nr_cam_floats.argtypes = []
-        lib.nr_cam_floats.restype = ci
+        lib.nr_layout.argtypes = [ci]
+        lib.nr_layout.restype = ci
         lib.nr_error_string.argtypes = [ci]
         lib.nr_error_string.restype = ctypes.c_char_p
-        if lib.nr_cam_floats() != CAM_FLOATS:
-            raise RuntimeError("kernel library camera layout mismatch")
+        want = (CAM_FLOATS, MAT_STRIDE, ENV_ROWS, ENV_LANES)
+        if tuple(lib.nr_layout(i) for i in range(4)) != want:
+            raise RuntimeError("kernel library table layout mismatch")
         _bound = lib
     return _bound
 
@@ -175,30 +245,48 @@ def _check_film(film: torch.Tensor, n_pix: int) -> None:
             f"{film.dtype} {tuple(film.shape)}")
 
 
+def _check_env(env: EnvTables, device: torch.device) -> None:
+    bins, native = env
+    ok = (bins.dtype == native.dtype == torch.float32
+          and tuple(bins.shape) == (3, ENV_ROWS, ENV_LANES)
+          and native.dim() == 3 and native.shape[2] == 3
+          and bins.is_contiguous() and native.is_contiguous()
+          and bins.device == native.device == device)
+    if not ok:
+        raise ValueError("env tables must be contiguous float32 (3, "
+                         f"{ENV_ROWS}, {ENV_LANES}) and (He, We, 3) tensors "
+                         f"on the film's device {device}")
+
+
 def pt_accumulate(film: torch.Tensor, ss: StaticScene, cam: CameraParams,
                   width: int, height: int, sp0: int, n_spp: int, depth: int,
-                  seed: int, t_min: float) -> torch.Tensor:
+                  seed: int, t_min: float, bsdf: bool = False,
+                  env: Optional[EnvTables] = None) -> torch.Tensor:
     """Add samples [sp0, sp0 + n_spp) of every pixel into the linear film
-    ((W*H, 3) float32) IN PLACE; returns `film`.  A CUDA film goes through
-    the kernel, a CPU film through the plain version."""
+    ((W*H, 3) float32) IN PLACE; returns `film`.  `bsdf`: AccPathTracer's
+    five-lobe estimator instead of the diffuse one; `env`: env-map misses.
+    A CUDA film goes through the kernel, a CPU film through the plain
+    version."""
     check_supported(ss)
     _check_sizes(width, height, sp0, n_spp, depth)
     _check_film(film, width * height)
+    if env is not None:
+        _check_env(env, film.device)
     if film.device.type == "cuda":
         _pt_accumulate_cuda(film, ss, cam, width, height, sp0, n_spp, depth,
-                            seed, t_min)
+                            seed, t_min, bsdf, env)
     elif film.device.type == "cpu":
         pt_accumulate_plain(film, ss, cam, width, height, sp0, n_spp, depth,
-                            seed, t_min)
+                            seed, t_min, bsdf=bsdf, env=env)
     else:
         raise ValueError(f"unsupported film device {film.device}")
     return film
 
 
 def _pt_accumulate_cuda(film, ss, cam, width, height, sp0, n_spp, depth,
-                        seed, t_min) -> None:
-    global KERNEL_LAUNCHES
+                        seed, t_min, bsdf, env) -> None:
     lib = _kernels()
+    name = kernel_name(bsdf, env is not None)
     table, counts = pack_scene(ss)
     if table.size != table_size(counts):
         raise ValueError("scene table size does not match its counts")
@@ -206,17 +294,24 @@ def _pt_accumulate_cuda(film, ss, cam, width, height, sp0, n_spp, depth,
     cnt = (ctypes.c_int * 5)(*counts)
     camf = (ctypes.c_float * CAM_FLOATS)(
         *camera_floats(cam, width, height, t_min))
+    if env is None:
+        env_bin = env_map = None
+        env_h = env_w = 0
+    else:
+        env_bin, env_map = env.bins.data_ptr(), env.native.data_ptr()
+        env_h, env_w = env.native.shape[0], env.native.shape[1]
     n_pix = width * height
     per_launch = max(1, PIXEL_SAMPLES_PER_LAUNCH // n_pix)
     with torch.cuda.device(film.device):
         stream = torch.cuda.current_stream().cuda_stream
         for c0 in range(0, n_spp, per_launch):
             n = min(per_launch, n_spp - c0)
-            err = lib.nr_pt_diffuse(film.data_ptr(), tab.data_ptr(), cnt,
-                                    camf, width, height, sp0 + c0, n, depth,
-                                    _int32(seed), stream)
-            _check_launch(lib, err, "pt_diffuse_kernel")
-            KERNEL_LAUNCHES += 1
+            err = lib.nr_pt_render(film.data_ptr(), tab.data_ptr(), cnt,
+                                   camf, width, height, sp0 + c0, n, depth,
+                                   _int32(seed), int(bool(bsdf)), env_bin,
+                                   env_map, env_h, env_w, stream)
+            _check_launch(lib, err, name)
+            KERNEL_LAUNCHES[name] += 1
 
 
 def _camera_rays(cam: CameraParams, pid: torch.Tensor, sp: torch.Tensor,
@@ -249,14 +344,28 @@ def _camera_rays(cam: CameraParams, pid: torch.Tensor, sp: torch.Tensor,
 
 def pt_accumulate_plain(film: torch.Tensor, ss: StaticScene,
                         cam: CameraParams, width: int, height: int, sp0: int,
-                        n_spp: int, depth: int, seed: int,
-                        t_min: float) -> torch.Tensor:
+                        n_spp: int, depth: int, seed: int, t_min: float,
+                        bsdf: bool = False, env: Optional[EnvTables] = None,
+                        stats: Optional[dict] = None) -> torch.Tensor:
     """The kernel's plain torch version, on any device: adds samples
-    [sp0, sp0 + n_spp) into `film` in place, in sample order."""
+    [sp0, sp0 + n_spp) into `film` in place, in sample order.
+
+    With `env`, bounce 0 runs first on its own and its misses add
+    throughput * the native texel; later misses record throughput and
+    direction, and one binned lookup per sample follows the loop (the
+    Pallas kernel's env bookkeeping, `pt_pallas.py:292-345`).  The env form
+    runs bounce 0 even at depth 0, as the Pallas kernel peels it.
+
+    `stats` (a dict, optional) counts the work the kernel does on these
+    inputs: "samples" and "bounces" (bounce iterations of live paths)."""
     dev = film.device
     cam = CameraParams(*(x.to(dev) for x in cam))
     n_pix = width * height
-    albedo_ch = [tuple(float(v) for v in m["diffuse"]) for m in ss.mats]
+    if bsdf:
+        mat_ch = make_mat_channels(ss)
+    else:
+        mat_ch = [tuple(float(v) for v in m["diffuse"]) for m in ss.mats]
+    n_bounces = max(depth, 1) if env is not None else depth
     chunk = max(1, min(n_spp, PLAIN_RAYS_PER_WAVEFRONT // n_pix))
     pid1 = torch.arange(n_pix, dtype=torch.int64, device=dev)
     for c0 in range(0, n_spp, chunk):
@@ -269,14 +378,46 @@ def pt_accumulate_plain(film: torch.Tensor, ss: StaticScene,
         zeros = torch.zeros_like(o.x)
         thr = V3(ones, ones, ones)
         rad = V3(zeros, zeros, zeros)
+        thr_m = V3(zeros, zeros, zeros)   # throughput at a miss (b > 0)
+        d_m = V3(zeros, zeros, ones)      # direction at that miss
         alive = torch.ones_like(o.x, dtype=torch.bool)
-        for b in range(depth):
+        for b in range(n_bounces):
+            if stats is not None:
+                stats["bounces"] = stats.get("bounces", 0) + int(alive.sum())
             bseed = bounce_seed(seed, b)
             u1 = hash_uniform(pid, sp, 4, bseed)
             u2 = hash_uniform(pid, sp, 5, bseed)
-            o, d, thr, rad, alive = diffuse_bounce(
-                ss, albedo_ch, o, d, thr, rad, alive, u1, u2, t_min=t_min)
+            if bsdf:
+                u3 = hash_uniform(pid, sp, 6, bseed)
+                out = bsdf_bounce(ss, mat_ch, o, d, thr, rad, alive, u1, u2,
+                                  u3, t_min=t_min, with_miss=env is not None)
+            else:
+                out = diffuse_bounce(ss, mat_ch, o, d, thr, rad, alive, u1,
+                                     u2, t_min=t_min,
+                                     with_miss=env is not None)
+            if env is None:
+                o, d, thr, rad, alive = out
+                continue
+            o, d, thr, rad, alive, miss = out
+            mw = miss.to(torch.float32)
+            if b == 0:   # misses keep their camera d and throughput
+                e0 = env_native_lookup(env.native, d)
+                rad = V3(rad.x + mw * thr.x * e0.x,
+                         rad.y + mw * thr.y * e0.y,
+                         rad.z + mw * thr.z * e0.z)
+            else:
+                thr_m = V3(thr_m.x + mw * thr.x, thr_m.y + mw * thr.y,
+                           thr_m.z + mw * thr.z)
+                keep = 1.0 - mw
+                d_m = V3(d_m.x * keep + mw * d.x, d_m.y * keep + mw * d.y,
+                         d_m.z * keep + mw * d.z)
+        if env is not None:
+            e = env_bin_lookup(env.bins, d_m)
+            rad = V3(rad.x + thr_m.x * e.x, rad.y + thr_m.y * e.y,
+                     rad.z + thr_m.z * e.z)
         rad = finish_ambient(ss, thr, rad, alive)
+        if stats is not None:
+            stats["samples"] = stats.get("samples", 0) + c * n_pix
         samples = torch.stack([rad.x, rad.y, rad.z], dim=-1).reshape(
             c, n_pix, 3)
         for k in range(c):  # one sample after another, as the kernel adds
@@ -286,30 +427,54 @@ def pt_accumulate_plain(film: torch.Tensor, ss: StaticScene,
 
 def render_pt_linear(ss: StaticScene, cam: CameraParams, width: int,
                      height: int, spp: int, depth: int, seed: int = 0,
-                     t_min: float = None, *, device) -> torch.Tensor:
+                     t_min: float = None, bsdf: bool = False, env_map=None,
+                     *, device) -> torch.Tensor:
     """Linear film SUM over `spp` samples, (W*H, 3) float32 on `device`
-    (counterpart of `render_pt_pallas_linear`)."""
+    (counterpart of `render_pt_pallas_linear`).  `env_map`: (He, We, 3)
+    equirect radiance for env-map misses."""
     dev = check_device(device)
     check_supported(ss)
     _check_sizes(width, height, 0, spp, depth)
     if t_min is None:
         t_min = scene_epsilon(ss)
+    env = None if env_map is None else make_env_tables(env_map, dev)
     film = torch.zeros((width * height, 3), dtype=torch.float32, device=dev)
     return pt_accumulate(film, ss, cam, width, height, 0, spp, depth, seed,
-                         t_min)
+                         t_min, bsdf=bsdf, env=env)
+
+
+def gamma_image(film: torch.Tensor, spp: int, width: int,
+                height: int) -> torch.Tensor:
+    """Linear film SUM -> (H, W, 3) sqrt-gamma image of the mean."""
+    return torch.sqrt(torch.clamp(film * (1.0 / spp), min=0.0)).reshape(
+        height, width, 3)
 
 
 def render_simple_pt(ss: StaticScene, cam: CameraParams, width: int,
                      height: int, spp: int, depth: int, seed: int = 0,
-                     t_min: float = None, *, device) -> torch.Tensor:
+                     t_min: float = None, env_map=None, *,
+                     device) -> torch.Tensor:
     """Full diffuse-PT render: (H, W, 3) gamma'd image, row 0 = BOTTOM
     (counterpart of `render_simple_pt_pallas`)."""
     if spp < 1:
         raise ValueError(f"spp must be at least 1, got {spp}")
     film = render_pt_linear(ss, cam, width, height, spp, depth, seed=seed,
-                            t_min=t_min, device=device)
-    return torch.sqrt(torch.clamp(film * (1.0 / spp), min=0.0)).reshape(
-        height, width, 3)
+                            t_min=t_min, env_map=env_map, device=device)
+    return gamma_image(film, spp, width, height)
+
+
+def render_bsdf_pt(ss: StaticScene, cam: CameraParams, width: int,
+                   height: int, spp: int, depth: int, seed: int = 0,
+                   t_min: float = None, env_map=None, *,
+                   device) -> torch.Tensor:
+    """AccPathTracer's five-lobe estimator: (H, W, 3) gamma'd image, row 0 =
+    BOTTOM (counterpart of `render_bsdf_pt_pallas`)."""
+    if spp < 1:
+        raise ValueError(f"spp must be at least 1, got {spp}")
+    film = render_pt_linear(ss, cam, width, height, spp, depth, seed=seed,
+                            t_min=t_min, bsdf=True, env_map=env_map,
+                            device=device)
+    return gamma_image(film, spp, width, height)
 
 
 def hash_uniform_fill(pid: torch.Tensor, sample: torch.Tensor,

@@ -1,0 +1,183 @@
+"""AccPathTracer: multi-BSDF path tracing on analytic scenes.
+
+Counterpart of `nrenderer_tpu/renderers/acc_pt.py`, the rebuild of the
+acc_path_tracing plugin (`components/acc_path_tracing/`): SimplePathTracer's
+estimator with material-type dispatch {0 Lambertian, 1 smooth conductor,
+2 dielectric glass, 3 microfacet, 4 plastic} (`AccPathTracer.cpp:120-181`,
+`ShaderCreator.hpp:17-39`).
+
+The routing of the JAX renderer is kept as it stands: `acc_type` (reference
+`Scene.hpp:23`) 0 forces brute force (refused past `ACC_TYPE0_MAX_TRIS`
+triangles), 1 (the default) accelerates when the scene has more than
+`BVH_THRESHOLD` triangles, 2 accelerates any triangle pool.  A scene that
+is not accelerated runs the path-tracing megakernel in its BSDF form
+(`ops/pt_cuda.py`, env-map terms when the ambient is an env map): the CUDA
+kernel on `device="cuda"`, its plain torch version on `device="cpu"`.
+Scenes the JAX package sends to its mesh engines, and textured scenes,
+raise `NotImplementedError`: those engines and forms are not ported
+(ROADMAP A7, B1d).  A scene without primitives runs the megakernel as well
+(the CUDA kernel handles it; the JAX package sends it to its XLA wavefront).
+
+With a checkpoint path the render runs in passes of `pcall` samples, each
+with its own seed `seed * 100003 + step`, posting a preview to the Screen
+and saving the linear film after each pass; an interrupted render resumes
+at the next pass (`server/checkpoint.py`)."""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..ops.camera import make_camera
+from ..ops.intersect import make_static_scene
+from ..ops.pt_core import scene_epsilon
+from ..ops.pt_cuda import (
+    MAX_TRIS, check_device, check_supported, make_env_tables, pt_accumulate,
+    render_bsdf_pt,
+)
+from ..scene.arrays import build_scene_arrays
+from ..scene.model import Scene
+from ..server.component import RenderComponent, RenderResult
+from ..server.registry import get_server, register_renderer
+from ..utils.timing import GLOBAL_TIMER, PhaseTimer
+
+BVH_THRESHOLD = 64
+ACC_TYPE0_MAX_TRIS = MAX_TRIS  # acc_type=0 (brute force) refused past this
+
+
+def accelerates(acc_type: int, n_tri: int) -> bool:
+    """Whether the JAX renderer sends this triangle pool to its mesh
+    engines (`acc_pt.py:261-277`)."""
+    if acc_type == 0 and n_tri > ACC_TYPE0_MAX_TRIS:
+        get_server().logger.warning(
+            f"AccPathTracer: acc_type=0 (brute force) refused for {n_tri} "
+            f"triangles (> {ACC_TYPE0_MAX_TRIS}); using the accelerated "
+            "sweep")
+        acc_type = 1
+    if acc_type == 0:
+        return False
+    if acc_type == 1:
+        return n_tri > BVH_THRESHOLD
+    return n_tri > 0
+
+
+def checkpoint_pass_spp(spp: int) -> int:
+    """Samples per checkpointed pass: the largest divisor of spp that is at
+    most spp // 8 (about 8 passes), as the JAX renderer splits it."""
+    pcall = 1
+    for k in range(1, spp + 1):
+        if spp % k == 0 and k <= max(spp // 8, 1):
+            pcall = k
+    return pcall
+
+
+def progressive_loop(checkpoint_path, seed, timer, w, h, spp, pcall,
+                     render_step, fp_parts, fp_arrays):
+    """Passes of `pcall` samples with Screen previews and checkpoint/resume
+    (the JAX renderer's `_progressive_loop`).  `render_step(step)` returns
+    the (n_pix, 3) linear film SUM of pass `step`; passes use disjoint seeds,
+    so a resume reproduces the remaining passes exactly.  Returns
+    (image row 0 = top, first pass run, number of passes)."""
+    from ..server.checkpoint import (
+        load_checkpoint, render_fingerprint, save_checkpoint)
+    film = np.zeros((w * h, 3), np.float32)
+    start = 0
+    fingerprint = None
+    if checkpoint_path:
+        fingerprint = render_fingerprint(fp_parts, arrays=fp_arrays)
+        loaded = load_checkpoint(checkpoint_path, fingerprint)
+        if loaded is not None:
+            film, spp_done = loaded
+            start = spp_done // pcall
+            get_server().logger.log(
+                f"resumed at {spp_done}/{spp} spp from {checkpoint_path}")
+    n_steps = spp // pcall
+    for step in range(start, n_steps):
+        with timer.phase("first-pass" if step == start else "render-pass"):
+            film += render_step(step).cpu().numpy()
+        with timer.phase("host-preview"):
+            done = (step + 1) * pcall
+            img = np.sqrt(np.maximum(film / done, 0.0))
+            img = img.reshape(h, w, 3)[::-1]
+            get_server().screen.set(
+                np.concatenate([img, np.ones((h, w, 1), np.float32)],
+                               axis=2), w, h)
+        if checkpoint_path:
+            save_checkpoint(checkpoint_path, film, (step + 1) * pcall,
+                            w, h, seed, fingerprint)
+    img = np.sqrt(np.maximum(film / spp, 0.0)).reshape(h, w, 3)
+    return np.clip(img[::-1], 0.0, 1.0), start, n_steps
+
+
+@register_renderer("AccPathTracer", description=(
+    "An accelerated path tracer.\n"
+    "Multi-BSDF (Lambertian/conductor/glass/microfacet/plastic) path "
+    "tracing in one CUDA kernel (plain torch on the CPU)."))
+class AccPathTracerRenderer(RenderComponent):
+    def __init__(self, seed: int = 0, checkpoint_path: str = None,
+                 device="cuda"):
+        self.seed = seed
+        self.checkpoint_path = checkpoint_path
+        self.device = device
+
+    def render(self, scene: Scene) -> RenderResult:
+        dev = check_device(self.device)
+        timer = PhaseTimer()
+        ro = scene.render_option
+        w, h, spp, depth = (ro.width, ro.height, ro.samples_per_pixel,
+                            ro.depth)
+        with timer.phase("scene-prep"):
+            arrays = build_scene_arrays(scene)
+            ss = make_static_scene(arrays)
+            cam = make_camera(scene.camera, device=dev)
+        n_tri = int(np.asarray(arrays.tri_valid).sum())
+        acc_type = int(getattr(ro, "acc_type", 1))
+        if accelerates(acc_type, n_tri):
+            raise NotImplementedError(
+                f"AccPathTracer: {n_tri} triangles (acc_type {acc_type}) "
+                "route to the mesh engines (blocked BVH sweep, ROADMAP A7 "
+                "with kernels B2/B3/B1e), not ported yet")
+        check_supported(ss)   # textured faces: ROADMAP B1d
+        use_env = ss.ambient_type == 1
+        env_map = arrays.env_map if use_env else None
+        if self.checkpoint_path and spp > 1:
+            pcall = checkpoint_pass_spp(spp)
+            t_min = scene_epsilon(ss)
+            env = make_env_tables(env_map, dev) if use_env else None
+
+            def render_step(step):
+                film = torch.zeros((w * h, 3), dtype=torch.float32,
+                                   device=dev)
+                return pt_accumulate(film, ss, cam, w, h, 0, pcall, depth,
+                                     self.seed * 100003 + step, t_min,
+                                     bsdf=True, env=env)
+
+            from ..server.checkpoint import camera_key
+            img, start, n_steps = progressive_loop(
+                self.checkpoint_path, self.seed, timer, w, h, spp, pcall,
+                render_step,
+                (ss, camera_key(cam), w, h, spp, depth, self.seed, pcall,
+                 "megakernel", use_env),
+                (np.asarray(env_map),) if use_env else ())
+            GLOBAL_TIMER.add("AccPathTracer.render",
+                             timer.get("render-pass").total_s
+                             if n_steps - start > 1 else
+                             timer.get("first-pass").total_s)
+        else:
+            if self.checkpoint_path:
+                get_server().logger.warning(
+                    f"--checkpoint: render fits a single pass ({spp} spp); "
+                    "nothing to snapshot")
+            render_phase = f"render[{dev.type}]"
+            with timer.phase(render_phase):
+                # .cpu() waits for the device, so the phase covers the kernel
+                img = render_bsdf_pt(ss, cam, w, h, spp, depth,
+                                     seed=self.seed, env_map=env_map,
+                                     device=dev).cpu().numpy()
+            with timer.phase("host-post"):
+                img = np.clip(img[::-1], 0.0, 1.0)  # row 0 top; Screen clamp
+            GLOBAL_TIMER.add("AccPathTracer.render",
+                             timer.get(render_phase).total_s)
+        get_server().logger.log("phases: " + timer.summary())
+        get_server().logger.log("Done...")
+        rgba = np.concatenate([img, np.ones((h, w, 1), np.float32)], axis=2)
+        return RenderResult(pixels=rgba, width=w, height=h)

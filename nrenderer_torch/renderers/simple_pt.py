@@ -14,7 +14,9 @@ Lambertian sampling matches `shaders/Lambertian.cpp:15-46`: uniform hemisphere
 about the stored (unflipped) normal via the Onb, pdf = 1/(2 pi),
 BRDF = albedo / pi, so throughput *= 2 * albedo * cos.
 
-On `device="cuda"` the whole render is the hand-written CUDA kernel
+An env-map ambient (ambient type 1) is sampled on misses, through the
+kernel's env form, as the JAX SimplePathTracer hands `env_map` to its Pallas
+route.  On `device="cuda"` the whole render is the hand-written CUDA kernel
 (`ops/pt_cuda.py`); on `device="cpu"` it is that kernel's plain torch
 version.  Progressive rendering and checkpoint/resume are not ported yet
 (ROADMAP A4)."""
@@ -53,11 +55,12 @@ class SimplePathTracerRenderer(RenderComponent):
             arrays = build_scene_arrays(scene)
             ss = make_static_scene(arrays)
             cam = make_camera(scene.camera, device=dev)
+        env_map = arrays.env_map if ss.ambient_type == 1 else None
         render_phase = f"render[{dev.type}]"
         with timer.phase(render_phase):
             # .cpu() waits for the device, so the phase covers the kernel
             img = render_simple_pt(ss, cam, w, h, spp, depth, seed=self.seed,
-                                   device=dev).cpu().numpy()
+                                   env_map=env_map, device=dev).cpu().numpy()
         with timer.phase("host-post"):
             img = img[::-1]  # bottom-up -> row 0 top
             img = np.clip(img, 0.0, 1.0)  # Screen.set clamp (Screen.cpp:63)

@@ -36,16 +36,33 @@ def test_module_render_cpu_writes_png(tmp_path):
 
 
 def test_no_jax_imported_after_render(tmp_path):
-    argv = ["render", *SMALL, "--device", "cpu", "--out",
-            str(tmp_path / "x.png")]
+    """Every module of the package, and renders through both renderers
+    with an env map, leave no JAX module loaded; `chip_smoke.py` imports
+    neither JAX nor the JAX package."""
+    env = ["--env-map", str(REPO / "resource" / "env_sky.png")]
+    acc = ["render", "--scene", str(REPO / "resource" / "pt_glass_box.scn"),
+           "--renderer", "AccPathTracer", "--width", "8", "--height", "8",
+           "--spp", "2", "--depth", "2", "--device", "cpu", "--out",
+           str(tmp_path / "a.png")]
+    argvs = [["render", *SMALL, "--device", "cpu", "--out",
+              str(tmp_path / "x.png")],
+             ["render", *SMALL, *env, "--device", "cpu", "--out",
+              str(tmp_path / "e.png")],
+             acc, acc[:-1] + [str(tmp_path / "b.png")] + env]
     code = (
-        "import sys\n"
+        "import pkgutil, sys\n"
         "import nrenderer_torch\n"
+        "for m in pkgutil.walk_packages(nrenderer_torch.__path__, "
+        "'nrenderer_torch.'):\n"
+        "    if not m.name.endswith('__main__'):\n"
+        "        __import__(m.name)\n"
+        "import chip_smoke\n"
         "from nrenderer_torch.cli import main\n"
-        f"rc = main({argv!r})\n"
+        f"for argv in {argvs!r}:\n"
+        "    rc = main(argv)\n"
+        "    assert rc == 0, (rc, argv)\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith(('jax.', 'jaxlib', 'nrenderer_tpu')))\n"
-        "assert rc == 0, rc\n"
         "assert not bad, bad\n"
         "print('clean')\n")
     proc = _run(["-c", code])

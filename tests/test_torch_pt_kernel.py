@@ -233,14 +233,21 @@ def test_pack_scene_layout(port_scene):
 
 
 def test_unported_forms_refuse(port_scene):
+    """Textured faces need the texture form (B1d) and triangle pools past
+    the analytic kernel's limit the mesh slice (A7); the env-map form is
+    ported, so an env-map ambient renders."""
     ss, cam = _cpu_setup(port_scene)
-    with pytest.raises(NotImplementedError, match="B1c"):
-        pt_cuda.render_simple_pt(ss._replace(ambient_type=1), cam, 4, 4, 1,
-                                 1, device="cpu")
     uv = ((0.0, 0.0, 1.0, 0.0, 0.0, 1.0, 0, -1),) * len(ss.tri)
     with pytest.raises(NotImplementedError, match="B1d"):
         pt_cuda.render_simple_pt(ss._replace(tri_uv=uv), cam, 4, 4, 1, 1,
                                  device="cpu")
+    many = ss._replace(tri=ss.tri * (pt_cuda.MAX_TRIS // len(ss.tri) + 1))
+    with pytest.raises(NotImplementedError, match="A7"):
+        pt_cuda.render_simple_pt(many, cam, 4, 4, 1, 1, device="cpu")
+    env = np.ones((4, 8, 3), np.float32)
+    img = pt_cuda.render_simple_pt(ss._replace(ambient_type=1), cam, 4, 4, 1,
+                                   1, env_map=env, device="cpu")
+    assert torch.isfinite(img).all()
 
 
 def test_hash_fill_cpu_is_hash_uniform():
@@ -283,9 +290,9 @@ def test_cuda_kernel_matches_plain(port_scene, gpu):
     scene, ss = port_scene
     cam = make_camera(scene.camera, device=gpu)
     t_min = scene_epsilon(ss)
-    before = pt_cuda.KERNEL_LAUNCHES
+    before = pt_cuda.KERNEL_LAUNCHES["pt_diffuse_kernel"]
     lin_k = pt_cuda.render_pt_linear(ss, cam, 64, 64, 16, 4, device=gpu)
-    assert pt_cuda.KERNEL_LAUNCHES > before
+    assert pt_cuda.KERNEL_LAUNCHES["pt_diffuse_kernel"] > before
     lin_p = pt_cuda.pt_accumulate_plain(
         torch.zeros((64 * 64, 3), device=gpu), ss, cam, 64, 64, 0, 16, 4, 0,
         t_min)
