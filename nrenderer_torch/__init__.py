@@ -15,6 +15,7 @@ from .scene.model import (  # noqa: F401
 )
 from .scene.arrays import SceneArrays, build_scene_arrays  # noqa: F401
 from .io.scn import load_scn, parse_scn, ScnParseError  # noqa: F401
+from .io.obj import load_obj, ObjParseError  # noqa: F401
 
 
 def _register_builtin_renderers() -> None:

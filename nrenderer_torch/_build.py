@@ -1,12 +1,14 @@
 """Build the port's CUDA kernels into one shared library and load it.
 
-`nvcc` compiles every `csrc/*.cu` for `sm_90a` into
+`nvcc` compiles every `csrc/*.cu` for `sm_90a`, one process per source, all
+started together, and links the objects into
 `build/nrenderer_torch/libnrkernels.so` beside the package, at first use.
-The build is skipped while the library is newer than every source.  The
-library has a plain C interface: `ops/pt_cuda.py` binds it with `ctypes`.
-Nothing here runs at import time, so the package imports on machines
-without a compiler; a missing `nvcc` or a failed compile raises with the
-compiler's output."""
+The build is skipped while the library is newer than every source and
+every header (`csrc/*.cuh`).  The library has a plain C interface:
+`ops/pt_cuda.py` and `ops/mesh_cuda.py` bind it with `ctypes`.  Nothing
+here runs at import time, so the package imports on machines without a
+compiler; a missing `nvcc` or a failed compile raises with the compiler's
+output."""
 from __future__ import annotations
 
 import ctypes
@@ -28,9 +30,9 @@ LOG_PATH = BUILD_DIR / "nvcc.log"
 # torch version computes them, so kernel and plain agree bit for bit (with
 # contraction, rounding moved a few hits across edges and those paths
 # flipped; about 11% faster on an H100, see PERF.md).
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3",
-              "-std=c++17", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
-              "-Xptxas", "-v"]
+ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = [*ARCH_FLAGS, "-O3", "-std=c++17", "-fmad=false",
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _lock = threading.Lock()
 _lib = None
@@ -41,8 +43,12 @@ class KernelBuildError(RuntimeError):
     pass
 
 
-def sources() -> list:
-    return sorted(SRC_DIR.glob("*.cu"))
+def sources(src_dir: Path = SRC_DIR) -> list:
+    return sorted(src_dir.glob("*.cu"))
+
+
+def headers(src_dir: Path = SRC_DIR) -> list:
+    return sorted(src_dir.glob("*.cuh"))
 
 
 def find_nvcc() -> str:
@@ -59,11 +65,14 @@ def find_nvcc() -> str:
     return nvcc
 
 
-def _stale() -> bool:
-    if not LIB_PATH.exists():
+def _stale(lib_path: Path = LIB_PATH, src_dir: Path = SRC_DIR) -> bool:
+    """Whether the library is missing or not newer than every source and
+    header in `src_dir`."""
+    if not lib_path.exists():
         return True
-    built = LIB_PATH.stat().st_mtime
-    return any(src.stat().st_mtime >= built for src in sources())
+    built = lib_path.stat().st_mtime
+    return any(f.stat().st_mtime >= built
+               for f in sources(src_dir) + headers(src_dir))
 
 
 def build() -> Path:
@@ -72,18 +81,33 @@ def build() -> Path:
     if not _stale():
         return LIB_PATH
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = LIB_PATH.with_name(f"{LIB_PATH.name}.{os.getpid()}.tmp")
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *(str(s) for s in sources())]
+    nvcc = find_nvcc()
+    tag = f"{os.getpid()}.tmp"
+    tmp = LIB_PATH.with_name(f"{LIB_PATH.name}.{tag}")
+    objs = [BUILD_DIR / f"{src.stem}.{tag}.o" for src in sources()]
+    cmds = [[nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)]
+            for src, obj in zip(sources(), objs)]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for cmd in cmds]
+    outs = [proc.communicate()[0] for proc in procs]
+    log = "".join(" ".join(cmd) + "\n" + out for cmd, out in zip(cmds, outs))
+    failed = [p.returncode for p in procs if p.returncode != 0]
+    link = [nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp),
+            *(str(o) for o in objs)]
+    if not failed:
+        proc = subprocess.run(link, capture_output=True, text=True)
+        log += " ".join(link) + "\n" + proc.stdout + proc.stderr
+        if proc.returncode != 0:
+            failed.append(proc.returncode)
     build_seconds = time.perf_counter() - t0
-    LOG_PATH.write_text(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-    if proc.returncode != 0:
+    LOG_PATH.write_text(log)
+    for obj in objs:
+        obj.unlink(missing_ok=True)
+    if failed:
         tmp.unlink(missing_ok=True)
-        raise KernelBuildError(
-            f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
-            f"{proc.stdout}{proc.stderr}")
+        raise KernelBuildError(f"nvcc failed ({failed[0]}):\n{log}")
     os.replace(tmp, LIB_PATH)  # atomic: a concurrent loader sees old or new
     return LIB_PATH
 

@@ -7,6 +7,8 @@
     python -m nrenderer_torch render --scene resource/env_spheres.scn \
         --env-map resource/env_sky.png --renderer AccPathTracer \
         [--checkpoint film.npz] ...
+    python -m nrenderer_torch render --scene resource/mesh_box.scn \
+        --obj resource/obj/blob_960.obj --renderer AccPathTracer ...
 
 Render settings defaults mirror the UI's `RenderSettingsManager.hpp:20-24`
 (500x500, spp=16, depth=20); the camera defaults mirror `Camera.hpp:22-29`.
@@ -22,12 +24,16 @@ import time
 
 
 def _build_scene(args):
+    from .io.obj import load_obj
     from .io.scn import load_scn
     from .scene.model import Scene
 
     scene = Scene()
     if args.scene:
         load_scn(args.scene, scene)
+    # each OBJ without materials of its own takes the scene's first one
+    for obj_path in getattr(args, "obj", None) or ():
+        load_obj(obj_path, scene, material=0 if scene.materials else None)
     ro = scene.render_option
     ro.width = args.width
     ro.height = args.height
@@ -61,6 +67,7 @@ def _cmd_render(args) -> int:
     import nrenderer_torch
     nrenderer_torch._register_builtin_renderers()
     from .io.image import write_png
+    from .io.obj import ObjParseError
     from .io.scn import ScnParseError
     from .ops.pt_cuda import check_device
     from .server.manager import ComponentManager
@@ -73,7 +80,7 @@ def _cmd_render(args) -> int:
         return 2
     try:
         scene = _build_scene(args)
-    except ScnParseError as exc:
+    except (ScnParseError, ObjParseError) as exc:
         print(f"error: scene import failed: {exc}", file=sys.stderr)
         return 2
     except EnvMapError as exc:
@@ -139,6 +146,8 @@ def main(argv=None) -> int:
 
     pr = sub.add_parser("render", help="render a scene")
     pr.add_argument("--scene", help=".scn scene file")
+    pr.add_argument("--obj", action="append", default=[],
+                    help="OBJ mesh file (repeatable)")
     pr.add_argument("--renderer", default="SimplePathTracer")
     pr.add_argument("--width", type=int, default=500)
     pr.add_argument("--height", type=int, default=500)

@@ -1,12 +1,17 @@
-// Path-tracing megakernel for NVIDIA Hopper (sm_90a), in four forms.
+// Path-tracing megakernel for NVIDIA Hopper (sm_90a), in ten forms.
 //
-// Replaces the TPU kernel nrenderer_tpu/ops/pt_pallas.py:123 _pt_kernel on
-// analytic scenes (spheres, triangles, planes; no textures, no mesh sweep),
-// in its forms bsdf=False / bsdf=True, each without or with the env-map
-// terms (env_rows / env_exact).  pt_kernel<kBsdf, kEnv> is instantiated four
-// times: pt_diffuse_kernel <false, false> (SimplePathTracer's main path),
-// pt_bsdf_kernel <true, false> (AccPathTracer), pt_diffuse_env_kernel
-// <false, true> and pt_bsdf_env_kernel <true, true>.  The Python wrapper,
+// Replaces the TPU kernel nrenderer_tpu/ops/pt_pallas.py:123 _pt_kernel in
+// its forms bsdf=False / bsdf=True, each without or with the env-map terms
+// (env_rows / env_exact), the mesh form (mesh=(n_blocks, b): the blocked
+// triangle sweep inline in the bounce loop) and the texture form (n_tex > 0,
+// mesh_uv: binned surface textures).  pt_kernel<kBsdf, kEnv, kMesh, kTex> is
+// instantiated ten times: pt_diffuse_kernel <false, false, false, false>
+// (SimplePathTracer's main path), pt_bsdf_kernel <true, false, false, false>
+// (AccPathTracer), pt_diffuse_env_kernel and pt_bsdf_env_kernel (kEnv),
+// pt_bsdf_mesh_kernel <true, false, true, false> (AccPathTracer's megamesh
+// route, 65 to 1024 triangles, no env map), and each of those five with
+// kTex: pt_diffuse_tex_kernel, pt_bsdf_tex_kernel, pt_diffuse_env_tex_kernel,
+// pt_bsdf_env_tex_kernel and pt_bsdf_mesh_tex_kernel.  The Python wrapper,
 // its plain torch version and the launch counters are in
 // nrenderer_torch/ops/pt_cuda.py.
 //
@@ -35,10 +40,26 @@
 // a direct read of the map, the same texel whenever the window fits.  As
 // the Pallas kernel peels bounce 0, the env form runs it even at depth 0.
 //
+// The mesh form: the dense pass tests spheres and planes only (the wrapper
+// packs no triangles); then nr_mesh::mesh_sweep (csrc/mesh_sweep.cuh) runs
+// over the blocked triangle pool with the dense hit's t as its cap, in
+// natural block order (the Pallas mesh form passes no ord_ref), and a
+// triangle that beats the cap wins.  Its material row is the one the JAX
+// select chain over the material table gives its id (mesh_mat_row).
+//
+// The texture form: a hit carries (u, v, texture id), from the winning
+// dense triangle's UV row (uv1 + (bu * ue1 + bv * ue2), the dense
+// intersector's order) or from the sweep; tex_lookup wraps u and v into
+// [0, 1], takes column int(u * 128) and row int((1 - v) * 32), both
+// clipped, in the texture whose index is within 0.5 of the id, from the
+// binned (n_tex, 3, 32, 128) table.  The texel replaces the diffuse
+// colour; in the BSDF form the material's specular-map id (M_STEX) does the
+// same for the albedo.
+//
 // The math and its float32 operation order are those of
-// nrenderer_torch/ops/{camera,intersect,pt_core,env}.py, which mirror the
-// JAX package (x ** 5 is spelled x * ((x * x) * (x * x)), JAX's
-// integer_pow).  Built with -fmad=false, the kernel gives the plain torch
+// nrenderer_torch/ops/{camera,intersect,pt_core,env,texture,mesh_cuda}.py,
+// which mirror the JAX package (x ** 5 is spelled x * ((x * x) * (x * x)),
+// JAX's integer_pow).  Built with -fmad=false, the kernel gives the plain torch
 // version's film bit for bit on the card (sinf/cosf/sqrtf/rsqrtf are the
 // same device functions there); against the JAX kernel on the CPU the last
 // ulp of the transcendentals differs.
@@ -63,6 +84,10 @@
 // paths die at different bounces and, in the BSDF form, as lanes of a warp
 // take different lobes of the material switch; memory traffic is one film
 // read and write per pixel per launch plus a few env texels per sample.
+// The mesh form adds per bounce a slab test per block and ~40 operations
+// per triangle of each entered block (the sweep's bound, mesh_sweep.cuh),
+// with divergence where the lanes of a warp enter different blocks; the
+// texture form adds one or two texel reads per hit.
 // This first design does nothing about either yet: no per-scene
 // specialisation, no path regeneration, no sorting of rays by material.
 //
@@ -75,6 +100,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "mesh_sweep.cuh"
+
 namespace {
 
 // Packed scene table layout (float32), sections in this order; the Python
@@ -83,14 +110,21 @@ constexpr int SPH_STRIDE = 6;   // cx cy cz r*r 1/r mat
 constexpr int TRI_STRIDE = 13;  // v1[3] e1[3] e2[3] n[3] mat
 constexpr int PLN_STRIDE = 14;  // pos[3] n[3] inv0[3] inv1[3] dot(pos,n) mat
 constexpr int AL_STRIDE = 16;   // pos[3] n[3] inv0[3] inv1[3] dot(pos,n) rad[3]
-// A material row: the 20 floats of pt_core.make_mat_channels, then the
-// effective lobe: type, diffuse rgb, albedo rgb, ior, absorbed rgb, eta_r
-// rgb, eta_i rgb, roughness, f0, metalness, lobe.
-constexpr int MAT_STRIDE = 21;
+// A material row: the first 20 floats of pt_core.make_mat_channels, then
+// the effective lobe, then the specular-map texture id (-1 = none): type,
+// diffuse rgb, albedo rgb, ior, absorbed rgb, eta_r rgb, eta_i rgb,
+// roughness, f0, metalness, lobe, stex.
+constexpr int MAT_STRIDE = 22;
 constexpr int M_DIFFUSE = 1, M_ALBEDO = 4, M_IOR = 7, M_ABSORBED = 8,
               M_ETA_R = 11, M_ETA_I = 14, M_ROUGH = 17, M_F0 = 18,
-              M_METAL = 19, M_LOBE = 20;
-// then 3 floats of ambient constant
+              M_METAL = 19, M_LOBE = 20, M_STEX = 21;
+// then 3 floats of ambient constant, then (texture forms) one UV row per
+// triangle: uv1[2] ue1[2] ue2[2] tex (tex -1 for a face without UVs)
+constexpr int UV_STRIDE = 7;
+
+// Binned surface textures (n_tex, 3, TEX_ROWS, TEX_LANES), ops/texture.py.
+constexpr int TEX_ROWS = 32;
+constexpr int TEX_LANES = 128;
 
 // Binned env table (3, ENV_ROWS, ENV_LANES), pt_cuda.EnvTables.bins.
 constexpr int ENV_ROWS = 32;
@@ -227,10 +261,13 @@ __device__ __forceinline__ float smith_g1(const F3 v, const F3 h, const F3 n,
 // stored normal `nrm`, incoming direction `d` and material row `mt`: the new
 // direction and the throughput weight.  `u3` is drawn only by the lobes
 // that use it.
+// `df` and `al` point at the diffuse and albedo colours: the row's, or
+// texels in the texture forms.
 __device__ __forceinline__ void bsdf_scatter(
-    const float* __restrict__ mt, const F3 d, const F3 nrm, const float u1,
-    const float u2, const uint32_t upid, const uint32_t sp,
-    const uint32_t bseed, F3* new_d, F3* w) {
+    const float* __restrict__ mt, const float* __restrict__ df,
+    const float* __restrict__ al, const F3 d, const F3 nrm, const float u1, const float u2,
+    const uint32_t upid, const uint32_t sp, const uint32_t bseed, F3* new_d,
+    F3* w) {
   switch ((int)mt[M_LOBE]) {
     case 1: {  // conductor_scatter
       const F3 n = normalize3(nrm);
@@ -241,7 +278,6 @@ __device__ __forceinline__ void bsdf_scatter(
       const float sin4 = sin2 * sin2;
       const float* er = mt + M_ETA_R;
       const float* ei = mt + M_ETA_I;
-      const float* al = mt + M_ALBEDO;
       *new_d = l;
       *w = F3{fresnel_chan(cos_l, cos2, sin2, sin4, er[0], ei[0]) * cos_l *
                   al[0],
@@ -295,7 +331,6 @@ __device__ __forceinline__ void bsdf_scatter(
       const float cos_i = dot3(l, n);
       const bool valid = (dot3(d, n) < 0.0f) && (cos_i > 0.0f);
       const float f0 = mt[M_F0], metal = mt[M_METAL];
-      const float* al = mt + M_ALBEDO;
       const float ldoth = fabsf(dot3(l, h));
       const float om = pow5(1.0f - ldoth);
       const float g = smith_g1(l, h, n, alpha2) * smith_g1(v, h, n, alpha2);
@@ -320,11 +355,10 @@ __device__ __forceinline__ void bsdf_scatter(
       const float f = f0 + (1.0f - f0) * pow5(1.0f - cos_i);
       if (u3 < f) {
         *new_d = normalize3(reflect3(d, n));
-        *w = F3{mt[M_ALBEDO], mt[M_ALBEDO + 1], mt[M_ALBEDO + 2]};
+        *w = F3{al[0], al[1], al[2]};
       } else {
         const F3 dd = normalize3(onb_local(n, hemisphere(u1, u2)));
         const float cos_d = dot3(n, dd);
-        const float* df = mt + M_DIFFUSE;
         *new_d = dd;
         *w = F3{df[0] * 2.0f * cos_d, df[1] * 2.0f * cos_d,
                 df[2] * 2.0f * cos_d};
@@ -334,7 +368,6 @@ __device__ __forceinline__ void bsdf_scatter(
     default: {  // Lambertian lobe about the stored normal
       const F3 dd = normalize3(onb_local(nrm, hemisphere(u1, u2)));
       const float cos_d = dot3(nrm, dd);
-      const float* df = mt + M_DIFFUSE;
       *new_d = dd;
       *w = F3{df[0] * 2.0f * cos_d, df[1] * 2.0f * cos_d,
               df[2] * 2.0f * cos_d};
@@ -373,14 +406,46 @@ __device__ __forceinline__ int clamp_index(const float x, const int n) {
   return min(max((int)x, 0), n - 1);
 }
 
-template <bool kBsdf, bool kEnv>
+// The binned texel of (tu, tv) in the texture whose index is within 0.5 of
+// `tid` (ops/texture.make_tex_resolver); false when no texture matches.
+__device__ __forceinline__ bool tex_lookup(const float* __restrict__ tex_tab,
+                                           const int n_tex, const float tu,
+                                           const float tv, const float tid,
+                                           float* out) {
+  int hit = -1;
+  for (int i = 0; i < n_tex; ++i) {
+    if (tid > (float)i - 0.5f && tid < (float)i + 0.5f) hit = i;
+  }
+  if (hit < 0) return false;
+  const float u = (tu < 0.0f || tu > 1.0f) ? tu - floorf(tu) : tu;
+  const float v = (tv < 0.0f || tv > 1.0f) ? tv - floorf(tv) : tv;
+  const int col = clamp_index(u * TEX_LANES, TEX_LANES);
+  const int row = clamp_index((1.0f - v) * TEX_ROWS, TEX_ROWS);
+  const float* t = tex_tab + (size_t)hit * 3 * TEX_ROWS * TEX_LANES +
+                   row * TEX_LANES + col;
+  out[0] = t[0];
+  out[1] = t[TEX_ROWS * TEX_LANES];
+  out[2] = t[2 * TEX_ROWS * TEX_LANES];
+  return true;
+}
+
+// The material row of a mesh hit's id, as the JAX select chain over the
+// material table picks it (mesh_pallas._channels_from_mat): the id's row
+// when it equals a material index above 0, else row 0.
+__device__ __forceinline__ int mesh_mat_row(const float mat, const int n_mat) {
+  const int mi = (int)mat;
+  return ((float)mi == mat && mi >= 1 && mi < n_mat) ? mi : 0;
+}
+
+template <bool kBsdf, bool kEnv, bool kMesh, bool kTex>
 __global__ void __launch_bounds__(128)
 pt_kernel(float* __restrict__ film, const float* __restrict__ scene,
           const SceneCounts nc, const CamArgs cam, const int width,
           const int height, const int sp0, const int n_spp, const int depth,
           const uint32_t seed, const float* __restrict__ env_bin,
           const float* __restrict__ env_map, const int env_h,
-          const int env_w) {
+          const int env_w, const nr_mesh::MeshArgs mesh,
+          const float* __restrict__ tex_tab, const int n_tex) {
   const int pid = blockIdx.x * blockDim.x + threadIdx.x;
   if (pid >= width * height) return;
   const int py = pid / width;
@@ -396,6 +461,7 @@ pt_kernel(float* __restrict__ film, const float* __restrict__ scene,
   const float* __restrict__ mat = al + nc.n_al * AL_STRIDE;
   const float* __restrict__ amb = mat + nc.n_mat * MAT_STRIDE;
   const float amb_r = amb[0], amb_g = amb[1], amb_b = amb[2];
+  const float* __restrict__ uvtab = amb + 3;  // texture forms only
   // the env form peels bounce 0, so it runs it even at depth 0
   const int n_bounces = (kEnv && depth < 1) ? 1 : depth;
 
@@ -443,6 +509,8 @@ pt_kernel(float* __restrict__ film, const float* __restrict__ scene,
       // closest hit: spheres, triangles, planes; first strictly closer wins
       float t_best = INFINITY, nx = 0.0f, ny = 0.0f, nz = 0.0f;
       int m_best = 0;
+      int tri_best = -1;          // texture forms: the winning triangle
+      float bu = 0.0f, bv = 0.0f;  // and its barycentrics
       for (int i = 0; i < nc.n_sph; ++i) {
         const float* p = sph + i * SPH_STRIDE;
         const float ocx = ox - p[0], ocy = oy - p[1], ocz = oz - p[2];
@@ -464,6 +532,7 @@ pt_kernel(float* __restrict__ film, const float* __restrict__ scene,
           ny = (oy + th * dy - p[1]) * p[4];
           nz = (oz + th * dz - p[2]) * p[4];
           m_best = (int)p[5];
+          if constexpr (kTex) tri_best = -1;
         }
       }
       for (int i = 0; i < nc.n_tri; ++i) {
@@ -495,6 +564,12 @@ pt_kernel(float* __restrict__ film, const float* __restrict__ scene,
           ny = p[10];
           nz = p[11];
           m_best = (int)p[12];
+          if constexpr (kTex) {
+            const float inv_det = 1.0f / (det == 0.0f ? 1.0f : det);
+            tri_best = i;
+            bu = u * inv_det;
+            bv = v * inv_det;
+          }
         }
       }
       for (int i = 0; i < nc.n_pln; ++i) {
@@ -506,6 +581,34 @@ pt_kernel(float* __restrict__ film, const float* __restrict__ scene,
           ny = p[4];
           nz = p[5];
           m_best = (int)p[13];
+          if constexpr (kTex) tri_best = -1;
+        }
+      }
+      // the hit's texture coordinates: (0, 0, -1) unless a textured face
+      float hu = 0.0f, hv = 0.0f, htex = -1.0f;
+      if constexpr (kTex) {
+        if (tri_best >= 0) {
+          const float* q = uvtab + tri_best * UV_STRIDE;
+          hu = q[0] + (bu * q[2] + bv * q[4]);
+          hv = q[1] + (bu * q[3] + bv * q[5]);
+          htex = q[6];
+        }
+      }
+      if constexpr (kMesh) {  // the blocked sweep, capped by the dense hit
+        nr_mesh::SweepHit sh;
+        nr_mesh::mesh_sweep<kTex>(mesh, ox, oy, oz, dx, dy, dz, cam.t_min,
+                                  t_best, -1, sh);
+        if (sh.idx >= 0.0f) {
+          t_best = sh.t;
+          nx = sh.nx;
+          ny = sh.ny;
+          nz = sh.nz;
+          m_best = mesh_mat_row(sh.mat, nc.n_mat);
+          if constexpr (kTex) {
+            hu = sh.u;
+            hv = sh.v;
+            htex = sh.tex;
+          }
         }
       }
       float t_l = INFINITY, lr_ = 0.0f, lg_ = 0.0f, lb_ = 0.0f;
@@ -551,9 +654,17 @@ pt_kernel(float* __restrict__ film, const float* __restrict__ scene,
       }
 
       if constexpr (kBsdf) {
+        const float* mt = mat + m_best * MAT_STRIDE;
+        const float* df = mt + M_DIFFUSE;
+        const float* al = mt + M_ALBEDO;
+        float tdf[3], tal[3];
+        if constexpr (kTex) {
+          if (tex_lookup(tex_tab, n_tex, hu, hv, htex, tdf)) df = tdf;
+          if (tex_lookup(tex_tab, n_tex, hu, hv, mt[M_STEX], tal)) al = tal;
+        }
         F3 nd, w;
-        bsdf_scatter(mat + m_best * MAT_STRIDE, F3{dx, dy, dz},
-                     F3{nx, ny, nz}, u1, u2, upid, sp, bseed, &nd, &w);
+        bsdf_scatter(mt, df, al, F3{dx, dy, dz}, F3{nx, ny, nz}, u1, u2,
+                     upid, sp, bseed, &nd, &w);
         tr = tr * w.x;
         tg = tg * w.y;
         tb = tb * w.z;
@@ -592,9 +703,18 @@ pt_kernel(float* __restrict__ film, const float* __restrict__ scene,
         ndz *= dinv;
         const float scale = 2.0f * (nx * ndx + ny * ndy + nz * ndz);
         const float* alb = mat + m_best * MAT_STRIDE + M_DIFFUSE;
-        tr = tr * (alb[0] * scale);
-        tg = tg * (alb[1] * scale);
-        tb = tb * (alb[2] * scale);
+        float ar = alb[0], ag = alb[1], ab = alb[2];
+        if constexpr (kTex) {
+          float t[3];
+          if (tex_lookup(tex_tab, n_tex, hu, hv, htex, t)) {
+            ar = t[0];
+            ag = t[1];
+            ab = t[2];
+          }
+        }
+        tr = tr * (ar * scale);
+        tg = tg * (ag * scale);
+        tb = tb * (ab * scale);
         ox = ox + t_best * dx;
         oy = oy + t_best * dy;
         oz = oz + t_best * dz;
@@ -642,15 +762,21 @@ __global__ void hash_fill_kernel(const int32_t* __restrict__ pid,
 extern "C" {
 
 // Adds samples [sp0, sp0 + n_spp) of every pixel into `film` ((W*H, 3)
-// float32, device) in place, with the instantiation `bsdf` and the env
-// tables select.  `counts` (host): n_sph n_tri n_pln n_al n_mat; `cam`
-// (host): the 22 floats of CamArgs; `env_bin` (device): the (3, ENV_ROWS,
-// ENV_LANES) bin table and `env_map` (device): the (env_h, env_w, 3) map,
-// both null for no env map.
+// float32, device) in place, with the instantiation `form` selects: bit 0
+// BSDF, bit 1 env map, bit 2 mesh, bit 3 textures (the ten combinations
+// pt_cuda.KERNELS lists; others return cudaErrorInvalidValue).  `counts`
+// (host): n_sph n_tri n_pln n_al n_mat; `cam` (host): the 22 floats of
+// CamArgs; `env_bin` (device): the (3, ENV_ROWS, ENV_LANES) bin table and
+// `env_map` (device): the (env_h, env_w, 3) map; `mesh_tris`, `mesh_uvs`,
+// `mesh_bb` (device): the blocked pool's tables (csrc/mesh_sweep.cuh;
+// `mesh_uvs` with textures); `tex_tab` (device): n_tex binned textures.
 int nr_pt_render(float* film, const float* scene, const int* counts,
                  const float* cam, int width, int height, int sp0, int n_spp,
-                 int depth, int seed, int bsdf, const float* env_bin,
-                 const float* env_map, int env_h, int env_w, void* stream) {
+                 int depth, int seed, int form, const float* env_bin,
+                 const float* env_map, int env_h, int env_w,
+                 const float* mesh_tris, const float* mesh_uvs,
+                 const float* mesh_bb, int n_blocks, int block,
+                 const float* tex_tab, int n_tex, void* stream) {
   SceneCounts nc{counts[0], counts[1], counts[2], counts[3], counts[4]};
   CamArgs ca;
   const float* c = cam;
@@ -666,20 +792,38 @@ int nr_pt_render(float* film, const float* scene, const int* counts,
   ca.t_min = c[19];
   ca.inv_w = c[20];
   ca.inv_h = c[21];
+  const nr_mesh::MeshArgs mesh{reinterpret_cast<const float4*>(mesh_tris),
+                               reinterpret_cast<const float4*>(mesh_uvs),
+                               reinterpret_cast<const float4*>(mesh_bb),
+                               nullptr, n_blocks, block};
+  const bool has_env = env_bin != nullptr && env_map != nullptr;
+  const bool has_mesh = mesh_tris != nullptr && mesh_bb != nullptr &&
+                        n_blocks > 0 && block > 0;
+  const bool has_tex = tex_tab != nullptr && n_tex > 0;
+  if (((form & 2) != 0) != has_env || ((form & 4) != 0) != has_mesh ||
+      ((form & 8) != 0) != has_tex ||
+      ((form & 4) && (form & 8) && mesh_uvs == nullptr))
+    return (int)cudaErrorInvalidValue;
   const int n_pix = width * height;
   const int threads = 128;
   const int blocks = (n_pix + threads - 1) / threads;
   cudaStream_t st = (cudaStream_t)stream;
-  const bool env = env_bin != nullptr && env_map != nullptr;
-#define NR_LAUNCH(B, E)                                                      \
-  pt_kernel<B, E><<<blocks, threads, 0, st>>>(film, scene, nc, ca, width,    \
-                                              height, sp0, n_spp, depth,     \
-                                              (uint32_t)seed, env_bin,       \
-                                              env_map, env_h, env_w)
-  if (bsdf) {
-    if (env) NR_LAUNCH(true, true); else NR_LAUNCH(true, false);
-  } else {
-    if (env) NR_LAUNCH(false, true); else NR_LAUNCH(false, false);
+#define NR_LAUNCH(B, E, M, T)                                               \
+  pt_kernel<B, E, M, T><<<blocks, threads, 0, st>>>(                        \
+      film, scene, nc, ca, width, height, sp0, n_spp, depth, (uint32_t)seed, \
+      env_bin, env_map, env_h, env_w, mesh, tex_tab, n_tex)
+  switch (form) {
+    case 0: NR_LAUNCH(false, false, false, false); break;
+    case 1: NR_LAUNCH(true, false, false, false); break;
+    case 2: NR_LAUNCH(false, true, false, false); break;
+    case 3: NR_LAUNCH(true, true, false, false); break;
+    case 5: NR_LAUNCH(true, false, true, false); break;
+    case 8: NR_LAUNCH(false, false, false, true); break;
+    case 9: NR_LAUNCH(true, false, false, true); break;
+    case 10: NR_LAUNCH(false, true, false, true); break;
+    case 11: NR_LAUNCH(true, true, false, true); break;
+    case 13: NR_LAUNCH(true, false, true, true); break;
+    default: return (int)cudaErrorInvalidValue;
   }
 #undef NR_LAUNCH
   return (int)cudaGetLastError();
@@ -700,13 +844,17 @@ int nr_hash_uniform_fill(const int32_t* pid, const int32_t* sample,
 }
 
 // The table layout this library was built with: 0 camera floats,
-// 1 material stride, 2 env bin rows, 3 env bin lanes.
+// 1 material stride, 2 env bin rows, 3 env bin lanes, 4 dense UV stride,
+// 5 texture rows, 6 texture lanes.
 int nr_layout(int what) {
   switch (what) {
     case 0: return CAM_FLOATS;
     case 1: return MAT_STRIDE;
     case 2: return ENV_ROWS;
     case 3: return ENV_LANES;
+    case 4: return UV_STRIDE;
+    case 5: return TEX_ROWS;
+    case 6: return TEX_LANES;
     default: return -1;
   }
 }

@@ -48,7 +48,7 @@ class StaticScene(NamedTuple):
     n_mats: int
     # per-tri texture coords, parallel to `tri`: (u1x, u1y, e1x, e1y,
     # e2x, e2y, tex_id, stex_id) plain-float tuples; () when the scene has
-    # no textured faces.  This slice renders untextured scenes only.
+    # no textured faces
     tri_uv: tuple = ()
 
 
@@ -152,16 +152,20 @@ class HitUnrolled(NamedTuple):
     prim_id: torch.Tensor  # (N,) float primitive id (enumeration order:
     #                        spheres, triangles, planes; -1 if miss)
     channels: tuple       # per-ray tracked material constants ((N,) each)
+    uv: tuple = None      # (tu, tv, tex_id) per ray, only with `with_uv`
 
 
 def intersect_scene_unrolled(ss: StaticScene, o: V3, d: V3,
                              t_min: float = T_MIN_PT,
-                             mat_channels=None) -> HitUnrolled:
+                             mat_channels=None,
+                             with_uv: bool = False) -> HitUnrolled:
     """Closest hit with the primitive loop unrolled in Python.
 
     Running per-ray state: best t, best normal, and the material constants
     the caller needs: `mat_channels` is a list over materials of k-tuples
-    (e.g. the albedo rgb), updated with each closer prim's constants."""
+    (e.g. the albedo rgb), updated with each closer prim's constants.
+    `with_uv`: also the hit's (u, v, texture id), interpolated from the
+    winning triangle's UVs when it has a map, else (0, 0, -1)."""
     inf = float("inf")
     k = len(mat_channels[0]) if mat_channels else 0
     t_best = torch.full_like(o.x, inf)
@@ -171,22 +175,30 @@ def intersect_scene_unrolled(ss: StaticScene, o: V3, d: V3,
     mid = torch.zeros_like(o.x)  # material id as float
     pid_best = torch.full_like(o.x, -1.0)  # primitive id as float
     chans = tuple(torch.zeros_like(o.x) for _ in range(k))
+    uv_state = (torch.zeros_like(o.x), torch.zeros_like(o.x),
+                torch.full_like(o.x, -1.0)) if with_uv else None
     prim_counter = [0]
 
-    def upd(hit_mask, t, nxx, nyy, nzz, m, state):
-        t_best, nx, ny, nz, mid, pid_best, chans = state
+    def upd(hit_mask, t, nxx, nyy, nzz, m, state, uv_vals=None):
+        t_best, nx, ny, nz, mid, pid_best, chans, uv_state = state
         pid = prim_counter[0]
         prim_counter[0] += 1
         closer = hit_mask & (t < t_best)
         new_chans = tuple(
             torch.where(closer, float(mat_channels[m][i]), chans[i])
             for i in range(k))
+        if uv_state is not None:
+            if uv_vals is None:
+                uv_vals = (0.0, 0.0, -1.0)
+            uv_state = tuple(torch.where(closer, v, s)
+                             for v, s in zip(uv_vals, uv_state))
         return (torch.where(closer, t, t_best), torch.where(closer, nxx, nx),
                 torch.where(closer, nyy, ny), torch.where(closer, nzz, nz),
                 torch.where(closer, float(m), mid),
-                torch.where(closer, float(pid), pid_best), new_chans)
+                torch.where(closer, float(pid), pid_best), new_chans,
+                uv_state)
 
-    state = (t_best, nx, ny, nz, mid, pid_best, chans)
+    state = (t_best, nx, ny, nz, mid, pid_best, chans, uv_state)
 
     for (cx, cy, cz, r, m) in ss.sph:
         ocx, ocy, ocz = o.x - cx, o.y - cy, o.z - cz
@@ -208,7 +220,7 @@ def intersect_scene_unrolled(ss: StaticScene, o: V3, d: V3,
         state = upd(torch.isfinite(t), t, (px - cx) * inv_r,
                     (py - cy) * inv_r, (pz - cz) * inv_r, m, state)
 
-    for (v1, e1, e2, nrm, m) in ss.tri:
+    for ti, (v1, e1, e2, nrm, m) in enumerate(ss.tri):
         # P = d x e2 (e2 constant -> linear in d; zero terms folded)
         px = _lin3((0.0, e2[2], -e2[1]), d.x, d.y, d.z)
         py = _lin3((-e2[2], 0.0, e2[0]), d.x, d.y, d.z)
@@ -227,15 +239,25 @@ def intersect_scene_unrolled(ss: StaticScene, o: V3, d: V3,
         w = _lin3(e2, qx, qy, qz) / torch.where(det == 0, 1.0, det)
         ok = ((det >= 1e-6) & (u >= 0) & (u <= det) & (v >= 0)
               & (u + v <= det) & (w >= t_min))
+        uv_vals = None
+        if with_uv and ti < len(ss.tri_uv) and (
+                ss.tri_uv[ti][6] >= 0 or ss.tri_uv[ti][7] >= 0):
+            u1x, u1y, ue1x, ue1y, ue2x, ue2y, tex = ss.tri_uv[ti][:7]
+            inv_det = 1.0 / torch.where(det == 0, 1.0, det)
+            b1 = u * inv_det
+            b2 = v * inv_det
+            uv_vals = (_full(u1x + _dota([(b1, ue1x), (b2, ue2x)]), o.x),
+                       _full(u1y + _dota([(b1, ue1y), (b2, ue2y)]), o.x),
+                       float(tex))
         state = upd(ok, torch.where(ok, w, inf), float(nrm[0]),
-                    float(nrm[1]), float(nrm[2]), m, state)
+                    float(nrm[1]), float(nrm[2]), m, state, uv_vals=uv_vals)
 
     for (pos, nrm, inv0, inv1, m) in ss.pln:
         ok, t = _patch_hit(pos, nrm, inv0, inv1, o, d, t_min)
         state = upd(ok, torch.where(ok, t, inf), float(nrm[0]),
                     float(nrm[1]), float(nrm[2]), m, state)
 
-    t_best, nx, ny, nz, mid, pid_best, chans = state
+    t_best, nx, ny, nz, mid, pid_best, chans, uv_state = state
     valid = torch.isfinite(t_best)
     # fold miss t=inf to the origin so masked shading never computes
     # 0 * inf = NaN
@@ -243,7 +265,7 @@ def intersect_scene_unrolled(ss: StaticScene, o: V3, d: V3,
     point = V3(o.x + t_pt * d.x, o.y + t_pt * d.y, o.z + t_pt * d.z)
     return HitUnrolled(t=t_best, valid=valid, point=point,
                        normal=V3(nx, ny, nz), mat_id=mid, prim_id=pid_best,
-                       channels=chans)
+                       channels=chans, uv=uv_state)
 
 
 def _patch_hit(pos, nrm, inv0, inv1, o: V3, d: V3, t_min: float):

@@ -1,0 +1,341 @@
+"""The blocked mesh sweep: device tables, CUDA launch wrapper, plain torch
+version and launch counter.
+
+Counterpart of `nrenderer_tpu/ops/mesh_pallas.py`: the closest triangle
+per ray against the BVH-preorder blocked pool of `ops/bvh.py`, each block
+slab-tested against its AABB and skipped when the ray cannot beat its best
+hit inside it; the per-ray `t_cap` is the starting best (the dense hit's
+t, or 0 to skip the ray).  `sweep_mesh_full` launches `mesh_sweep_kernel`
+(`csrc/mesh_sweep.cu`, which replaces the Pallas `_sweep_kernel`) for rays
+on a CUDA device and runs `sweep_mesh_plain` for rays on the CPU; the
+path-tracing kernel's mesh form inlines the same device function
+(`csrc/mesh_sweep.cuh`) in its bounce loop.
+
+The contract, from `mesh_pallas.sweep_tile` (`:72-256`), in its float
+order: inv_d = 1 / where(|d| < 1e-20, 1e-20, d); a block is entered when
+(t_near <= t_far) & (t_far >= t_min) & (max(t_near, t_min) < t_best);
+Möller-Trumbore with the det-sign fold, w = (e2 . q) * inv_det, accepted
+when det >= 1e-6, u, v in range, t_min <= w < t_best and pid >= 0; the
+winner's UV is uv1 + bu * ue1 + bv * ue2 with bu = u * inv_det.  Blocks are
+visited in natural order, or near to far along the ray's own direction
+octant (`f2b_ord`).  The Pallas kernel culls a block for a whole 32x128
+ray tile (it sweeps when any ray of the tile enters); here each ray culls
+for itself.  The two differ only where a hit lies on a block's AABB face
+within rounding."""
+from __future__ import annotations
+
+import ctypes
+from typing import NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from .bvh import BlockedTris
+from .soa import V3
+
+KERNEL_SOURCE = "nrenderer_torch/csrc/mesh_sweep.cu"
+REPLACES = "nrenderer_tpu/ops/mesh_pallas.py:439 _sweep_kernel"
+KERNEL_NAME = "mesh_sweep_kernel"
+
+# Launches of `mesh_sweep_kernel` made by `sweep_mesh_full`: a caller
+# resets and reads it to show that a run went through the kernel.
+KERNEL_LAUNCHES = {KERNEL_NAME: 0}
+
+
+def reset_launch_counts() -> None:
+    KERNEL_LAUNCHES[KERNEL_NAME] = 0
+
+
+# Device table rows (float32); csrc/mesh_sweep.cuh reads the same layout.
+TRI_FLOATS = 16   # v1[3] e1[3] e2[3] n[3] mat pid, 2 pad
+UV_FLOATS = 8     # uv1[2] ue1[2] ue2[2] tex, 1 pad
+BB_FLOATS = 8     # min[3], pad, max[3], pad
+RAY_CHANNELS = 7  # ox oy oz dx dy dz t_cap
+
+# rays per wavefront chunk of the plain version
+PLAIN_CHUNK = 1 << 16
+
+
+class MeshTables(NamedTuple):
+    """A blocked pool as the sweep reads it, on one device."""
+    tris: torch.Tensor            # (n_blocks * block, TRI_FLOATS)
+    uvs: Optional[torch.Tensor]   # (n_blocks * block, UV_FLOATS) or None
+    bb: torch.Tensor              # (n_blocks, BB_FLOATS)
+    f2b: torch.Tensor             # (8, n_blocks) int32
+    n_blocks: int
+    block: int
+
+
+def make_mesh_tables(bt: BlockedTris, device) -> MeshTables:
+    """Pack `bt` into contiguous device tables, once per render."""
+    n = bt.n_blocks * bt.block
+    tris = np.zeros((n, TRI_FLOATS), np.float32)
+    for j, f in enumerate(("v1x", "v1y", "v1z", "e1x", "e1y", "e1z", "e2x",
+                           "e2y", "e2z", "nx", "ny", "nz", "mat", "pid")):
+        tris[:, j] = np.asarray(getattr(bt, f), np.float32).reshape(-1)
+    uvs = None
+    if bt.tex is not None:
+        uvs = np.zeros((n, UV_FLOATS), np.float32)
+        for j, f in enumerate(("uv1x", "uv1y", "ue1x", "ue1y", "ue2x",
+                               "ue2y", "tex")):
+            uvs[:, j] = np.asarray(getattr(bt, f), np.float32).reshape(-1)
+    bb = np.zeros((bt.n_blocks, BB_FLOATS), np.float32)
+    bb[:, 0:3] = bt.bb_min
+    bb[:, 4:7] = bt.bb_max
+    put = lambda a: torch.as_tensor(np.ascontiguousarray(a), device=device)
+    return MeshTables(tris=put(tris), uvs=None if uvs is None else put(uvs),
+                      bb=put(bb), f2b=put(np.asarray(bt.f2b_ord, np.int32)),
+                      n_blocks=bt.n_blocks, block=bt.block)
+
+
+def channels_from_mat(mat: torch.Tensor, miss: torch.Tensor,
+                      mat_channels) -> tuple:
+    """The tracked channel tuple of the winners' material ids: a select
+    chain over the material table (`mesh_pallas._channels_from_mat`,
+    `:616`): material 0's channels unless the id equals another
+    material's index; zeros on a miss."""
+    k = len(mat_channels[0]) if mat_channels else 0
+    chans = []
+    for ki in range(k):
+        out = torch.full_like(mat, float(mat_channels[0][ki]))
+        for mi in range(1, len(mat_channels)):
+            out = torch.where(mat == float(mi), float(mat_channels[mi][ki]),
+                              out)
+        chans.append(torch.where(miss, 0.0, out))
+    return tuple(chans)
+
+
+def _inv(x: torch.Tensor) -> torch.Tensor:
+    return 1.0 / torch.where(torch.abs(x) < 1e-20, 1e-20, x)
+
+
+def _octant(d: V3) -> torch.Tensor:
+    return ((d.x > 0).to(torch.int64) * 4 + (d.y > 0).to(torch.int64) * 2
+            + (d.z > 0).to(torch.int64))
+
+
+def sweep_mesh_plain(mt: MeshTables, o: V3, d: V3, t_min: float,
+                     t_cap: torch.Tensor, f2b: bool = False,
+                     with_uv: bool = False, stats: Optional[dict] = None):
+    """The sweep kernel's plain torch version on (N,) rays (the device
+    function's per-ray semantics, `sweep_tile`'s float order).  Returns
+    (t_best, idx, nx, ny, nz, mat), plus (u, v, tex) with `with_uv`, all
+    float32: t_best stays at the cap and idx at -1 when no triangle beats
+    the cap (`sweep_tile`'s contract).
+
+    Each block's triangles are tested together for the rays that enter
+    it; the first of the block's triangles at the least accepted w wins,
+    which is what testing them one by one with a strict `w < t_best`
+    picks.  `stats` (optional dict) counts "slab_tests" (rays with a
+    positive cap, times blocks) and "tri_tests" (rays times the real
+    triangles of the blocks they enter)."""
+    n = o.x.shape[0]
+    dev = o.x.device
+    with_uv = with_uv and mt.uvs is not None
+    tris = mt.tris.to(dev).reshape(mt.n_blocks, mt.block, TRI_FLOATS)
+    uvs = (mt.uvs.to(dev).reshape(mt.n_blocks, mt.block, UV_FLOATS)
+           if with_uv else None)
+    bb = mt.bb.to(dev)
+    real = (tris[:, :, 13] >= 0).sum(dim=1).tolist()
+    out = [t_cap.to(torch.float32).clone(),
+           torch.full((n,), -1.0, device=dev)] + [
+               torch.zeros((n,), device=dev) for _ in range(4)]
+    if with_uv:
+        out += [torch.zeros((n,), device=dev), torch.zeros((n,), device=dev),
+                torch.full((n,), -1.0, device=dev)]
+    live = out[0] > t_min
+    if f2b:
+        octs = _octant(d)
+        groups = [(int(g), torch.nonzero(live & (octs == g)).flatten())
+                  for g in range(8)]
+        orders = mt.f2b.to(dev).tolist()
+    else:
+        groups = [(None, torch.nonzero(live).flatten())]
+        orders = None
+    if stats is not None:
+        stats["slab_tests"] = (stats.get("slab_tests", 0)
+                               + int(live.sum()) * mt.n_blocks)
+    for g, rays in groups:
+        for c0 in range(0, rays.shape[0], PLAIN_CHUNK):
+            r = rays[c0:c0 + PLAIN_CHUNK]
+            order = orders[g] if orders is not None else range(mt.n_blocks)
+            _sweep_rays(tris, uvs, bb, order, real, o, d, t_min, r, out,
+                        stats)
+    return tuple(out)
+
+
+def _sweep_rays(tris, uvs, bb, order, real, o, d, t_min, r, out, stats):
+    """Sweep the rays `r` (indices) block by block, updating `out`."""
+    ox, oy, oz = o.x[r], o.y[r], o.z[r]
+    dx, dy, dz = d.x[r], d.y[r], d.z[r]
+    inv_dx, inv_dy, inv_dz = _inv(dx), _inv(dy), _inv(dz)
+    t_best = out[0][r]
+    res = [a[r] for a in out[1:]]
+    for blk in order:
+        lo, hi = bb[blk, 0:3], bb[blk, 4:7]
+        t0x = (lo[0] - ox) * inv_dx
+        t1x = (hi[0] - ox) * inv_dx
+        t0y = (lo[1] - oy) * inv_dy
+        t1y = (hi[1] - oy) * inv_dy
+        t0z = (lo[2] - oz) * inv_dz
+        t1z = (hi[2] - oz) * inv_dz
+        t_near = torch.maximum(torch.maximum(torch.minimum(t0x, t1x),
+                                             torch.minimum(t0y, t1y)),
+                               torch.minimum(t0z, t1z))
+        t_far = torch.minimum(torch.minimum(torch.maximum(t0x, t1x),
+                                            torch.maximum(t0y, t1y)),
+                              torch.maximum(t0z, t1z))
+        enter = ((t_near <= t_far) & (t_far >= t_min)
+                 & (torch.clamp(t_near, min=t_min) < t_best))
+        s = torch.nonzero(enter).flatten()
+        if s.numel() == 0:
+            continue
+        if stats is not None:
+            stats["tri_tests"] = stats.get("tri_tests", 0) + \
+                int(s.numel()) * real[blk]
+        tb = tris[blk]                       # (B, TRI_FLOATS)
+        col = lambda j: tb[:, j][None, :]    # (1, B)
+        sox, soy, soz = ox[s][:, None], oy[s][:, None], oz[s][:, None]
+        sdx, sdy, sdz = dx[s][:, None], dy[s][:, None], dz[s][:, None]
+        v1x, v1y, v1z = col(0), col(1), col(2)
+        e1x, e1y, e1z = col(3), col(4), col(5)
+        e2x, e2y, e2z = col(6), col(7), col(8)
+        px = sdy * e2z - sdz * e2y
+        py = sdz * e2x - sdx * e2z
+        pz = sdx * e2y - sdy * e2x
+        det0 = e1x * px + e1y * py + e1z * pz
+        sign = torch.where(det0 > 0, 1.0, -1.0)
+        det = det0 * sign
+        tx = (sox - v1x) * sign
+        ty = (soy - v1y) * sign
+        tz = (soz - v1z) * sign
+        u = tx * px + ty * py + tz * pz
+        qx = ty * e1z - tz * e1y
+        qy = tz * e1x - tx * e1z
+        qz = tx * e1y - ty * e1x
+        vv = sdx * qx + sdy * qy + sdz * qz
+        inv_det = 1.0 / torch.where(det == 0, 1.0, det)
+        w = (e2x * qx + e2y * qy + e2z * qz) * inv_det
+        ok = ((det >= 1e-6) & (u >= 0) & (u <= det) & (vv >= 0)
+              & (u + vv <= det) & (w >= t_min) & (col(13) >= 0))
+        w_ok = torch.where(ok, w, float("inf"))
+        i_best = torch.argmin(w_ok, dim=1)
+        w_best = w_ok.gather(1, i_best[:, None])[:, 0]
+        acc = w_best < t_best[s]
+        if not bool(acc.any()):
+            continue
+        sa, ia = s[acc], i_best[acc]
+        t_best[sa] = w_best[acc]
+        for k, j in enumerate((13, 9, 10, 11, 12)):   # pid, n, mat
+            res[k][sa] = tb[ia, j]
+        if uvs is not None:
+            ub = uvs[blk][ia]                # (n_acc, UV_FLOATS)
+            rows = torch.nonzero(acc).flatten()
+            bu = u[rows, ia] * inv_det[rows, ia]
+            bv = vv[rows, ia] * inv_det[rows, ia]
+            res[5][sa] = ub[:, 0] + bu * ub[:, 2] + bv * ub[:, 4]
+            res[6][sa] = ub[:, 1] + bu * ub[:, 3] + bv * ub[:, 5]
+            res[7][sa] = ub[:, 6]
+    out[0][r] = t_best
+    for a, v in zip(out[1:], res):
+        a[r] = v
+
+
+_bound = None
+
+
+def _kernels() -> ctypes.CDLL:
+    global _bound
+    if _bound is None:
+        from .. import _build
+        lib = _build.load_library()
+        vp, ci = ctypes.c_void_p, ctypes.c_int
+        lib.nr_mesh_sweep.argtypes = [vp, ci, ci, vp, vp, vp, vp, ci, ci,
+                                      ctypes.c_float, vp, vp]
+        lib.nr_mesh_sweep.restype = ci
+        lib.nr_mesh_layout.argtypes = [ci]
+        lib.nr_mesh_layout.restype = ci
+        lib.nr_error_string.argtypes = [ci]
+        lib.nr_error_string.restype = ctypes.c_char_p
+        want = (TRI_FLOATS, UV_FLOATS, BB_FLOATS, RAY_CHANNELS)
+        if tuple(lib.nr_mesh_layout(i) for i in range(4)) != want:
+            raise RuntimeError("kernel library mesh table layout mismatch")
+        _bound = lib
+    return _bound
+
+
+def check_tables(mt: MeshTables, device: torch.device) -> None:
+    ok = (mt.tris.dtype == mt.bb.dtype == torch.float32
+          and mt.f2b.dtype == torch.int32
+          and tuple(mt.tris.shape) == (mt.n_blocks * mt.block, TRI_FLOATS)
+          and tuple(mt.bb.shape) == (mt.n_blocks, BB_FLOATS)
+          and tuple(mt.f2b.shape) == (8, mt.n_blocks)
+          and mt.tris.is_contiguous() and mt.bb.is_contiguous()
+          and mt.f2b.is_contiguous() and mt.tris.device == device
+          and mt.bb.device == device and mt.f2b.device == device)
+    if mt.uvs is not None:
+        ok = ok and (mt.uvs.dtype == torch.float32
+                     and tuple(mt.uvs.shape) == (mt.n_blocks * mt.block,
+                                                 UV_FLOATS)
+                     and mt.uvs.is_contiguous() and mt.uvs.device == device)
+    if not ok:
+        raise ValueError(f"mesh tables must be contiguous float32/int32 "
+                         f"tensors of make_mesh_tables' layout on {device}")
+
+
+def sweep_mesh_full(mt: MeshTables, o: V3, d: V3, t_min: float,
+                    t_cap: Optional[torch.Tensor] = None, n_valid=None,
+                    f2b: bool = False, with_uv: bool = False):
+    """Closest triangle per ray (`mesh_pallas.sweep_mesh_full`, `:503`).
+    `t_cap`: per-ray upper bound (hits at or beyond it are not reported; 0
+    skips the ray); `n_valid`: only the leading rays are real (the rest
+    get a zero cap); `f2b`: near-to-far block order by the ray's octant;
+    `with_uv`: also the winner's (u, v, tex) (needs UV tables).
+
+    Returns (t, idx, nx, ny, nz, mat[, u, v, tex]): t = +inf and idx = -1
+    (int32) with zero shading on a miss.  Rays on a CUDA device go through
+    `mesh_sweep_kernel`, rays on the CPU through `sweep_mesh_plain`."""
+    n = o.x.shape[0]
+    dev = o.x.device
+    if with_uv and mt.uvs is None:
+        raise ValueError("with_uv needs a mesh with UV tables")
+    check_tables(mt, dev)
+    cap = (torch.full((n,), float("inf"), device=dev) if t_cap is None
+           else t_cap.to(torch.float32))
+    if n_valid is not None:
+        cap = torch.where(torch.arange(n, device=dev) < int(n_valid), cap,
+                          0.0)
+    if dev.type == "cuda":
+        out = _sweep_cuda(mt, o, d, t_min, cap, f2b, with_uv)
+    elif dev.type == "cpu":
+        out = sweep_mesh_plain(mt, o, d, t_min, cap, f2b=f2b,
+                               with_uv=with_uv)
+    else:
+        raise ValueError(f"unsupported device {dev}")
+    t, idx = out[0], out[1]
+    t = torch.where(idx >= 0, t, float("inf"))
+    return (t, idx.to(torch.int32)) + tuple(out[2:])
+
+
+def _sweep_cuda(mt, o, d, t_min, cap, f2b, with_uv):
+    n = o.x.shape[0]
+    if n >= 1 << 31:
+        raise ValueError(f"too many rays for one launch: {n}")
+    lib = _kernels()
+    rays = torch.stack([o.x, o.y, o.z, d.x, d.y, d.z, cap]).to(
+        torch.float32).contiguous()
+    n_out = 9 if with_uv else 6
+    out = torch.empty((n_out, n), dtype=torch.float32, device=rays.device)
+    with torch.cuda.device(rays.device):
+        err = lib.nr_mesh_sweep(
+            rays.data_ptr(), n, n_out, mt.tris.data_ptr(),
+            mt.uvs.data_ptr() if with_uv else None, mt.bb.data_ptr(),
+            mt.f2b.data_ptr() if f2b else None, mt.n_blocks, mt.block,
+            float(t_min), out.data_ptr(),
+            torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        msg = lib.nr_error_string(err).decode()
+        raise RuntimeError(f"{KERNEL_NAME} launch failed: CUDA error {err}: "
+                           f"{msg}")
+    KERNEL_LAUNCHES[KERNEL_NAME] += 1
+    return tuple(out[i] for i in range(n_out))

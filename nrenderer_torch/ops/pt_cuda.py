@@ -1,12 +1,14 @@
 """The path-tracing kernel: CUDA launch wrapper, plain torch version and
-launch counters, for the kernel's four forms.
+launch counters, for the kernel's ten forms.
 
-Counterpart of `nrenderer_tpu/ops/pt_pallas.py` for analytic scenes
-(`render_simple_pt_pallas`, `render_pt_pallas_linear`,
-`render_bsdf_pt_pallas`): the diffuse estimator (SimplePathTracer) or the
-five-lobe BSDF one (AccPathTracer), each without or with an environment
-map.  The kernel, `csrc/pt_kernel.cu`, replaces the Pallas `_pt_kernel` in
-those forms; its source header says what it computes and how.
+Counterpart of `nrenderer_tpu/ops/pt_pallas.py` (`render_simple_pt_pallas`,
+`render_pt_pallas_linear`, `render_bsdf_pt_pallas`): the diffuse estimator
+(SimplePathTracer) or the five-lobe BSDF one (AccPathTracer), each without
+or with an environment map; the BSDF one with the blocked mesh sweep in its
+bounce loop (`mesh_accel`, AccPathTracer's megamesh route); and each of
+those five with binned surface textures (`textures`).  The kernel,
+`csrc/pt_kernel.cu`, replaces the Pallas `_pt_kernel` in those forms; its
+source header says what it computes and how.
 
 `pt_accumulate` is the wrapper: for a film tensor on a CUDA device it
 launches the kernel instantiation the form needs (and raises if the build or
@@ -22,6 +24,14 @@ Env-map form: a path that misses at bounce 0 reads the map's native texel
 throughput and direction, and one lookup in the mean-pooled 32x128 bin table
 per sample follows the bounce loop, as in the Pallas kernel.  Both index
 with the Pallas kernel's polynomial angles (`ops.env`).
+
+Mesh form: the dense pass runs without triangles and the sweep
+(`mesh_cuda`) runs over the mesh tables with the dense hit's t as its cap,
+in natural block order.  Texture form: hits carry (u, v, texture id), from
+a dense triangle's UV row or from the sweep, resolved against the binned
+(n_tex, 3, 32, 128) tables (`ops/texture.py`).  The mesh and texture
+tables are packed once per render (`make_mesh_tables`, `make_tex_tables`),
+like the env tables.
 
 Both add into a linear film SUM in place and sample by sample, so a render
 split into several calls over consecutive sample ranges gives the same sums
@@ -41,34 +51,51 @@ from .env import (
     ENV_LANES, ENV_ROWS, bin_env_map, env_bin_lookup, env_native_lookup,
 )
 from .intersect import StaticScene, np_dot
+from .mesh_cuda import MeshTables, check_tables, make_mesh_tables, \
+    sweep_mesh_plain
 from .pt_core import (
     PI, bounce_seed, bsdf_bounce, diffuse_bounce, effective_lobe,
     finish_ambient, hash_uniform, lobe_order, make_mat_channels,
     scene_epsilon,
 )
 from .soa import V3, normalize3
+from .texture import TEX_LANES, TEX_ROWS, make_tex_resolver, tex_tables
 
 KERNEL_SOURCE = "nrenderer_torch/csrc/pt_kernel.cu"
 _PALLAS = "nrenderer_tpu/ops/pt_pallas.py:123 _pt_kernel"
 
-# The kernel's instantiations by (bsdf, env), and the Pallas form each
-# replaces.
+# The kernel's instantiations by (bsdf, env, mesh, textures), and the
+# Pallas form each replaces.  The mesh form exists with the BSDF estimator
+# only (the JAX renderers send meshes to the megakernel from AccPathTracer
+# alone) and without an env map (the JAX kernel refuses env + mesh).
 KERNELS = {
-    (False, False): "pt_diffuse_kernel",
-    (True, False): "pt_bsdf_kernel",
-    (False, True): "pt_diffuse_env_kernel",
-    (True, True): "pt_bsdf_env_kernel",
+    (False, False, False, False): "pt_diffuse_kernel",
+    (True, False, False, False): "pt_bsdf_kernel",
+    (False, True, False, False): "pt_diffuse_env_kernel",
+    (True, True, False, False): "pt_bsdf_env_kernel",
+    (True, False, True, False): "pt_bsdf_mesh_kernel",
+    (False, False, False, True): "pt_diffuse_tex_kernel",
+    (True, False, False, True): "pt_bsdf_tex_kernel",
+    (False, True, False, True): "pt_diffuse_env_tex_kernel",
+    (True, True, False, True): "pt_bsdf_env_tex_kernel",
+    (True, False, True, True): "pt_bsdf_mesh_tex_kernel",
+}
+_FORM = {
+    (False, False, False): "bsdf=False",
+    (True, False, False): "bsdf=True",
+    (False, True, False): "bsdf=False, env_rows/env_exact",
+    (True, True, False): "bsdf=True, env_rows/env_exact",
+    (True, False, True): "bsdf=True, mesh=(n_blocks, b)",
 }
 REPLACES = {
-    "pt_diffuse_kernel": f"{_PALLAS}, bsdf=False",
-    "pt_bsdf_kernel": f"{_PALLAS}, bsdf=True",
-    "pt_diffuse_env_kernel": f"{_PALLAS}, bsdf=False, env_rows/env_exact",
-    "pt_bsdf_env_kernel": f"{_PALLAS}, bsdf=True, env_rows/env_exact",
-}
+    name: f"{_PALLAS}, {_FORM[key[:3]]}"
+    + (", n_tex > 0" + (", mesh_uv" if key[2] else "") if key[3] else "")
+    for key, name in KERNELS.items()}
 
 # Kernel launches made by `pt_accumulate` (one per spp chunk), by
-# instantiation name, and by `hash_uniform_fill`.  Plain integers: a caller
-# resets and reads them to show that a run went through the kernels.
+# instantiation name (the texture forms counted apart), and by
+# `hash_uniform_fill`.  Plain integers: a caller resets and reads them to
+# show that a run went through the kernels.
 KERNEL_LAUNCHES = {name: 0 for name in KERNELS.values()}
 HASH_LAUNCHES = 0
 
@@ -86,21 +113,32 @@ def reset_launch_counts() -> None:
 PIXEL_SAMPLES_PER_LAUNCH = 1 << 23
 PLAIN_RAYS_PER_WAVEFRONT = 1 << 20
 
-# The slice's size limit: the kernel tests triangles one by one, so a scene
-# past this count belongs to the mesh engines.  The JAX package's
-# brute-force limit (its AccPathTracer's ACC_TYPE0_MAX_TRIS).
+# The dense pass's size limit: the kernel tests dense triangles one by one,
+# so a scene past this count belongs to the mesh engines.  The JAX
+# package's brute-force limit (its AccPathTracer's ACC_TYPE0_MAX_TRIS).
 MAX_TRIS = 2048
 
 # Packed scene-table strides; csrc/pt_kernel.cu reads the same layout.  A
-# material row is the 20 `make_mat_channels` floats plus its effective lobe.
-SPH_STRIDE, TRI_STRIDE, PLN_STRIDE, AL_STRIDE, MAT_STRIDE = 6, 13, 14, 16, 21
+# material row is the first 20 `make_mat_channels` floats, its effective
+# lobe and its specular-map id; a dense UV row (texture forms) is uv1, the
+# two uv edges and the texture id.
+SPH_STRIDE, TRI_STRIDE, PLN_STRIDE, AL_STRIDE, MAT_STRIDE = 6, 13, 14, 16, 22
+UV_STRIDE = 7
 CAM_FLOATS = 22
 
 _bound = None
 
 
-def kernel_name(bsdf: bool, env: bool) -> str:
-    return KERNELS[(bool(bsdf), bool(env))]
+def kernel_name(bsdf: bool, env: bool, mesh: bool = False,
+                tex: bool = False) -> str:
+    key = (bool(bsdf), bool(env), bool(mesh), bool(tex))
+    if key not in KERNELS:
+        raise NotImplementedError(
+            "the path-tracing kernel's mesh form runs the BSDF estimator "
+            "without an env map; env-map mesh scenes need the hybrid route "
+            "(ROADMAP A7: staged wavefront, B2's route, B3a/B3b), not "
+            "ported yet")
+    return KERNELS[key]
 
 
 def check_device(device) -> torch.device:
@@ -117,17 +155,14 @@ def check_device(device) -> torch.device:
     return dev
 
 
-def check_supported(ss: StaticScene) -> None:
-    """Refuse scenes that need a kernel form this slice lacks."""
-    if ss.tri_uv:
+def check_supported(ss: StaticScene, mesh: bool = False) -> None:
+    """Refuse scenes that need a kernel form the port lacks: a dense pass
+    past MAX_TRIS triangles (without a mesh sweep to take them)."""
+    if not mesh and len(ss.tri) > MAX_TRIS:
         raise NotImplementedError(
-            "textured faces need the texture form of the path-tracing "
-            "kernel (ROADMAP B1d), not ported yet")
-    if len(ss.tri) > MAX_TRIS:
-        raise NotImplementedError(
-            f"{len(ss.tri)} triangles is past the analytic kernel's limit "
-            f"of {MAX_TRIS}: meshes need the mesh slice (ROADMAP A7, B2), "
-            "not ported yet")
+            f"{len(ss.tri)} triangles is past the dense kernel's limit "
+            f"of {MAX_TRIS}: such pools need the hybrid mesh route (ROADMAP "
+            "A7), not ported yet")
 
 
 class EnvTables(NamedTuple):
@@ -148,36 +183,59 @@ def make_env_tables(env_map, device) -> EnvTables:
         native=torch.as_tensor(e, device=device))
 
 
-def pack_scene(ss: StaticScene):
+def pack_scene(ss: StaticScene, mesh: bool = False, with_uv: bool = False):
     """The kernel's float32 scene table and its counts
     (n_sph, n_tri, n_pln, n_al, n_mat).  Constants are rounded to float32
     exactly where the plain form rounds them: r*r and 1/r in double, the
     plane offset dot(pos, n) in float32 (`intersect.np_dot`).  Each
     material row ends with its effective lobe (`pt_core.effective_lobe`),
-    so the kernel switches on one integer."""
+    so the kernel switches on one integer, and the specular-map id of the
+    `stex` channel (-1 without one).  A primitive's material id is the row
+    the plain form's `mat_channels[m]` reads (a negative id counts from
+    the end, as Python indexes).
+
+    `mesh`: the mesh form's dense pass, without triangles.  `with_uv`: a
+    UV row per triangle follows the ambient (the texture forms)."""
+    n_mat = len(ss.mats)
+    row_of = lambda m: m + n_mat if m < 0 else m
+    tris = [] if mesh else ss.tri
     rows = []
     for (cx, cy, cz, r, m) in ss.sph:
-        rows.append([cx, cy, cz, r * r, 1.0 / r, m])
-    for (v1, e1, e2, n, m) in ss.tri:
-        rows.append([*v1, *e1, *e2, *n, m])
+        rows.append([cx, cy, cz, r * r, 1.0 / r, row_of(m)])
+    for (v1, e1, e2, n, m) in tris:
+        rows.append([*v1, *e1, *e2, *n, row_of(m)])
     for (pos, n, inv0, inv1, m) in ss.pln:
-        rows.append([*pos, *n, *inv0, *inv1, np_dot(pos, n), m])
+        rows.append([*pos, *n, *inv0, *inv1, np_dot(pos, n), row_of(m)])
     for (pos, n, inv0, inv1, rad) in ss.al:
         rows.append([*pos, *n, *inv0, *inv1, np_dot(pos, n), *rad])
     lobes = lobe_order(ss)
     for ch in make_mat_channels(ss):
-        rows.append([*ch, effective_lobe(ch[0], lobes)])
+        stex = ch[20] if len(ch) > 20 else -1.0
+        rows.append([*ch[:20], effective_lobe(ch[0], lobes), stex])
     rows.append(list(ss.ambient_constant))
+    if with_uv:
+        for ti in range(len(tris)):
+            uv = ss.tri_uv[ti] if ti < len(ss.tri_uv) else None
+            if uv is not None and (uv[6] >= 0 or uv[7] >= 0):
+                rows.append(list(uv[:7]))
+            else:
+                rows.append([0.0] * 6 + [-1.0])
     table = np.asarray([float(x) for row in rows for x in row], np.float32)
-    counts = (len(ss.sph), len(ss.tri), len(ss.pln), len(ss.al),
-              len(ss.mats))
+    counts = (len(ss.sph), len(tris), len(ss.pln), len(ss.al), n_mat)
     return table, counts
 
 
-def table_size(counts) -> int:
+def table_size(counts, with_uv: bool = False) -> int:
     n_sph, n_tri, n_pln, n_al, n_mat = counts
     return (n_sph * SPH_STRIDE + n_tri * TRI_STRIDE + n_pln * PLN_STRIDE
-            + n_al * AL_STRIDE + n_mat * MAT_STRIDE + 3)
+            + n_al * AL_STRIDE + n_mat * MAT_STRIDE + 3
+            + (n_tri * UV_STRIDE if with_uv else 0))
+
+
+def make_tex_tables(textures, device) -> torch.Tensor:
+    """(H, W, 3) textures -> the binned (n_tex, 3, TEX_ROWS, TEX_LANES)
+    float32 tables on `device`, once per render."""
+    return torch.as_tensor(tex_tables(textures), device=device)
 
 
 def camera_floats(cam: CameraParams, width: int, height: int,
@@ -206,7 +264,8 @@ def _kernels() -> ctypes.CDLL:
         vp, ci = ctypes.c_void_p, ctypes.c_int
         lib.nr_pt_render.argtypes = [
             vp, vp, ctypes.POINTER(ci), ctypes.POINTER(ctypes.c_float),
-            ci, ci, ci, ci, ci, ci, ci, vp, vp, ci, ci, vp]
+            ci, ci, ci, ci, ci, ci, ci, vp, vp, ci, ci, vp, vp, vp, ci, ci,
+            vp, ci, vp]
         lib.nr_pt_render.restype = ci
         lib.nr_hash_uniform_fill.argtypes = [vp, vp, vp, vp, vp, ci, vp]
         lib.nr_hash_uniform_fill.restype = ci
@@ -214,8 +273,9 @@ def _kernels() -> ctypes.CDLL:
         lib.nr_layout.restype = ci
         lib.nr_error_string.argtypes = [ci]
         lib.nr_error_string.restype = ctypes.c_char_p
-        want = (CAM_FLOATS, MAT_STRIDE, ENV_ROWS, ENV_LANES)
-        if tuple(lib.nr_layout(i) for i in range(4)) != want:
+        want = (CAM_FLOATS, MAT_STRIDE, ENV_ROWS, ENV_LANES, UV_STRIDE,
+                TEX_ROWS, TEX_LANES)
+        if tuple(lib.nr_layout(i) for i in range(len(want))) != want:
             raise RuntimeError("kernel library table layout mismatch")
         _bound = lib
     return _bound
@@ -258,37 +318,61 @@ def _check_env(env: EnvTables, device: torch.device) -> None:
                          f"on the film's device {device}")
 
 
+def _check_tex(tex: torch.Tensor, device: torch.device) -> None:
+    if (tex.dtype != torch.float32 or tex.dim() != 4
+            or tuple(tex.shape[1:]) != (3, TEX_ROWS, TEX_LANES)
+            or tex.shape[0] < 1 or not tex.is_contiguous()
+            or tex.device != device):
+        raise ValueError(f"texture tables must be a contiguous float32 "
+                         f"(n_tex, 3, {TEX_ROWS}, {TEX_LANES}) tensor with "
+                         f"n_tex >= 1 on the film's device {device}")
+
+
 def pt_accumulate(film: torch.Tensor, ss: StaticScene, cam: CameraParams,
                   width: int, height: int, sp0: int, n_spp: int, depth: int,
                   seed: int, t_min: float, bsdf: bool = False,
-                  env: Optional[EnvTables] = None) -> torch.Tensor:
+                  env: Optional[EnvTables] = None,
+                  mesh: Optional[MeshTables] = None,
+                  tex: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Add samples [sp0, sp0 + n_spp) of every pixel into the linear film
     ((W*H, 3) float32) IN PLACE; returns `film`.  `bsdf`: AccPathTracer's
-    five-lobe estimator instead of the diffuse one; `env`: env-map misses.
-    A CUDA film goes through the kernel, a CPU film through the plain
-    version."""
-    check_supported(ss)
+    five-lobe estimator instead of the diffuse one; `env`: env-map misses;
+    `mesh`: the triangle pool goes through the blocked sweep (`ss`'s
+    triangles are that pool and the dense pass skips them); `tex`: binned
+    texture tables (`make_tex_tables`).  With a mesh, textures need its UV
+    tables.  A CUDA film goes through the kernel, a CPU film through the
+    plain version."""
+    name = kernel_name(bsdf, env is not None, mesh is not None,
+                       tex is not None)
+    check_supported(ss, mesh=mesh is not None)
     _check_sizes(width, height, sp0, n_spp, depth)
     _check_film(film, width * height)
     if env is not None:
         _check_env(env, film.device)
+    if mesh is not None:
+        check_tables(mesh, film.device)
+        if tex is not None and mesh.uvs is None:
+            raise ValueError("textures on a mesh need its UV tables")
+    if tex is not None:
+        _check_tex(tex, film.device)
     if film.device.type == "cuda":
         _pt_accumulate_cuda(film, ss, cam, width, height, sp0, n_spp, depth,
-                            seed, t_min, bsdf, env)
+                            seed, t_min, name, bsdf, env, mesh, tex)
     elif film.device.type == "cpu":
         pt_accumulate_plain(film, ss, cam, width, height, sp0, n_spp, depth,
-                            seed, t_min, bsdf=bsdf, env=env)
+                            seed, t_min, bsdf=bsdf, env=env, mesh=mesh,
+                            tex=tex)
     else:
         raise ValueError(f"unsupported film device {film.device}")
     return film
 
 
 def _pt_accumulate_cuda(film, ss, cam, width, height, sp0, n_spp, depth,
-                        seed, t_min, bsdf, env) -> None:
+                        seed, t_min, name, bsdf, env, mesh, tex) -> None:
     lib = _kernels()
-    name = kernel_name(bsdf, env is not None)
-    table, counts = pack_scene(ss)
-    if table.size != table_size(counts):
+    with_uv = tex is not None
+    table, counts = pack_scene(ss, mesh=mesh is not None, with_uv=with_uv)
+    if table.size != table_size(counts, with_uv):
         raise ValueError("scene table size does not match its counts")
     tab = torch.as_tensor(table, device=film.device)
     cnt = (ctypes.c_int * 5)(*counts)
@@ -300,6 +384,17 @@ def _pt_accumulate_cuda(film, ss, cam, width, height, sp0, n_spp, depth,
     else:
         env_bin, env_map = env.bins.data_ptr(), env.native.data_ptr()
         env_h, env_w = env.native.shape[0], env.native.shape[1]
+    if mesh is None:
+        m_tris = m_uvs = m_bb = None
+        n_blocks = block = 0
+    else:
+        m_tris, m_bb = mesh.tris.data_ptr(), mesh.bb.data_ptr()
+        m_uvs = mesh.uvs.data_ptr() if with_uv else None
+        n_blocks, block = mesh.n_blocks, mesh.block
+    tex_ptr, n_tex = (None, 0) if tex is None else (tex.data_ptr(),
+                                                    tex.shape[0])
+    form = (int(bool(bsdf)) | (env is not None) << 1
+            | (mesh is not None) << 2 | with_uv << 3)
     n_pix = width * height
     per_launch = max(1, PIXEL_SAMPLES_PER_LAUNCH // n_pix)
     with torch.cuda.device(film.device):
@@ -308,8 +403,9 @@ def _pt_accumulate_cuda(film, ss, cam, width, height, sp0, n_spp, depth,
             n = min(per_launch, n_spp - c0)
             err = lib.nr_pt_render(film.data_ptr(), tab.data_ptr(), cnt,
                                    camf, width, height, sp0 + c0, n, depth,
-                                   _int32(seed), int(bool(bsdf)), env_bin,
-                                   env_map, env_h, env_w, stream)
+                                   _int32(seed), form, env_bin, env_map,
+                                   env_h, env_w, m_tris, m_uvs, m_bb,
+                                   n_blocks, block, tex_ptr, n_tex, stream)
             _check_launch(lib, err, name)
             KERNEL_LAUNCHES[name] += 1
 
@@ -346,6 +442,8 @@ def pt_accumulate_plain(film: torch.Tensor, ss: StaticScene,
                         cam: CameraParams, width: int, height: int, sp0: int,
                         n_spp: int, depth: int, seed: int, t_min: float,
                         bsdf: bool = False, env: Optional[EnvTables] = None,
+                        mesh: Optional[MeshTables] = None,
+                        tex: Optional[torch.Tensor] = None,
                         stats: Optional[dict] = None) -> torch.Tensor:
     """The kernel's plain torch version, on any device: adds samples
     [sp0, sp0 + n_spp) into `film` in place, in sample order.
@@ -356,8 +454,14 @@ def pt_accumulate_plain(film: torch.Tensor, ss: StaticScene,
     Pallas kernel's env bookkeeping, `pt_pallas.py:292-345`).  The env form
     runs bounce 0 even at depth 0, as the Pallas kernel peels it.
 
+    With `mesh`, each bounce's closest hit runs the dense primitives
+    without triangles, then `mesh_cuda.sweep_mesh_plain` capped by the
+    dense hit (`pt_core.closest_hit`); with `tex`, hits resolve their
+    colours through `texture.make_tex_resolver`.
+
     `stats` (a dict, optional) counts the work the kernel does on these
-    inputs: "samples" and "bounces" (bounce iterations of live paths)."""
+    inputs: "samples" and "bounces" (bounce iterations of live paths), and
+    with a mesh the sweep's "slab_tests" and "tri_tests"."""
     dev = film.device
     cam = CameraParams(*(x.to(dev) for x in cam))
     n_pix = width * height
@@ -365,6 +469,13 @@ def pt_accumulate_plain(film: torch.Tensor, ss: StaticScene,
         mat_ch = make_mat_channels(ss)
     else:
         mat_ch = [tuple(float(v) for v in m["diffuse"]) for m in ss.mats]
+    textures = None if tex is None else make_tex_resolver(tex.to(dev))
+    tri_bvh = None
+    if mesh is not None:
+        def tri_bvh(o, d, t_cap):
+            return sweep_mesh_plain(mesh, o, d, t_min, t_cap,
+                                    with_uv=textures is not None,
+                                    stats=stats)
     n_bounces = max(depth, 1) if env is not None else depth
     chunk = max(1, min(n_spp, PLAIN_RAYS_PER_WAVEFRONT // n_pix))
     pid1 = torch.arange(n_pix, dtype=torch.int64, device=dev)
@@ -390,11 +501,14 @@ def pt_accumulate_plain(film: torch.Tensor, ss: StaticScene,
             if bsdf:
                 u3 = hash_uniform(pid, sp, 6, bseed)
                 out = bsdf_bounce(ss, mat_ch, o, d, thr, rad, alive, u1, u2,
-                                  u3, t_min=t_min, with_miss=env is not None)
+                                  u3, t_min=t_min, tri_bvh=tri_bvh,
+                                  with_miss=env is not None,
+                                  textures=textures)
             else:
                 out = diffuse_bounce(ss, mat_ch, o, d, thr, rad, alive, u1,
-                                     u2, t_min=t_min,
-                                     with_miss=env is not None)
+                                     u2, t_min=t_min, tri_bvh=tri_bvh,
+                                     with_miss=env is not None,
+                                     textures=textures)
             if env is None:
                 o, d, thr, rad, alive = out
                 continue
@@ -428,19 +542,31 @@ def pt_accumulate_plain(film: torch.Tensor, ss: StaticScene,
 def render_pt_linear(ss: StaticScene, cam: CameraParams, width: int,
                      height: int, spp: int, depth: int, seed: int = 0,
                      t_min: float = None, bsdf: bool = False, env_map=None,
-                     *, device) -> torch.Tensor:
+                     mesh_accel=None, textures=None, *,
+                     device) -> torch.Tensor:
     """Linear film SUM over `spp` samples, (W*H, 3) float32 on `device`
     (counterpart of `render_pt_pallas_linear`).  `env_map`: (He, We, 3)
-    equirect radiance for env-map misses."""
+    equirect radiance for env-map misses; `mesh_accel`: a
+    `bvh.MeshAccel` whose pool the sweep runs inside the bounce loop;
+    `textures`: (H, W, 3) surface textures, resolved from binned tables.
+    Textures are dropped for a mesh pool without UV tables, as the JAX
+    function drops them (`pt_pallas.py:739-744`)."""
     dev = check_device(device)
-    check_supported(ss)
+    mesh = None
+    if mesh_accel is not None:
+        if textures and mesh_accel.bt.tex is None:
+            textures = None
+        mesh = make_mesh_tables(mesh_accel.bt, dev)
+    kernel_name(bsdf, env_map is not None, mesh is not None, bool(textures))
+    check_supported(ss, mesh=mesh is not None)
     _check_sizes(width, height, 0, spp, depth)
     if t_min is None:
         t_min = scene_epsilon(ss)
     env = None if env_map is None else make_env_tables(env_map, dev)
+    tex = make_tex_tables(textures, dev) if textures else None
     film = torch.zeros((width * height, 3), dtype=torch.float32, device=dev)
     return pt_accumulate(film, ss, cam, width, height, 0, spp, depth, seed,
-                         t_min, bsdf=bsdf, env=env)
+                         t_min, bsdf=bsdf, env=env, mesh=mesh, tex=tex)
 
 
 def gamma_image(film: torch.Tensor, spp: int, width: int,
@@ -452,27 +578,29 @@ def gamma_image(film: torch.Tensor, spp: int, width: int,
 
 def render_simple_pt(ss: StaticScene, cam: CameraParams, width: int,
                      height: int, spp: int, depth: int, seed: int = 0,
-                     t_min: float = None, env_map=None, *,
+                     t_min: float = None, env_map=None, textures=None, *,
                      device) -> torch.Tensor:
     """Full diffuse-PT render: (H, W, 3) gamma'd image, row 0 = BOTTOM
     (counterpart of `render_simple_pt_pallas`)."""
     if spp < 1:
         raise ValueError(f"spp must be at least 1, got {spp}")
     film = render_pt_linear(ss, cam, width, height, spp, depth, seed=seed,
-                            t_min=t_min, env_map=env_map, device=device)
+                            t_min=t_min, env_map=env_map, textures=textures,
+                            device=device)
     return gamma_image(film, spp, width, height)
 
 
 def render_bsdf_pt(ss: StaticScene, cam: CameraParams, width: int,
                    height: int, spp: int, depth: int, seed: int = 0,
-                   t_min: float = None, env_map=None, *,
-                   device) -> torch.Tensor:
+                   t_min: float = None, env_map=None, mesh_accel=None,
+                   textures=None, *, device) -> torch.Tensor:
     """AccPathTracer's five-lobe estimator: (H, W, 3) gamma'd image, row 0 =
     BOTTOM (counterpart of `render_bsdf_pt_pallas`)."""
     if spp < 1:
         raise ValueError(f"spp must be at least 1, got {spp}")
     film = render_pt_linear(ss, cam, width, height, spp, depth, seed=seed,
                             t_min=t_min, bsdf=True, env_map=env_map,
+                            mesh_accel=mesh_accel, textures=textures,
                             device=device)
     return gamma_image(film, spp, width, height)
 

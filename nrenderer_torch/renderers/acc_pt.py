@@ -1,4 +1,4 @@
-"""AccPathTracer: multi-BSDF path tracing on analytic scenes.
+"""AccPathTracer: multi-BSDF path tracing, analytic scenes and meshes.
 
 Counterpart of `nrenderer_tpu/renderers/acc_pt.py`, the rebuild of the
 acc_path_tracing plugin (`components/acc_path_tracing/`): SimplePathTracer's
@@ -11,12 +11,21 @@ The routing of the JAX renderer is kept as it stands: `acc_type` (reference
 triangles), 1 (the default) accelerates when the scene has more than
 `BVH_THRESHOLD` triangles, 2 accelerates any triangle pool.  A scene that
 is not accelerated runs the path-tracing megakernel in its BSDF form
-(`ops/pt_cuda.py`, env-map terms when the ambient is an env map): the CUDA
-kernel on `device="cuda"`, its plain torch version on `device="cpu"`.
-Scenes the JAX package sends to its mesh engines, and textured scenes,
-raise `NotImplementedError`: those engines and forms are not ported
-(ROADMAP A7, B1d).  A scene without primitives runs the megakernel as well
-(the CUDA kernel handles it; the JAX package sends it to its XLA wavefront).
+(`ops/pt_cuda.py`, env-map terms when the ambient is an env map, texture
+terms when faces carry maps): the CUDA kernel on `device="cuda"`, its
+plain torch version on `device="cpu"`.  A scene without primitives runs
+the megakernel as well (the CUDA kernel handles it; the JAX package sends
+it to its XLA wavefront).
+
+An accelerated pool of at most `MEGAMESH_MAX_TRIS` triangles without an
+env map takes the megamesh route (`acc_pt.py:297-341`): the pool is
+packed into BVH-preorder blocks (`ops/bvh.build_mesh_accel`) and the
+kernel's mesh form runs the blocked sweep inside its bounce loop, in
+passes of `pcall` in (32, 16, 8, 4, 2, 1) samples with Screen previews and
+`--checkpoint`.  Textures are dropped when the pool carries no UVs.
+Larger pools and env-map mesh scenes go to the JAX package's hybrid route
+(staged wavefront, standalone sweep, streaming compactor), which is not
+ported: they raise `NotImplementedError` (ROADMAP A7).
 
 With a checkpoint path the render runs in passes of `pcall` samples, each
 with its own seed `seed * 100003 + step`, posting a preview to the Screen
@@ -27,12 +36,14 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..ops.bvh import build_mesh_accel
 from ..ops.camera import make_camera
 from ..ops.intersect import make_static_scene
-from ..ops.pt_core import scene_epsilon
+from ..ops.mesh_cuda import make_mesh_tables
+from ..ops.pt_core import make_mat_channels, scene_epsilon
 from ..ops.pt_cuda import (
-    MAX_TRIS, check_device, check_supported, make_env_tables, pt_accumulate,
-    render_bsdf_pt,
+    MAX_TRIS, check_device, check_supported, make_env_tables,
+    make_tex_tables, pt_accumulate, render_bsdf_pt,
 )
 from ..scene.arrays import build_scene_arrays
 from ..scene.model import Scene
@@ -41,7 +52,10 @@ from ..server.registry import get_server, register_renderer
 from ..utils.timing import GLOBAL_TIMER, PhaseTimer
 
 BVH_THRESHOLD = 64
+MEGAMESH_MAX_TRIS = 1024  # the megamesh route's pools: in-kernel sweep
 ACC_TYPE0_MAX_TRIS = MAX_TRIS  # acc_type=0 (brute force) refused past this
+HYBRID = ("the hybrid mesh route (ROADMAP A7: staged wavefront, the "
+          "standalone sweep B2, the streaming compactor B3a/B3b)")
 
 
 def accelerates(acc_type: int, n_tri: int) -> bool:
@@ -68,6 +82,15 @@ def checkpoint_pass_spp(spp: int) -> int:
         if spp % k == 0 and k <= max(spp // 8, 1):
             pcall = k
     return pcall
+
+
+def megamesh_pass_spp(spp: int) -> int:
+    """Samples per megamesh pass: the first of 32, 16, 8, 4, 2, 1 that
+    divides spp (`acc_pt.py:317-321`)."""
+    for k in (32, 16, 8, 4, 2, 1):
+        if spp % k == 0:
+            return k
+    return spp
 
 
 def progressive_loop(checkpoint_path, seed, timer, w, h, spp, pcall,
@@ -131,25 +154,78 @@ class AccPathTracerRenderer(RenderComponent):
             cam = make_camera(scene.camera, device=dev)
         n_tri = int(np.asarray(arrays.tri_valid).sum())
         acc_type = int(getattr(ro, "acc_type", 1))
-        if accelerates(acc_type, n_tri):
-            raise NotImplementedError(
-                f"AccPathTracer: {n_tri} triangles (acc_type {acc_type}) "
-                "route to the mesh engines (blocked BVH sweep, ROADMAP A7 "
-                "with kernels B2/B3/B1e), not ported yet")
-        check_supported(ss)   # textured faces: ROADMAP B1d
         use_env = ss.ambient_type == 1
         env_map = arrays.env_map if use_env else None
+        textures = arrays.textures if ss.tri_uv else None
+        if accelerates(acc_type, n_tri):
+            if use_env or n_tri > MEGAMESH_MAX_TRIS:
+                why = ("an env map" if use_env else
+                       f"more than {MEGAMESH_MAX_TRIS} triangles")
+                raise NotImplementedError(
+                    f"AccPathTracer: a mesh scene with {why} ({n_tri} "
+                    f"triangles) takes {HYBRID}, not ported yet")
+            img = self._render_megamesh(arrays, ss, cam, dev, timer, w, h,
+                                        spp, depth, textures)
+        else:
+            img = self._render_megakernel(ss, cam, dev, timer, w, h, spp,
+                                          depth, env_map, textures)
+        get_server().logger.log("phases: " + timer.summary())
+        get_server().logger.log("Done...")
+        rgba = np.concatenate([img, np.ones((h, w, 1), np.float32)], axis=2)
+        return RenderResult(pixels=rgba, width=w, height=h)
+
+    def _render_megamesh(self, arrays, ss, cam, dev, timer, w, h, spp,
+                         depth, textures):
+        """The mesh form in passes; returns the image, row 0 = top."""
+        with timer.phase("bvh-build"):
+            ma = build_mesh_accel(arrays, make_mat_channels(ss))
+            if textures and ma.bt.tex is None:
+                textures = None   # no per-face UVs made it into the pool
+            mesh = make_mesh_tables(ma.bt, dev)
+            tex = make_tex_tables(textures, dev) if textures else None
+        get_server().logger.log(
+            f"AccPathTracer: in-kernel mesh sweep over {len(ss.tri)} "
+            f"triangles ({ma.bt.n_blocks} blocks of {ma.bt.block})")
+        pcall = megamesh_pass_spp(spp)
+        t_min = scene_epsilon(ss)
+
+        def render_step(step):
+            film = torch.zeros((w * h, 3), dtype=torch.float32, device=dev)
+            return pt_accumulate(film, ss, cam, w, h, 0, pcall, depth,
+                                 self.seed * 100003 + step, t_min, bsdf=True,
+                                 mesh=mesh, tex=tex)
+
+        from ..server.checkpoint import camera_key
+        img, start, n_steps = progressive_loop(
+            self.checkpoint_path, self.seed, timer, w, h, spp, pcall,
+            render_step,
+            (ss, camera_key(cam), w, h, spp, depth, self.seed, pcall,
+             "megamesh"),
+            tuple(textures or ()))
+        GLOBAL_TIMER.add("AccPathTracer.render",
+                         timer.get("render-pass").total_s
+                         if n_steps - start > 1 else
+                         timer.get("first-pass").total_s)
+        return img
+
+    def _render_megakernel(self, ss, cam, dev, timer, w, h, spp, depth,
+                           env_map, textures):
+        """The dense forms, in one call or checkpointed passes; returns the
+        image, row 0 = top."""
+        use_env = env_map is not None
+        check_supported(ss)
         if self.checkpoint_path and spp > 1:
             pcall = checkpoint_pass_spp(spp)
             t_min = scene_epsilon(ss)
             env = make_env_tables(env_map, dev) if use_env else None
+            tex = make_tex_tables(textures, dev) if textures else None
 
             def render_step(step):
                 film = torch.zeros((w * h, 3), dtype=torch.float32,
                                    device=dev)
                 return pt_accumulate(film, ss, cam, w, h, 0, pcall, depth,
                                      self.seed * 100003 + step, t_min,
-                                     bsdf=True, env=env)
+                                     bsdf=True, env=env, tex=tex)
 
             from ..server.checkpoint import camera_key
             img, start, n_steps = progressive_loop(
@@ -157,27 +233,25 @@ class AccPathTracerRenderer(RenderComponent):
                 render_step,
                 (ss, camera_key(cam), w, h, spp, depth, self.seed, pcall,
                  "megakernel", use_env),
-                (np.asarray(env_map),) if use_env else ())
+                ((np.asarray(env_map),) if use_env else ())
+                + tuple(textures or ()))
             GLOBAL_TIMER.add("AccPathTracer.render",
                              timer.get("render-pass").total_s
                              if n_steps - start > 1 else
                              timer.get("first-pass").total_s)
-        else:
-            if self.checkpoint_path:
-                get_server().logger.warning(
-                    f"--checkpoint: render fits a single pass ({spp} spp); "
-                    "nothing to snapshot")
-            render_phase = f"render[{dev.type}]"
-            with timer.phase(render_phase):
-                # .cpu() waits for the device, so the phase covers the kernel
-                img = render_bsdf_pt(ss, cam, w, h, spp, depth,
-                                     seed=self.seed, env_map=env_map,
-                                     device=dev).cpu().numpy()
-            with timer.phase("host-post"):
-                img = np.clip(img[::-1], 0.0, 1.0)  # row 0 top; Screen clamp
-            GLOBAL_TIMER.add("AccPathTracer.render",
-                             timer.get(render_phase).total_s)
-        get_server().logger.log("phases: " + timer.summary())
-        get_server().logger.log("Done...")
-        rgba = np.concatenate([img, np.ones((h, w, 1), np.float32)], axis=2)
-        return RenderResult(pixels=rgba, width=w, height=h)
+            return img
+        if self.checkpoint_path:
+            get_server().logger.warning(
+                f"--checkpoint: render fits a single pass ({spp} spp); "
+                "nothing to snapshot")
+        render_phase = f"render[{dev.type}]"
+        with timer.phase(render_phase):
+            # .cpu() waits for the device, so the phase covers the kernel
+            img = render_bsdf_pt(ss, cam, w, h, spp, depth, seed=self.seed,
+                                 env_map=env_map, textures=textures,
+                                 device=dev).cpu().numpy()
+        with timer.phase("host-post"):
+            img = np.clip(img[::-1], 0.0, 1.0)  # row 0 top; Screen clamp
+        GLOBAL_TIMER.add("AccPathTracer.render",
+                         timer.get(render_phase).total_s)
+        return img

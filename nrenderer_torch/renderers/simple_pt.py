@@ -15,8 +15,9 @@ about the stored (unflipped) normal via the Onb, pdf = 1/(2 pi),
 BRDF = albedo / pi, so throughput *= 2 * albedo * cos.
 
 An env-map ambient (ambient type 1) is sampled on misses, through the
-kernel's env form, as the JAX SimplePathTracer hands `env_map` to its Pallas
-route.  On `device="cuda"` the whole render is the hand-written CUDA kernel
+kernel's env form, and faces with a diffuse map read it through the
+kernel's texture form (binned 32x128 tables), as the JAX SimplePathTracer
+hands `env_map` and `textures` to its Pallas route (`simple_pt.py:300-317`).  On `device="cuda"` the whole render is the hand-written CUDA kernel
 (`ops/pt_cuda.py`); on `device="cpu"` it is that kernel's plain torch
 version.  Progressive rendering and checkpoint/resume are not ported yet
 (ROADMAP A4)."""
@@ -56,11 +57,13 @@ class SimplePathTracerRenderer(RenderComponent):
             ss = make_static_scene(arrays)
             cam = make_camera(scene.camera, device=dev)
         env_map = arrays.env_map if ss.ambient_type == 1 else None
+        textures = arrays.textures if ss.tri_uv else None
         render_phase = f"render[{dev.type}]"
         with timer.phase(render_phase):
             # .cpu() waits for the device, so the phase covers the kernel
             img = render_simple_pt(ss, cam, w, h, spp, depth, seed=self.seed,
-                                   env_map=env_map, device=dev).cpu().numpy()
+                                   env_map=env_map, textures=textures,
+                                   device=dev).cpu().numpy()
         with timer.phase("host-post"):
             img = img[::-1]  # bottom-up -> row 0 top
             img = np.clip(img, 0.0, 1.0)  # Screen.set clamp (Screen.cpp:63)

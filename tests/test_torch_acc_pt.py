@@ -273,26 +273,34 @@ def _mesh_scene(n_tris: int, textured: bool):
 
 
 def test_refusals_name_the_roadmap_item():
-    """Textured faces (B1d) and triangle pools the JAX renderer accelerates
-    (more than BVH_THRESHOLD = 64, ROADMAP A7) raise; nothing falls back.
-    acc_type 0 keeps a 65-triangle pool on the megakernel, as in JAX."""
+    """Accelerated pools of more than MEGAMESH_MAX_TRIS = 1024 triangles and
+    accelerated pools under an env map take the JAX renderer's hybrid route
+    (ROADMAP A7) and raise; nothing falls back.  Textured faces, pools of
+    65 to 1024 triangles (the megamesh route) and acc_type 2 on a small
+    pool render; acc_type 0 keeps a 65-triangle pool on the dense kernel,
+    as in JAX."""
+    from nrenderer_torch.renderers.acc_pt import MEGAMESH_MAX_TRIS
     comp = AccPathTracerRenderer(device="cpu")
-    with pytest.raises(NotImplementedError, match="B1d"):
-        comp.render(_mesh_scene(3, textured=True))
+    px = comp.render(_mesh_scene(3, textured=True)).pixels
+    assert px.shape == (4, 4, 4) and np.isfinite(px).all()
     big = _mesh_scene(65, textured=False)
-    with pytest.raises(NotImplementedError, match="A7"):
-        comp.render(big)
+    assert np.isfinite(comp.render(big).pixels).all()
     one = _mesh_scene(1, textured=False)
     one.render_option.acc_type = 2     # accelerate any triangle pool
+    assert np.isfinite(comp.render(one).pixels).all()
+    huge = _mesh_scene(MEGAMESH_MAX_TRIS + 1, textured=False)
     with pytest.raises(NotImplementedError, match="A7"):
-        comp.render(one)
+        comp.render(huge)
+    _attach_env(big)
+    with pytest.raises(NotImplementedError, match="A7"):
+        comp.render(big)
+    big = _mesh_scene(65, textured=False)
     big.render_option.acc_type = 0
     px = comp.render(big).pixels
     assert px.shape == (4, 4, 4) and np.isfinite(px).all()
     ss = make_static_scene(build_scene_arrays(_mesh_scene(3, True)))
-    with pytest.raises(NotImplementedError, match="B1d"):
-        pt_cuda.check_supported(ss)
-    many = ss._replace(tri_uv=(), tri=ss.tri * 600)
+    pt_cuda.check_supported(ss)   # textured faces: the texture form
+    many = ss._replace(tri_uv=(), tri=ss.tri * 700)
     with pytest.raises(NotImplementedError, match="A7"):
         pt_cuda.check_supported(many)
 
@@ -313,17 +321,21 @@ def test_cli_errors_exit_2(tmp_path, args):
 
 
 def test_cli_refused_scene_exits_2(tmp_path):
+    """65 triangles in a .scn under an env map: an accelerated pool with
+    an env map, the hybrid route's (exit 2); without the env map the
+    megamesh route renders it."""
     scn = tmp_path / "mesh.scn"
     tris = "".join(
         f"Triangle T{i} White\nV1 {i} 0 500\nV2 {i + 1} 0 500\n"
         f"V3 {i} 1 500\nN 0 0 -1\n" for i in range(65))
     scn.write_text(GLASS.read_text().replace(
         "Model Tetrahedron", f"Model Fan\n{tris}\nModel Tetrahedron"))
-    rc = cli.main(["render", "--scene", str(scn), "--renderer",
-                   "AccPathTracer", "--width", "4", "--height", "4",
-                   "--spp", "1", "--depth", "1", "--device", "cpu",
-                   "--out", str(tmp_path / "x.png")])
-    assert rc == 2
+    argv = ["render", "--scene", str(scn), "--renderer", "AccPathTracer",
+            "--width", "4", "--height", "4", "--spp", "1", "--depth", "1",
+            "--device", "cpu", "--out", str(tmp_path / "x.png")]
+    assert cli.main(argv + ["--env-map", str(ENV_PNG)]) == 2
+    assert not (tmp_path / "x.png").exists()
+    assert cli.main(argv) == 0
 
 
 def test_simple_pt_renders_env_scenes(tmp_path):

@@ -218,7 +218,7 @@ def test_effective_lobe_follows_the_select_chain(present):
             _jax_select(float(t), present), (t, order)
     table, counts = pt_cuda.pack_scene(ss)
     lobes = table[-3 - pt_cuda.MAT_STRIDE * counts[4]:-3].reshape(
-        counts[4], pt_cuda.MAT_STRIDE)[:, -1]
+        counts[4], pt_cuda.MAT_STRIDE)[:, 20]   # after the 20 channels
     assert [int(x) for x in lobes] == [_jax_select(float(t), present)
                                        for t in sorted(present)]
 

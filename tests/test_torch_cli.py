@@ -37,9 +37,19 @@ def test_module_render_cpu_writes_png(tmp_path):
 
 def test_no_jax_imported_after_render(tmp_path):
     """Every module of the package, and renders through both renderers
-    with an env map, leave no JAX module loaded; `chip_smoke.py` imports
-    neither JAX nor the JAX package."""
+    with an env map, a mesh (`--obj`, the megamesh route) and textures,
+    leave no JAX module loaded; `chip_smoke.py` imports neither JAX nor
+    the JAX package."""
     env = ["--env-map", str(REPO / "resource" / "env_sky.png")]
+    res = REPO / "resource"
+    tiny = ["--width", "8", "--height", "8", "--spp", "2", "--depth", "2",
+            "--device", "cpu"]
+    mesh = ["render", "--scene", str(res / "mesh_box.scn"), "--obj",
+            str(res / "obj" / "blob_960.obj"), "--renderer", "AccPathTracer",
+            *tiny, "--out", str(tmp_path / "m.png")]
+    tex = ["render", "--scene", str(res / "tex_grid.scn"), "--obj",
+           str(res / "obj" / "tex_grid.obj"), "--renderer", "AccPathTracer",
+           *tiny, "--out", str(tmp_path / "t.png")]
     acc = ["render", "--scene", str(REPO / "resource" / "pt_glass_box.scn"),
            "--renderer", "AccPathTracer", "--width", "8", "--height", "8",
            "--spp", "2", "--depth", "2", "--device", "cpu", "--out",
@@ -48,7 +58,7 @@ def test_no_jax_imported_after_render(tmp_path):
               str(tmp_path / "x.png")],
              ["render", *SMALL, *env, "--device", "cpu", "--out",
               str(tmp_path / "e.png")],
-             acc, acc[:-1] + [str(tmp_path / "b.png")] + env]
+             acc, acc[:-1] + [str(tmp_path / "b.png")] + env, mesh, tex]
     code = (
         "import pkgutil, sys\n"
         "import nrenderer_torch\n"

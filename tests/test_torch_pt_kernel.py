@@ -233,17 +233,23 @@ def test_pack_scene_layout(port_scene):
 
 
 def test_unported_forms_refuse(port_scene):
-    """Textured faces need the texture form (B1d) and triangle pools past
-    the analytic kernel's limit the mesh slice (A7); the env-map form is
-    ported, so an env-map ambient renders."""
+    """What the port still refuses: dense triangle pools past the dense
+    kernel's limit and env-map mesh scenes (the hybrid mesh route, A7), and
+    the mesh form of the diffuse estimator (no JAX renderer sends a mesh
+    there).  The env-map and texture forms are ported, so an env-map
+    ambient and textured faces render."""
     ss, cam = _cpu_setup(port_scene)
     uv = ((0.0, 0.0, 1.0, 0.0, 0.0, 1.0, 0, -1),) * len(ss.tri)
-    with pytest.raises(NotImplementedError, match="B1d"):
-        pt_cuda.render_simple_pt(ss._replace(tri_uv=uv), cam, 4, 4, 1, 1,
-                                 device="cpu")
+    tex = (np.full((2, 2, 3), 0.5, np.float32),)
+    img = pt_cuda.render_simple_pt(ss._replace(tri_uv=uv), cam, 4, 4, 1, 1,
+                                   textures=tex, device="cpu")
+    assert torch.isfinite(img).all()
     many = ss._replace(tri=ss.tri * (pt_cuda.MAX_TRIS // len(ss.tri) + 1))
     with pytest.raises(NotImplementedError, match="A7"):
         pt_cuda.render_simple_pt(many, cam, 4, 4, 1, 1, device="cpu")
+    for bsdf, env in ((True, True), (False, False)):
+        with pytest.raises(NotImplementedError, match="A7"):
+            pt_cuda.kernel_name(bsdf, env, mesh=True)
     env = np.ones((4, 8, 3), np.float32)
     img = pt_cuda.render_simple_pt(ss._replace(ambient_type=1), cam, 4, 4, 1,
                                    1, env_map=env, device="cpu")
@@ -358,3 +364,28 @@ def test_cuda_hash_bit_exact(gpu):
     assert torch.equal(pt_cuda.hash_uniform_fill(*cols),
                        hash_uniform(*cols))
     assert pt_cuda.HASH_LAUNCHES == before + 1
+
+
+def test_build_staleness_counts_sources_and_headers(tmp_path):
+    """The library is rebuilt when it is missing or older than any
+    `csrc/*.cu` or `csrc/*.cuh`; other files do not count."""
+    import os
+    from nrenderer_torch import _build
+    src, lib = tmp_path / "csrc", tmp_path / "lib.so"
+    src.mkdir()
+    for name in ("a.cu", "b.cuh", "notes.txt"):
+        (src / name).write_text("")
+        os.utime(src / name, (1000, 1000))
+    assert _build._stale(lib, src)          # no library yet
+    lib.write_text("")
+    os.utime(lib, (2000, 2000))
+    assert not _build._stale(lib, src)
+    os.utime(src / "notes.txt", (3000, 3000))
+    assert not _build._stale(lib, src)
+    os.utime(src / "b.cuh", (3000, 3000))   # a header edit rebuilds
+    assert _build._stale(lib, src)
+    os.utime(src / "b.cuh", (1000, 1000))
+    os.utime(src / "a.cu", (2000, 2000))    # not newer: rebuilt too
+    assert _build._stale(lib, src)
+    names = [p.name for p in _build.sources() + _build.headers()]
+    assert {"pt_kernel.cu", "mesh_sweep.cu", "mesh_sweep.cuh"} <= set(names)

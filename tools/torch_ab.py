@@ -1,15 +1,23 @@
 #!/usr/bin/env python3
-"""A/B of the port's SimplePathTracer main path on one NVIDIA GPU.
+"""A/B of the port's analytic-scene paths on one NVIDIA GPU.
 
     git archive <parent> | tar -x -C build/parent     # a second checkout
     python3 tools/torch_ab.py build/parent              # from the repo root
 
 Runs the two checkouts in turns (parent, change, change, parent), each in a
-fresh process that builds its own kernel library, runs its `chip_smoke.py`
-main-path phase (a warm-up and a timed CLI render at 512x512, 2048 spp,
-depth 20) and then three more CLI renders, whose render phases it reads from
-the renderer's timer.  Prints one line per run and a final `AB` JSON line.
-Imports nothing of JAX."""
+fresh process that builds its own kernel library and then renders, through
+its own `cli.main`, the four paths of `chip_smoke.py` phases 5-7: the
+SimplePathTracer main path (Cornell box, 512x512, 2048 spp, depth 20),
+AccPathTracer on `pt_glass_box.scn` (512x512, 2048 spp, depth 20), and
+AccPathTracer and SimplePathTracer on `env_spheres.scn` under
+`env_sky.png` (512x512, 1024 spp, depth 8).  Each path gets a warm-up
+render and then three renders whose render phases it reads from the
+renderer's timer.  Then it times each path's kernel form alone: one
+`pt_accumulate` call of 256 spp at 512x512 at the path's depth (eight
+launches of 32 spp, so the wrapper's host work is a small share even for
+the short env launches), five calls between CUDA events, in ms per 32-spp
+launch.  Prints one line per run and a final `AB` JSON line.  Imports
+nothing of JAX."""
 from __future__ import annotations
 
 import json
@@ -18,22 +26,42 @@ import subprocess
 import sys
 
 CODE = r'''
-import json, chip_smoke as c
+import json, os, time, torch, chip_smoke as c
 from nrenderer_torch import cli
 from nrenderer_torch.utils.timing import GLOBAL_TIMER
 c.phase_build()
-st = c.phase_main_path()
-argv = (c._main_path_argv(512, 512, 2048, 20)
-        if hasattr(c, "_main_path_argv") else
-        c._cli_argv(c.SCENE, "SimplePathTracer", 512, 512, 2048, 20,
-                    c.OUT_PNG))
-phases = []
-for _ in range(3):
-    g0 = GLOBAL_TIMER.get("SimplePathTracer.render").total_s
+paths = (("main", c.SCENE, "SimplePathTracer", 2048, 20, False),
+         ("acc", c.GLASS_SCENE, "AccPathTracer", 2048, 20, False),
+         ("env_acc", c.ENV_SCENE, "AccPathTracer", 1024, 8, True),
+         ("env_simple", c.ENV_SCENE, "SimplePathTracer", 1024, 8, True))
+out = {}
+for label, scene, renderer, spp, depth, env in paths:
+    png = os.path.join(c.ROOT, "build", f"ab_{label}.png")
+    os.makedirs(os.path.dirname(png), exist_ok=True)
+    argv = c._cli_argv(scene, renderer, 512, 512, spp, depth, png, env=env)
     assert cli.main(argv) == 0
-    phases.append(GLOBAL_TIMER.get("SimplePathTracer.render").total_s - g0)
-print("RESULT", json.dumps({"cli_s": st["seconds"],
-                            "render_phase_s": phases}))
+    phases, walls = [], []
+    for _ in range(3):
+        g0 = GLOBAL_TIMER.get(f"{renderer}.render").total_s
+        t0 = time.perf_counter()
+        assert cli.main(argv) == 0
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        phases.append(GLOBAL_TIMER.get(f"{renderer}.render").total_s - g0)
+    out[label] = {"render_phase_s": phases, "cli_s": walls}
+from nrenderer_torch.ops import pt_cuda
+from nrenderer_torch.ops.pt_core import scene_epsilon
+for label, scene, renderer, spp, depth, env in paths:
+    ss, cam, emap = c._setup("cuda", scene, env)[:3]
+    tables = pt_cuda.make_env_tables(emap, "cuda") if env else None
+    film = torch.zeros((512 * 512, 3), device="cuda")
+    call = lambda: pt_cuda.pt_accumulate(
+        film, ss, cam, 512, 512, 0, 256, depth, 0, scene_epsilon(ss),
+        bsdf=renderer == "AccPathTracer", env=tables)
+    call()
+    torch.cuda.synchronize()
+    out[label]["kernel_ms_32spp"] = c._time_ms(call, 5) / 8
+print("RESULT", json.dumps(out))
 '''
 
 
@@ -47,7 +75,7 @@ def main(argv) -> int:
     for who in ("parent", "change", "change", "parent"):
         cwd = argv[1] if who == "parent" else change
         p = subprocess.run([sys.executable, "-c", CODE], cwd=cwd,
-                           capture_output=True, text=True, timeout=600)
+                           capture_output=True, text=True, timeout=900)
         line = [l for l in p.stdout.splitlines() if l.startswith("RESULT ")]
         if p.returncode or not line:
             print(p.stdout[-2000:], p.stderr[-3000:], file=sys.stderr)
