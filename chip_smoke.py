@@ -42,15 +42,41 @@ exits non-zero without a result line:
      spp, depth 6, and on its untextured twin (the ratio of their times is
      printed); the dense textured quad with SimplePathTracer and
      AccPathTracer, without and with the env map; the grid's left half
-     must be red and its right half green.
+     must be red and its right half green;
+ 12. the streaming compactor (`stream_pack_kernel`, `stream_unpack_kernel`)
+     against its plain versions at 2^24 lanes: an 11-channel stage pack
+     (o, d, throughput, keep, and the lane id as int32 words) into 2^23
+     slots and a 7-channel mesh pack (o, d, t_cap) into 2^22 slots, over
+     random 40%, screen-clustered 20%, empty, full and tail masks; the
+     packed buffer, the count and the round trip bit for bit (the largest
+     word difference is printed); kernel, plain, library (`x[:, mask]`,
+     `fill_` + `masked_scatter_`) and bound times;
+ 13. the hybrid route (staged wavefront, mesh pipe) with its kernels
+     against itself with the plain versions on `ico_5120.obj` at 128x128,
+     8 spp, depth 13 (bit for bit), and against `pt_bsdf_mesh_kernel` on
+     `blob_960.obj` at the same shape (phase 4's bars); then one sorted
+     mesh-pipe bounce of the hybrid path's own chunk (500x500, 64 spp: 16
+     Mi lanes, cap 4 Mi) with the pack and unpack against their plain
+     versions bit for bit and the sweep on a sub-range of the prefix;
+ 14. the hybrid path: AccPathTracer `--obj ico_5120.obj` on `mesh_box.scn`
+     at 500x500, 256 spp, depth 20 (staged, 4 chunks of 64 spp); the
+     overflow full sweeps, roulette firings and peak memory are printed,
+     and the ball must be brighter than the floor in its shadow;
+ 15. the env + mesh path: `--obj blob_960.obj --env-map env_sky.png` on
+     `mesh_box.scn` at 512x512, 256 spp, depth 8 (the env row's 1024 spp
+     cut to 256 to fit the script's time; unstaged), checked as phase 14;
+ 16. where one chunk of the hybrid path's time goes (64 spp of 500x500):
+     bounce math, top-AABB test, pack, sort, sweep, unpack, stage packs
+     and banking, each timed between device synchronisations.
 
-Each of phases 5-7, 10 and 11 sets every launch count to 0 just before its
-run and reads the counts just after; a kernel its path runs must have
-launched.  The last two lines are the kernels' JSON record and
+Each of phases 5-7, 10, 11, 14 and 15 sets every launch count to 0 just
+before its run and reads the counts just after; a kernel its path runs
+must have launched.  The last two lines are the kernels' JSON record and
 `{"ok": true, "device": {...}}`.  Imports nothing of JAX.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -100,6 +126,14 @@ SKY_MIN = 0.7
 # near 0.19, its untextured twin 0.30, the textured quad 0.19 and under
 # env_sky.png 0.64 (64x64, 256 spp, depth 6): plain version on the CPU.
 MESH_MEAN_BAND = (0.28, 0.55)
+# mesh_box.scn + ico_5120.obj near 0.32 (the ball 0.43, the floor in its
+# shadow 0.02; 64x64, 64 spp, depth 20), + blob_960.obj under env_sky.png
+# near 0.47 (the blob 0.63, its shadow 0.34; 64x64, 64 spp, depth 8): the
+# hybrid route's plain versions on the CPU.
+ICO_MEAN_BAND = (0.22, 0.5)
+HYBRID_KERNELS = ["mesh_sweep_kernel", "stream_pack_kernel",
+                  "stream_unpack_kernel"]
+ENV_MESH_MEAN_BAND = (0.35, 0.65)
 GRID_MEAN_BAND = (0.1, 0.3)
 PLAIN_GRID_MEAN_BAND = (0.2, 0.4)
 QUAD_ENV_MEAN_BAND = (0.5, 0.8)
@@ -347,8 +381,10 @@ def phase_cli(phase, label, argv, kernels, width, height, spp, depth,
     print(f"== phase {phase}: {label}, cli render {width}x{height}, "
           f"{spp} spp, depth {depth}")
     from nrenderer_torch import cli
-    from nrenderer_torch.ops import mesh_cuda, pt_cuda
+    from nrenderer_torch.ops import mesh_cuda, pt_cuda, stream_compact
+    from nrenderer_torch.renderers import _wavefront
     from nrenderer_torch.server.registry import get_server
+    from nrenderer_torch.utils.timing import GLOBAL_TIMER
     out = argv[argv.index("--out") + 1]
     os.makedirs(os.path.dirname(out), exist_ok=True)
     t0 = time.perf_counter()
@@ -359,11 +395,21 @@ def phase_cli(phase, label, argv, kernels, width, height, spp, depth,
 
     pt_cuda.reset_launch_counts()
     mesh_cuda.reset_launch_counts()
+    stream_compact.reset_launch_counts()
+    mesh_cuda.reset_route_counts()
+    _wavefront.reset_route_counts()
+    torch.cuda.reset_peak_memory_stats()
+    timer = f"{argv[argv.index('--renderer') + 1]}.render"
+    render0 = GLOBAL_TIMER.get(timer).total_s
     t0 = time.perf_counter()
     rc = cli.main(argv)
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
-    launches = {**pt_cuda.KERNEL_LAUNCHES, **mesh_cuda.KERNEL_LAUNCHES}
+    render_s = GLOBAL_TIMER.get(timer).total_s - render0
+    launches = {**pt_cuda.KERNEL_LAUNCHES, **mesh_cuda.KERNEL_LAUNCHES,
+                **stream_compact.KERNEL_LAUNCHES}
+    routes = {**mesh_cuda.ROUTE_COUNTS, **_wavefront.ROUTE_COUNTS}
+    peak = torch.cuda.max_memory_allocated()
     if rc != 0:
         raise AssertionError(f"{label}: timed render failed")
     for name in kernels:
@@ -381,8 +427,11 @@ def phase_cli(phase, label, argv, kernels, width, height, spp, depth,
     region, region_min = check(px, mean)
     if not os.path.getsize(out) > 0:
         raise AssertionError(f"{label}: no PNG written")
-    st = {"path": label, "seconds": secs, "warmup_seconds": warm_s,
-          "launches": launches, "spp_per_s": spp / secs,
+    st = {"path": label, "seconds": secs, "render_seconds": render_s,
+          "warmup_seconds": warm_s,
+          "launches": launches, "peak_memory_bytes": peak,
+          **({"routes": routes} if any(routes.values()) else {}),
+          "spp_per_s": spp / secs,
           "mbounce_rays_per_s": width * height * spp * depth / secs / 1e6,
           "image_mean": mean, "check_region_mean": region,
           "check_region_above": region_min}
@@ -563,6 +612,379 @@ def phase_tex_paths(width=256, height=256, spp=512, depth=6) -> tuple:
     return tuple(runs)
 
 
+def _compactor_inputs(n: int, gen):
+    """The masks of phase 12 over n lanes, and an 11-channel stage state
+    and a 7-channel mesh-pipe state on the card."""
+    u = lambda: torch.rand(n, generator=gen, device="cuda")
+    lane = torch.arange(n, dtype=torch.int32, device="cuda")
+    side = 512
+    pix = lane.to(torch.int64) % (side * side)
+    px, py = (pix % side).float(), (pix // side).float()
+    r = side * (0.2 / np.pi) ** 0.5   # a disc of 20% of each frame
+    masks = {
+        "random_40": u() < 0.4,
+        "clustered_20": (px - 200.0) ** 2 + (py - 300.0) ** 2 < r * r,
+        "empty": torch.zeros(n, dtype=torch.bool, device="cuda"),
+        "full": torch.ones(n, dtype=torch.bool, device="cuda"),
+        "tail": lane >= n - 1000,
+    }
+    state = [u() * 2.0 - 1.0 for _ in range(9)]
+    return masks, state, lane
+
+
+def _word_err(a: torch.Tensor, b: torch.Tensor) -> int:
+    """The largest difference between the 32-bit words of two tensors of
+    one shape, read as int32 (0: bit for bit)."""
+    if a.numel() == 0:
+        return 0
+    diff = a.view(torch.int32).to(torch.int64) - b.view(torch.int32).to(
+        torch.int64)
+    return int(diff.abs().max())
+
+
+def _pack_errs(kp, pp) -> int:
+    """The pack's error against its plain version: the largest word
+    difference over the packed buffer, the count and the tile offsets."""
+    return max(_word_err(kp.packed, pp.packed),
+               abs(int(kp.count) - int(pp.count)),
+               _word_err(kp.tile_off, pp.tile_off))
+
+
+def _pack_bound_ms(kept: torch.Tensor, n_ch: int, cap: int) -> float:
+    """The least time of a pack of the lanes `kept` (live, with a slot
+    below cap) over n_ch channels, by bytes: the mask channel read once,
+    every other channel read only in the 32-byte sectors that hold a kept
+    lane, the kept lanes' words written once, and the mask channel cleared
+    in the slots past them (all the contract asks; the kernel clears every
+    channel there, which this does not count)."""
+    n, n_valid = kept.shape[0], int(kept.sum())
+    pad = torch.zeros((-n) % 8, dtype=torch.bool, device=kept.device)
+    sectors = int(torch.cat([kept, pad]).view(-1, 8).any(dim=1).sum())
+    words = n + (n_ch - 1) * 8 * sectors + n_ch * n_valid + (cap - n_valid)
+    return 4.0 * words / PEAK_BYTES_PER_S * 1e3
+
+
+def _compactor_case(chans, cap, mask_from, fills, label, timing):
+    """Pack and round trip on the kernels and on the plain versions, bit
+    for bit; with `timing`, kernel, plain and library times and the
+    bound."""
+    from nrenderer_torch.ops import stream_compact as sc
+    kp = sc.stream_pack_channels(chans, cap, mask_from)
+    pp = sc.stream_pack_plain(chans, cap, mask_from)
+    res = [kp.packed[c] for c in range(len(chans) - 1)] + [
+        kp.packed[-1].view(torch.int32)]
+    mask = chans[mask_from]
+    ku = sc.stream_unpack_channels(mask, res, fills, kp)
+    pu = sc.stream_unpack_plain(mask, res, fills, pp)
+    torch.cuda.synchronize()
+    count, n_valid = int(kp.count), min(int(kp.count), cap)
+    words = lambda t: t.view(torch.int32)
+    pack_err = _pack_errs(kp, pp)
+    unpack_err = max(_word_err(a, b) for a, b in zip(ku, pu))
+    live = mask > 0.0
+    slot = torch.cumsum(live.to(torch.int32), 0) - 1
+    kept = live & (slot < cap)
+    trip_ok = all(torch.equal(words(a)[kept], words(c)[kept])
+                  for a, c in zip(ku, chans))
+    st = {"case": label, "lanes": mask.shape[0], "channels": len(chans),
+          "cap": cap, "count": count, "pack_max_word_err": pack_err,
+          "unpack_max_word_err": unpack_err, "round_trip_exact": trip_ok}
+    if timing:
+        n, n_ch = mask.shape[0], len(chans)
+        stacked = torch.stack([words(c) for c in chans]).view(torch.float32)
+        src = stacked[:, live][:, :cap].contiguous() if count <= cap \
+            else None
+        st["pack_ms"] = _time_ms(
+            lambda: sc.stream_pack_channels(chans, cap, mask_from), 10)
+        st["pack_plain_ms"] = _time_ms(
+            lambda: sc.stream_pack_plain(chans, cap, mask_from), 3)
+        st["pack_library_ms"] = _time_ms(lambda: stacked[:, live], 10)
+        st["pack_bound_ms"] = _pack_bound_ms(kept, n_ch, cap)
+        st["unpack_ms"] = _time_ms(
+            lambda: sc.stream_unpack_channels(mask, res, fills, kp), 10)
+        st["unpack_plain_ms"] = _time_ms(
+            lambda: sc.stream_unpack_plain(mask, res, fills, pp), 3)
+        if src is not None:
+            out = torch.empty((n_ch, n), device="cuda")
+            full = live.expand(n_ch, n)
+            st["unpack_library_ms"] = _time_ms(
+                lambda: out.fill_(0.0).masked_scatter_(full, src), 10)
+        st["unpack_bound_ms"] = (4.0 * (n + n_ch * n_valid + n_ch * n)
+                                 / PEAK_BYTES_PER_S * 1e3)
+    print(json.dumps(st))
+    if pack_err or unpack_err or not trip_ok:
+        raise AssertionError(f"compactor disagrees with its plain version: "
+                             f"{st}")
+    return st
+
+
+def phase_compactor(n=1 << 24, seed=0) -> dict:
+    """Phase 12; returns the timed cases by kernel shape, and each
+    kernel's largest word error over every case."""
+    print(f"== phase 12: stream_pack_kernel / stream_unpack_kernel vs "
+          f"plain, {n} lanes")
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    masks, state, lane = _compactor_inputs(n, gen)
+    timed = {"pack_err": 0, "unpack_err": 0}
+    for name, m in masks.items():
+        keep = m.to(torch.float32)
+        stage = state[:9] + [keep, lane]
+        t_cap = torch.where(m, state[0].abs() * 1000.0 + 1.0, 0.0)
+        mesh = state[:6] + [t_cap]
+        for key, chans, cap, mask_from, fills, timed_mask in (
+                ("stage", stage, n // 2, 9, [0.0] * 10 + [-1], "random_40"),
+                ("mesh", mesh, n // 4, 6,
+                 [float("inf"), -1.0, 0.0, 0.0, 0.0, 0.0, 0],
+                 "clustered_20")):
+            st = _compactor_case(chans, cap, mask_from, fills,
+                                 f"{key} pack, {name}", name == timed_mask)
+            if name == timed_mask:
+                timed[key] = st
+            timed["pack_err"] = max(timed["pack_err"],
+                                    st["pack_max_word_err"])
+            timed["unpack_err"] = max(timed["unpack_err"],
+                                      st["unpack_max_word_err"])
+    return timed
+
+
+@contextlib.contextmanager
+def _plain_versions():
+    """The hybrid route with the plain versions of B2, B3a and B3b on the
+    card's tensors in place of the kernels."""
+    from nrenderer_torch.ops import mesh_cuda, stream_compact as sc
+    from nrenderer_torch.renderers import _wavefront
+    swaps = [(sc, "stream_pack_channels", sc.stream_pack_plain),
+             (sc, "stream_unpack_channels", sc.stream_unpack_plain),
+             (_wavefront, "stream_pack_channels", sc.stream_pack_plain),
+             (_wavefront, "stream_unpack_channels", sc.stream_unpack_plain),
+             (mesh_cuda, "_sweep_cuda",
+              lambda mt, o, d, t_min, cap, f2b, with_uv:
+              mesh_cuda.sweep_mesh_plain(mt, o, d, t_min, cap, f2b=f2b,
+                                         with_uv=with_uv))]
+    saved = [(mod, name, getattr(mod, name)) for mod, name, _ in swaps]
+    for mod, name, fn in swaps:
+        setattr(mod, name, fn)
+    try:
+        yield
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+def _hybrid_fn(objs, width, height, depth, chunk):
+    from nrenderer_torch.ops.bvh import build_mesh_accel
+    from nrenderer_torch.ops.mesh_cuda import make_mesh_tables
+    from nrenderer_torch.ops.pt_core import make_mat_channels
+    from nrenderer_torch.renderers.acc_pt import build_render_fn
+    ss, cam, _, arrays = _setup("cuda", MESH_SCENE, objs=objs)
+    mt = make_mesh_tables(build_mesh_accel(arrays,
+                                           make_mat_channels(ss)).bt, "cuda")
+    fn = build_render_fn(ss, cam, width, height, depth, chunk, tri_bvh=mt,
+                         staged=depth >= 12)
+    return fn, ss, cam, mt
+
+
+def _film_stats(a, b, spp) -> dict:
+    img = lambda f: torch.sqrt(torch.clamp(f * (1.0 / spp), min=0.0))
+    diff = (img(a) - img(b)).abs()
+    pix = diff.max(dim=1).values
+    return {"max_abs_err": float(diff.max()),
+            "mean_abs_err": float(diff.mean()),
+            "share_within_1e-4": float((pix <= WITHIN).float().mean()),
+            "finite": bool(torch.isfinite(a).all())}
+
+
+def phase_hybrid_parity(width=128, height=128, spp=8, depth=13) -> dict:
+    from nrenderer_torch.ops import mesh_cuda, stream_compact
+    from nrenderer_torch.ops.pt_core import scene_epsilon
+    from nrenderer_torch.ops.pt_cuda import pt_accumulate
+    from nrenderer_torch.renderers import _wavefront
+    print(f"== phase 13: hybrid route, kernels vs plain versions, "
+          f"ico_5120.obj, {width}x{height}, {spp} spp, depth {depth}")
+    fn, *_ = _hybrid_fn((ICO,), width, height, depth, spp)
+    for mod in (mesh_cuda, stream_compact):
+        mod.reset_launch_counts()
+    mesh_cuda.reset_route_counts()
+    _wavefront.reset_route_counts()
+    film_k = fn(0, 0, spp)
+    torch.cuda.synchronize()
+    launches = {**mesh_cuda.KERNEL_LAUNCHES,
+                **stream_compact.KERNEL_LAUNCHES}
+    routes = {**mesh_cuda.ROUTE_COUNTS, **_wavefront.ROUTE_COUNTS}
+    with _plain_versions():
+        film_p = fn(0, 0, spp)
+    torch.cuda.synchronize()
+    st = {"scene": "ico_5120", "bit_exact": bool(torch.equal(film_k, film_p)),
+          **_film_stats(film_k, film_p, spp), "launches": launches,
+          "routes": routes}
+    print(json.dumps(st))
+    if not st["bit_exact"] or min(launches.values()) <= 0 \
+            or not routes["compacted"]:
+        raise AssertionError(f"hybrid route vs its plain versions: {st}")
+    print(f"== phase 13: hybrid route vs pt_bsdf_mesh_kernel, blob_960.obj, "
+          f"{width}x{height}, {spp} spp, depth {depth}")
+    fn, ss, cam, mt = _hybrid_fn((BLOB,), width, height, depth, spp)
+    film_h = fn(0, 0, spp)
+    film_m = pt_accumulate(
+        torch.zeros((width * height, 3), device="cuda"), ss, cam, width,
+        height, 0, spp, depth, 0, scene_epsilon(ss), bsdf=True, mesh=mt)
+    torch.cuda.synchronize()
+    st2 = {"scene": "blob_960", "bit_exact": bool(torch.equal(film_h,
+                                                              film_m)),
+           **_film_stats(film_h, film_m, spp)}
+    print(json.dumps(st2))
+    if not st2["finite"] or st2["mean_abs_err"] > MEAN_ABS_MAX \
+            or st2["share_within_1e-4"] < WITHIN_SHARE_MIN:
+        raise AssertionError(f"hybrid route vs the megamesh kernel: {st2}")
+    return st
+
+
+class _Captured(Exception):
+    """Ends a chunk once the mesh pipe's inputs are held."""
+
+
+def phase_pipe_main_shape(width=500, height=500, chunk=64, depth=20,
+                          sub=1 << 16) -> dict:
+    """One sorted mesh-pipe bounce of a chunk of the hybrid path, at its
+    own shape (the second bounce of 64 spp of 500x500: 16 Mi lanes, a cap
+    of 4 Mi rays): the pack and the unpack on the kernels and on the plain
+    versions, bit for bit, the unpack's result channels as long as the
+    live prefix (shorter than the cap, as on every compacted bounce), and
+    the sweep against its plain version on the first `sub` rays of the
+    sorted prefix."""
+    from nrenderer_torch.ops import mesh_cuda, stream_compact as sc
+    from nrenderer_torch.ops.pt_core import scene_epsilon
+    from nrenderer_torch.ops.soa import V3
+    print(f"== phase 13: mesh pipe at the hybrid path's shape, ico_5120.obj, "
+          f"bounce 1 of {width}x{height}, {chunk} spp, depth {depth}")
+    fn, ss, _, mt = _hybrid_fn((ICO,), width, height, depth, chunk)
+    t_min = scene_epsilon(ss)
+    held, pack = [], sc.stream_pack_channels
+
+    def hold(chans, cap, mask_from):
+        if not held:   # the camera bounce's pack runs; bounce 1's is held
+            held.append(None)
+            return pack(chans, cap, mask_from)
+        held[:] = [chans, cap]
+        raise _Captured
+
+    sc.stream_pack_channels = hold
+    try:
+        fn(0, 0, chunk)
+        raise AssertionError("the chunk packed no second mesh bounce")
+    except _Captured:
+        pass
+    finally:
+        sc.stream_pack_channels = pack
+    chans, cap = held
+    t_cap = chans[6]
+    kp = sc.stream_pack_channels(chans, cap, 6)
+    pp = sc.stream_pack_plain(chans, cap, 6)
+    n_hit = int(kp.count)
+    pack_err = _pack_errs(kp, pp)
+    if not 0 < n_hit < cap:
+        raise AssertionError(f"bounce 1 did not compact: {n_hit} rays, cap "
+                             f"{cap}")
+    lo, hi = mt.bb[:, 0:3].amin(dim=0), mt.bb[:, 4:7].amax(dim=0)
+    rays, perm = mesh_cuda.sort_rays(kp.packed[:, :n_hit], lo, hi, t_min)
+    out = mesh_cuda.sweep_mesh_full(
+        mt, V3(rays[0], rays[1], rays[2]), V3(rays[3], rays[4], rays[5]),
+        t_min, t_cap=rays[6], f2b=True)
+    k = min(sub, n_hit)
+    raw = mesh_cuda.sweep_mesh_plain(
+        mt, V3(rays[0, :k], rays[1, :k], rays[2, :k]),
+        V3(rays[3, :k], rays[4, :k], rays[5, :k]), t_min, rays[6, :k],
+        f2b=True)
+    t_p = torch.where(raw[1] >= 0, raw[0], float("inf"))
+    idx_p = raw[1].to(torch.int32)
+    t_diff = int((out[0][:k] != t_p).sum())
+    untied = int(((out[1][:k] != idx_p) & (out[0][:k] != t_p)).sum())
+    out = mesh_cuda.unsort(out, perm)
+    misses = (float("inf"), -1, 0.0, 0.0, 0.0, 0.0)
+    ku = sc.stream_unpack_channels(t_cap, out, misses, kp)
+    pu = sc.stream_unpack_plain(t_cap, out, misses, pp)
+    unpack_err = max(_word_err(a, b) for a, b in zip(ku, pu))
+    torch.cuda.synchronize()
+    st = {"lanes": t_cap.shape[0], "cap": cap, "live_prefix": n_hit,
+          "pack_max_word_err": pack_err, "unpack_max_word_err": unpack_err,
+          "sweep_rays_checked": k, "sweep_t_differ": t_diff,
+          "sweep_idx_differ_t_untied": untied,
+          "hits": int((ku[1] >= 0).sum())}
+    print(json.dumps(st))
+    if pack_err or unpack_err or t_diff or untied or not st["hits"]:
+        raise AssertionError(f"mesh pipe at the path's shape disagrees "
+                             f"with its plain versions: {st}")
+    return st
+
+
+def phase_hybrid_path(width=500, height=500, spp=256, depth=20) -> dict:
+    out = os.path.join(ROOT, "build", "smoke_ico.png")
+    argv = _cli_argv(MESH_SCENE, "AccPathTracer", width, height, spp, depth,
+                     out, objs=(ICO,))
+    return phase_cli(14, "hybrid path (AccPathTracer, ico_5120)", argv,
+                     HYBRID_KERNELS, width, height, spp, depth,
+                     ICO_MEAN_BAND, _blob_lit)
+
+
+def phase_env_mesh_path(width=512, height=512, spp=256, depth=8) -> dict:
+    out = os.path.join(ROOT, "build", "smoke_env_mesh.png")
+    argv = _cli_argv(MESH_SCENE, "AccPathTracer", width, height, spp, depth,
+                     out, env=True, objs=(BLOB,))
+    return phase_cli(15, "env + mesh path (AccPathTracer, blob_960)", argv,
+                     HYBRID_KERNELS, width, height, spp, depth,
+                     ENV_MESH_MEAN_BAND, _blob_lit)
+
+
+def phase_breakdown(width=500, height=500, chunk=64, depth=20) -> dict:
+    """One chunk of the hybrid path, each part timed between device
+    synchronisations; bounce math is the rest of the chunk."""
+    print(f"== phase 16: one hybrid chunk, ico_5120.obj, {width}x{height}, "
+          f"{chunk} spp, depth {depth}")
+    from nrenderer_torch.ops import mesh_cuda, stream_compact as sc
+    from nrenderer_torch.renderers import _wavefront
+    fn, *_ = _hybrid_fn((ICO,), width, height, depth, chunk)
+    fn(1, 0, chunk)   # warm
+    parts, calls = {}, {}
+
+    def timed(name, f):
+        def run(*args, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = f(*args, **kw)
+            torch.cuda.synchronize()
+            parts[name] = parts.get(name, 0.0) + time.perf_counter() - t0
+            calls[name] = calls.get(name, 0) + 1
+            return out
+        return run
+
+    swaps = [(mesh_cuda, "top_aabb_reach", "top-AABB test"),
+             (sc, "stream_pack_channels", "mesh pack"),
+             (mesh_cuda, "sort_rays", "sort"), (mesh_cuda, "unsort", "sort"),
+             (mesh_cuda, "sweep_mesh_full", "sweep"),
+             (sc, "stream_unpack_channels", "mesh unpack"),
+             (_wavefront, "stream_pack_channels", "stage pack"),
+             (_wavefront, "stream_unpack_channels", "banking")]
+    saved = [(mod, attr, getattr(mod, attr)) for mod, attr, _ in swaps]
+    for mod, attr, name in swaps:
+        setattr(mod, attr, timed(name, getattr(mod, attr)))
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn(0, 0, chunk)
+        torch.cuda.synchronize()
+        total = time.perf_counter() - t0
+    finally:
+        for mod, attr, f in saved:
+            setattr(mod, attr, f)
+    parts["bounce math (the rest)"] = total - sum(parts.values())
+    st = {"chunk_seconds": total,
+          **{k: v for k, v in sorted(parts.items(), key=lambda kv: -kv[1])},
+          "shares": {k: v / total for k, v in parts.items()},
+          "calls": calls}
+    print(json.dumps(st))
+    return st
+
+
 def main() -> int:
     gpu = phase_toolchain()
     phase_build()
@@ -590,18 +1012,26 @@ def main() -> int:
         st = phase_parity(size, size, 4, depth, **kw)
         parity[st["kernel"]] = st
     sweep = phase_sweep()
+    compactor = phase_compactor()
+    phase_hybrid_parity()
+    pipe = phase_pipe_main_shape()
     paths = [phase_main_path(), phase_acc_path(), *phase_env_paths(),
-             phase_mesh_path(), *phase_tex_paths()]
+             phase_mesh_path(), *phase_tex_paths(), phase_hybrid_path(),
+             phase_env_mesh_path()]
+    breakdown = phase_breakdown()
     launches = {}
     for run in paths:
         for name, n in run["launches"].items():
             if n:
                 launches[name] = launches.get(name, 0) + n
-    from nrenderer_torch.ops import mesh_cuda, pt_cuda
+    from nrenderer_torch.ops import mesh_cuda, pt_cuda, stream_compact
     for run in paths:
-        print(f"{run['path']}: {run['seconds']:.3f} s, "
+        print(f"{run['path']}: {run['seconds']:.3f} s "
+              f"(render {run['render_seconds']:.3f} s), "
               f"{run['spp_per_s']:.1f} spp/s, "
-              f"{run['mbounce_rays_per_s']:.1f} Mbounce-rays/s on {gpu}")
+              f"{run['mbounce_rays_per_s']:.1f} Mbounce-rays/s, peak "
+              f"{run['peak_memory_bytes'] / 2**30:.2f} GiB on {gpu}")
+    print(f"hybrid chunk: {breakdown['chunk_seconds']:.3f} s on {gpu}")
     print(gpu)
     kernels = [{
         "name": name, "route": "cuda", "source": pt_cuda.KERNEL_SOURCE,
@@ -611,8 +1041,8 @@ def main() -> int:
         "ms": st["kernel_ms"], "plain_ms": st["plain_ms"],
         "bound_ms": st["bound_ms"], "bound_by": st["bound_by"],
         "library_ms": None} for name, st in parity.items()]
-    # the standalone sweep is the hybrid route's (not driven here); its
-    # device function runs inline in the mesh forms' launches
+    # the standalone sweep runs on the hybrid paths; its device function
+    # also runs inline in the mesh forms' launches
     kernels.append({
         "name": mesh_cuda.KERNEL_NAME, "route": "cuda",
         "source": mesh_cuda.KERNEL_SOURCE, "replaces": mesh_cuda.REPLACES,
@@ -623,6 +1053,20 @@ def main() -> int:
         "inlined_in": ["pt_bsdf_mesh_kernel", "pt_bsdf_mesh_tex_kernel"],
         "inlined_launches": launches.get("pt_bsdf_mesh_kernel", 0)
         + launches.get("pt_bsdf_mesh_tex_kernel", 0)})
+    for name, key, case in ((stream_compact.PACK, "pack", "stage"),
+                            (stream_compact.UNPACK, "unpack", "mesh")):
+        st = compactor[case]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": stream_compact.KERNEL_SOURCE,
+            "replaces": stream_compact.REPLACES[name],
+            "launches": launches.get(name, 0),
+            "max_abs_err": float(max(compactor[f"{key}_err"],
+                                     pipe[f"{key}_max_word_err"])),
+            "ms": st[f"{key}_ms"], "plain_ms": st[f"{key}_plain_ms"],
+            "bound_ms": st[f"{key}_bound_ms"], "bound_by": "bytes",
+            "library_ms": st.get(f"{key}_library_ms"),
+            "shape": st["case"]})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

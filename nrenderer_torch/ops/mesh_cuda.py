@@ -30,6 +30,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from . import stream_compact
 from .bvh import BlockedTris
 from .soa import V3
 
@@ -339,3 +340,159 @@ def _sweep_cuda(mt, o, d, t_min, cap, f2b, with_uv):
                            f"{msg}")
     KERNEL_LAUNCHES[KERNEL_NAME] += 1
     return tuple(out[i] for i in range(n_out))
+
+
+# The hybrid route's mesh pipe (`mesh_pallas.py:632-996`), with the JAX
+# package's defaults as constants: the compacted buffer holds n / 4 rays,
+# at least CAP_MIN, rounded up to CAP_ALIGN; wavefronts under
+# MESH_COMPACT_MIN rays are swept uncompacted; the entry-cell sort
+# quantises the mesh box by CELL_Q per axis.
+MESH_COMPACT_FRACTION = 4
+MESH_COMPACT_MIN = 64 * 1024
+CAP_MIN, CAP_ALIGN = 1024, 4096
+CELL_Q = 2
+
+# Which branch each call of `intersect_triangles_mesh` took: a caller
+# resets and reads them (the renderer logs them).
+ROUTE_COUNTS = {"uncompacted": 0, "compacted": 0, "overflow_full_sweeps": 0}
+
+
+def reset_route_counts() -> None:
+    for key in ROUTE_COUNTS:
+        ROUTE_COUNTS[key] = 0
+
+
+def _slab(lo, hi, o: V3, d: V3):
+    """(t_near, t_far) of the box [lo, hi] along the rays (the top-level
+    test's float order, `mesh_pallas.py:709-719`)."""
+    near, far = [], []
+    for k, (oo, dd) in enumerate(((o.x, d.x), (o.y, d.y), (o.z, d.z))):
+        inv = _inv(dd)
+        t0 = (lo[k] - oo) * inv
+        t1 = (hi[k] - oo) * inv
+        near.append(torch.minimum(t0, t1))
+        far.append(torch.maximum(t0, t1))
+    return (torch.maximum(torch.maximum(near[0], near[1]), near[2]),
+            torch.minimum(torch.minimum(far[0], far[1]), far[2]))
+
+
+def top_aabb_reach(mt: MeshTables, o: V3, d: V3, t_min: float,
+                   t_cap: torch.Tensor):
+    """(box min, box max, reach): the pool's top-level AABB and which rays
+    can reach it with a hit nearer than their cap (the in-sweep block
+    test's rule, `mesh_pallas.py:704-724`)."""
+    lo, hi = mt.bb[:, 0:3].amin(dim=0), mt.bb[:, 4:7].amax(dim=0)
+    t_near, t_far = _slab(lo, hi, o, d)
+    reach = ((t_near <= t_far) & (t_far >= t_min)
+             & (torch.clamp(t_near, min=t_min) < t_cap))
+    return lo, hi, reach
+
+
+def entry_cell_key(lo, hi, o: V3, d: V3, t_min: float) -> torch.Tensor:
+    """The sort key of a ray that enters the mesh box: its entry point's
+    cell on a CELL_Q^3 grid over the box, times 8, plus its direction
+    octant (`mesh_pallas.py:792-812`).  The sort only groups rays that
+    sweep the same blocks; it changes no result."""
+    t_near, _ = _slab(lo, hi, o, d)
+    tn = torch.clamp(t_near, min=t_min)
+
+    def q(v, k):
+        cell = ((v - lo[k]) / (hi[k] - lo[k]) * CELL_Q).to(torch.int32)
+        return torch.clamp(cell, 0, CELL_Q - 1).to(torch.int64)
+
+    cell = (q(o.x + tn * d.x, 0) * CELL_Q ** 2 + q(o.y + tn * d.y, 1) * CELL_Q
+            + q(o.z + tn * d.z, 2))
+    return cell * 8 + _octant(d)
+
+
+def intersect_triangles_mesh(mt: MeshTables, o: V3, d: V3, t_min: float,
+                             t_dense: torch.Tensor, mat_channels,
+                             alive: Optional[torch.Tensor] = None,
+                             sort: bool = True, with_uv: bool = False):
+    """The mesh pipe of the hybrid route for a whole wavefront (the stream
+    engine of `mesh_pallas.intersect_triangles_mesh`).
+
+    `t_dense`: the dense primitives' hit t per ray (a triangle must beat
+    it); `alive`: rays still on their path (the others get a zero cap);
+    `sort`: sort the compacted rays by entry cell (the caller passes False
+    for the pixel-coherent camera bounce); `with_uv`: also the winner's
+    (u, v, tex), which the sweep carries (textured pools).
+
+    In order: the cap is t_dense (0 for dead rays); the mesh's top-level
+    AABB culls every ray that cannot reach it or whose cap beats the box
+    entry (zeroed cap); a wavefront under MESH_COMPACT_MIN rays is swept
+    as it is; otherwise the survivors are packed (B3a) into a buffer of
+    n / MESH_COMPACT_FRACTION rays, and when more survive than it holds
+    the whole wavefront is swept with the zeroed caps; otherwise the
+    packed rays are stably sorted by entry cell over the live prefix,
+    swept front to back (B2), unsorted and unpacked (B3b) with the sweep's
+    miss values.  Every branch gives each ray the same answer.
+
+    Returns (t, nx, ny, nz, mat, pid, channels) as
+    `intersect_triangles_blocked` does (t = inf and pid = -1 on a miss),
+    plus ((u, v, tex),) with `with_uv`."""
+    n = o.x.shape[0]
+    t_cap = t_dense if alive is None else torch.where(alive, t_dense, 0.0)
+    cap = max(CAP_MIN, n // MESH_COMPACT_FRACTION)
+    cap = max(CAP_MIN, -(-cap // CAP_ALIGN) * CAP_ALIGN)
+    lo, hi, reach = top_aabb_reach(mt, o, d, t_min, t_cap)
+    t_cap = torch.where(reach, t_cap, 0.0)
+    n_hit = None
+    if n >= MESH_COMPACT_MIN and cap < n:
+        # a surviving ray has t_cap > t_min >= 0, so the pack's mask is
+        # `reach`; its count is the route's one host sync per bounce: the
+        # overflow and the sort window both read it
+        sp = stream_compact.stream_pack_channels(
+            (o.x, o.y, o.z, d.x, d.y, d.z, t_cap), cap, mask_from=6)
+        n_hit = int(sp.count)
+    if n_hit is not None and n_hit <= cap:
+        ROUTE_COUNTS["compacted"] += 1
+        out = _compacted_sweep(mt, t_min, t_cap, sp, n_hit, lo, hi, sort,
+                               with_uv)
+    else:
+        ROUTE_COUNTS["uncompacted" if n_hit is None
+                     else "overflow_full_sweeps"] += 1
+        out = sweep_mesh_full(mt, o, d, t_min, t_cap=t_cap, f2b=True,
+                              with_uv=with_uv)
+    t, idx, nx, ny, nz, mat = out[:6]
+    miss = idx < 0
+    pid = torch.where(miss, -1.0, idx.to(torch.float32))
+    res = (t, nx, ny, nz, mat, pid, channels_from_mat(mat, miss,
+                                                      mat_channels))
+    return res + (tuple(out[6:9]),) if with_uv else res
+
+
+def _compacted_sweep(mt, t_min, t_cap, sp, n_hit, lo, hi, sort, with_uv):
+    """Sweep the live prefix of the packed rays `sp` (sorted by entry cell
+    when `sort`) and unpack the results to the lanes of `t_cap`."""
+    rays, perm = sp.packed[:, :n_hit], None
+    if sort and n_hit > 1:
+        rays, perm = sort_rays(rays, lo, hi, t_min)
+    out = sweep_mesh_full(mt, V3(rays[0], rays[1], rays[2]),
+                          V3(rays[3], rays[4], rays[5]), t_min,
+                          t_cap=rays[6], f2b=True, with_uv=with_uv)
+    if perm is not None:
+        out = unsort(out, perm)
+    # the sweep's own miss values: t inf, idx -1, zero shading, uv 0, tex -1
+    misses = (float("inf"), -1, 0.0, 0.0, 0.0, 0.0) + (
+        (0.0, 0.0, -1.0) if with_uv else ())
+    return stream_compact.stream_unpack_channels(t_cap, out, misses, sp)
+
+
+def sort_rays(rays: torch.Tensor, lo, hi, t_min: float):
+    """(7, k) packed rays stably sorted by `entry_cell_key`, and the
+    permutation (sorted slot -> packed slot)."""
+    key = entry_cell_key(lo, hi, V3(rays[0], rays[1], rays[2]),
+                         V3(rays[3], rays[4], rays[5]), t_min)
+    perm = torch.sort(key, stable=True).indices
+    return rays[:, perm], perm
+
+
+def unsort(out, perm: torch.Tensor) -> list:
+    """The sweep's results back in packed-slot order."""
+    res = []
+    for a in out:
+        u = torch.empty_like(a)
+        u[perm] = a
+        res.append(u)
+    return res

@@ -116,37 +116,56 @@ def onb_local(normal: V3, vec: V3) -> V3:
 
 
 def closest_hit(ss: StaticScene, o: V3, d: V3, t_min: float, mat_channels,
-                tri_bvh=None, alive=None, with_uv: bool = False):
+                tri_bvh=None, alive=None, with_uv: bool = False,
+                coherent: bool = False):
     """Closest hit: the unrolled dense primitives, or, with `tri_bvh`, the
-    dense primitives without triangles and then a mesh sweep over the
-    triangle pool (the JAX function's `callable(tri_bvh)` branch,
-    `pt_core.py:110-207`).
+    dense primitives without triangles and then the triangle pool
+    (`pt_core.py:110-207`), in one of two forms:
 
-    `tri_bvh(o, d, t_cap)` returns the sweep's winner tuple (t_best, idx,
-    nx, ny, nz, mat[, u, v, tex]) with t_best at the cap on a miss; the
-    cap is the dense hit's t, 0 for dead rays (`alive`).  The winner's
-    channels come from its material id (`mesh_cuda.channels_from_mat`).
-    The XLA engines' other `tri_bvh` forms (a `MeshAccel` through the
-    hybrid pipe, the blocked scan, the BVH cursor walk) are not ported."""
+      - `mesh_cuda.MeshTables` (the counterpart of the JAX `MeshAccel`
+        branch): the hybrid route's mesh pipe,
+        `mesh_cuda.intersect_triangles_mesh`, capped by the dense hit and
+        `alive`; `coherent` (pixel-coherent camera rays) skips its
+        entry-cell sort;
+      - a callable `tri_bvh(o, d, t_cap)` returning the sweep's winner
+        tuple (t_best, idx, nx, ny, nz, mat[, u, v, tex]) with t_best at
+        the cap on a miss, the cap being the dense hit's t, 0 for dead rays
+        (the megamesh route's plain form); the winner's channels come from
+        its material id (`mesh_cuda.channels_from_mat`).
+
+    The XLA engines' other `tri_bvh` forms (the blocked scan, the BVH
+    cursor walk) are not ported."""
     if tri_bvh is None:
         return intersect_scene_unrolled(ss, o, d, t_min=t_min,
                                         mat_channels=mat_channels,
                                         with_uv=with_uv)
-    from .mesh_cuda import channels_from_mat
+    from .mesh_cuda import MeshTables, channels_from_mat, \
+        intersect_triangles_mesh
     ss_nt = ss._replace(tri=[], tri_uv=())
     hit = intersect_scene_unrolled(ss_nt, o, d, t_min=t_min,
                                    mat_channels=mat_channels,
                                    with_uv=with_uv)
-    t_cap = hit.t
-    if alive is not None:
-        t_cap = torch.where(alive, t_cap, torch.zeros_like(t_cap))
-    out = tri_bvh(o, d, t_cap)
-    tb, idxb, nxb, nyb, nzb, matb = out[:6]
-    missb = idxb < 0
-    tb = torch.where(missb, torch.full_like(tb, float("inf")), tb)
-    chb = channels_from_mat(matb, missb, mat_channels)
-    pidb = torch.where(missb, -1.0, idxb)
-    matb = torch.where(missb, 0.0, matb)
+    uvb = None
+    if isinstance(tri_bvh, MeshTables):
+        out = intersect_triangles_mesh(tri_bvh, o, d, t_min, hit.t,
+                                       mat_channels, alive=alive,
+                                       sort=not coherent, with_uv=with_uv)
+        tb, nxb, nyb, nzb, matb, pidb, chb = out[:7]
+        if with_uv:
+            uvb = out[7]
+    else:
+        t_cap = hit.t
+        if alive is not None:
+            t_cap = torch.where(alive, t_cap, torch.zeros_like(t_cap))
+        out = tri_bvh(o, d, t_cap)
+        tb, idxb, nxb, nyb, nzb, matb = out[:6]
+        missb = idxb < 0
+        tb = torch.where(missb, torch.full_like(tb, float("inf")), tb)
+        chb = channels_from_mat(matb, missb, mat_channels)
+        pidb = torch.where(missb, -1.0, idxb)
+        matb = torch.where(missb, 0.0, matb)
+        if with_uv and len(out) > 6:
+            uvb = (out[6], out[7], torch.where(missb, -1.0, out[8]))
     closer = tb < hit.t
     t = torch.where(closer, tb, hit.t)
     normal = V3(torch.where(closer, nxb, hit.normal.x),
@@ -157,9 +176,9 @@ def closest_hit(ss: StaticScene, o: V3, d: V3, t_min: float, mat_channels,
     point = V3(o.x + t * d.x, o.y + t * d.y, o.z + t * d.z)
     uv = hit.uv
     if with_uv:
-        uvb = (out[6], out[7], torch.where(missb, -1.0, out[8])) \
-            if len(out) > 6 else (torch.zeros_like(t), torch.zeros_like(t),
-                                  torch.full_like(t, -1.0))
+        if uvb is None:
+            uvb = (torch.zeros_like(t), torch.zeros_like(t),
+                   torch.full_like(t, -1.0))
         uv = tuple(torch.where(closer, ub, hb)
                    for ub, hb in zip(uvb, hit.uv))
     return hit._replace(t=t, valid=torch.isfinite(t), point=point,
@@ -435,16 +454,20 @@ def effective_lobe(mtype: float, lobes: list) -> int:
 
 def bsdf_bounce(ss: StaticScene, mat_ch, o: V3, d: V3, throughput: V3,
                 radiance: V3, alive, u1, u2, u3, t_min: float = 1e-6,
-                tri_bvh=None, with_miss: bool = False, textures=None
+                tri_bvh=None, with_miss: bool = False, textures=None,
+                coherent: bool = False
                 ) -> Tuple[V3, V3, V3, V3, torch.Tensor]:
     """One bounce of the AccPathTracer estimator
     (`AccPathTracer.cpp:120-181`): closest hit, light hit, then the
     material-type select chain over the lobes present (`lobe_order`).
-    `with_miss`: also return the env-candidate miss mask; `tri_bvh`,
-    `textures`: see diffuse_bounce (with an `stex` channel the specular
-    map replaces the albedo too)."""
+    `with_miss`: also return the env-candidate miss mask; `tri_bvh`: see
+    closest_hit; `textures`: the binned resolver of diffuse_bounce, or a
+    tuple of (H, W, 3) textures sampled at full resolution
+    (`texture.resolve_diffuse`, the XLA route's); with an `stex` channel
+    the specular map replaces the albedo too.  `coherent`: the rays are
+    pixel-coherent camera rays (the mesh pipe skips its sort)."""
     hit = closest_hit(ss, o, d, t_min, mat_ch, tri_bvh, alive=alive,
-                      with_uv=bool(textures))
+                      with_uv=bool(textures), coherent=coherent)
     t_l, light_rad = intersect_area_lights_unrolled(ss, o, d, t_min=t_min)
 
     obj_first = alive & hit.valid & (hit.t < t_l)
@@ -461,9 +484,16 @@ def bsdf_bounce(ss: StaticScene, mat_ch, o: V3, d: V3, throughput: V3,
     diffuse = V3(dr, dg, db)
     albedo = V3(ar, ag, ab_)
     if textures:
-        diffuse = textures(hit.uv, diffuse)
-        if stex is not None:
-            albedo = textures((hit.uv[0], hit.uv[1], stex), albedo)
+        if callable(textures):
+            diffuse = textures(hit.uv, diffuse)
+            if stex is not None:
+                albedo = textures((hit.uv[0], hit.uv[1], stex), albedo)
+        else:
+            from .texture import resolve_diffuse
+            diffuse = resolve_diffuse(textures, hit.uv, diffuse)
+            if stex is not None:
+                albedo = resolve_diffuse(
+                    textures, (hit.uv[0], hit.uv[1], stex), albedo)
     absorbed = V3(absr, absg, absb)
     eta_r = V3(err, erg, erb)
     eta_i = V3(eir, eig, eib)

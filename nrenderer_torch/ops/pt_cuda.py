@@ -135,9 +135,9 @@ def kernel_name(bsdf: bool, env: bool, mesh: bool = False,
     if key not in KERNELS:
         raise NotImplementedError(
             "the path-tracing kernel's mesh form runs the BSDF estimator "
-            "without an env map; env-map mesh scenes need the hybrid route "
-            "(ROADMAP A7: staged wavefront, B2's route, B3a/B3b), not "
-            "ported yet")
+            "without an env map: env-map mesh scenes take the hybrid mesh "
+            "route (renderers/acc_pt.py, the staged wavefront with the "
+            "standalone sweep and the streaming compactor)")
     return KERNELS[key]
 
 
@@ -161,8 +161,9 @@ def check_supported(ss: StaticScene, mesh: bool = False) -> None:
     if not mesh and len(ss.tri) > MAX_TRIS:
         raise NotImplementedError(
             f"{len(ss.tri)} triangles is past the dense kernel's limit "
-            f"of {MAX_TRIS}: such pools need the hybrid mesh route (ROADMAP "
-            "A7), not ported yet")
+            f"of {MAX_TRIS}: such pools take AccPathTracer's mesh routes "
+            "(renderers/acc_pt.py; past 1024 triangles the hybrid mesh "
+            "route)")
 
 
 class EnvTables(NamedTuple):
@@ -410,9 +411,10 @@ def _pt_accumulate_cuda(film, ss, cam, width, height, sp0, n_spp, depth,
             KERNEL_LAUNCHES[name] += 1
 
 
-def _camera_rays(cam: CameraParams, pid: torch.Tensor, sp: torch.Tensor,
+def camera_rays(cam: CameraParams, pid: torch.Tensor, sp: torch.Tensor,
                  seed: int, width: int, height: int):
-    """Jittered camera rays with the Pallas kernel's draws and op order."""
+    """Jittered camera rays with the Pallas kernel's draws (0-3) and op
+    order, for pixel ids `pid` and sample indices `sp`."""
     py = pid // width
     pxf = (pid - py * width).to(torch.float32)
     pyf = py.to(torch.float32)
@@ -484,7 +486,7 @@ def pt_accumulate_plain(film: torch.Tensor, ss: StaticScene,
         sp = torch.arange(sp0 + c0, sp0 + c0 + c, dtype=torch.int64,
                           device=dev).repeat_interleave(n_pix)
         pid = pid1.repeat(c)
-        o, d = _camera_rays(cam, pid, sp, seed, width, height)
+        o, d = camera_rays(cam, pid, sp, seed, width, height)
         ones = torch.ones_like(o.x)
         zeros = torch.zeros_like(o.x)
         thr = V3(ones, ones, ones)

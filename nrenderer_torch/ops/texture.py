@@ -10,8 +10,9 @@ colour.  `tex_tables` and `make_tex_resolver` are the plain form; the CUDA
 kernel (`csrc/pt_kernel.cu`, `tex_lookup`) indexes the same tables with the
 same float32 math.
 
-The JAX package's exact full-resolution sampler (`ops/texture.py`, the XLA
-wavefront's) is not ported: the kernel route uses the binned tables."""
+`sample_texture` and `resolve_diffuse` are the JAX package's exact
+full-resolution sampler (`nrenderer_tpu/ops/texture.py:21-51`), which the
+hybrid mesh route's wavefront uses, as the XLA route does."""
 from __future__ import annotations
 
 import numpy as np
@@ -73,3 +74,32 @@ def make_tex_resolver(tables: torch.Tensor):
         return out
 
     return resolve
+
+
+def sample_texture(tex: torch.Tensor, u: torch.Tensor,
+                   v: torch.Tensor) -> V3:
+    """Nearest texel of an (H, W, 3) texture at (u, v): u and v wrap when
+    outside [0, 1], v = 0 is the image's bottom row, and the boundary texel
+    is clamped (u = 1 is the last column, not the first)."""
+    h, w = tex.shape[0], tex.shape[1]
+    u = torch.where((u < 0.0) | (u > 1.0), u - torch.floor(u), u)
+    v = torch.where((v < 0.0) | (v > 1.0), v - torch.floor(v), v)
+    x = torch.clamp(torch.floor(u * w).to(torch.int32), 0, w - 1)
+    y = torch.clamp(torch.floor((1.0 - v) * h).to(torch.int32), 0, h - 1)
+    flat = tex.reshape(-1, 3)
+    idx = (y * w + x).long()
+    return V3(flat[idx, 0], flat[idx, 1], flat[idx, 2])
+
+
+def resolve_diffuse(textures, uv, diffuse: V3) -> V3:
+    """`diffuse` with the texel of the hit's texture where the hit carries
+    a texture id (within 0.5 of a texture's index).  `textures`: a tuple of
+    (H, W, 3) tensors on the rays' device; `uv`: (u, v, texture id)."""
+    if not textures or uv is None:
+        return diffuse
+    tu, tv, tid = uv
+    out = diffuse
+    for i, tex in enumerate(textures):
+        out = where3((tid > i - 0.5) & (tid < i + 0.5),
+                     sample_texture(tex, tu, tv), out)
+    return out

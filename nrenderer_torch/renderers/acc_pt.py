@@ -23,39 +23,66 @@ packed into BVH-preorder blocks (`ops/bvh.build_mesh_accel`) and the
 kernel's mesh form runs the blocked sweep inside its bounce loop, in
 passes of `pcall` in (32, 16, 8, 4, 2, 1) samples with Screen previews and
 `--checkpoint`.  Textures are dropped when the pool carries no UVs.
-Larger pools and env-map mesh scenes go to the JAX package's hybrid route
-(staged wavefront, standalone sweep, streaming compactor), which is not
-ported: they raise `NotImplementedError` (ROADMAP A7).
 
-With a checkpoint path the render runs in passes of `pcall` samples, each
-with its own seed `seed * 100003 + step`, posting a preview to the Screen
-and saving the linear film after each pass; an interrupted render resumes
-at the next pass (`server/checkpoint.py`)."""
+Larger pools and env-map mesh scenes take the hybrid route
+(`acc_pt.py:389-472`): a torch wavefront of whole-film ray batches whose
+every bounce runs the mesh pipe (`mesh_cuda.intersect_triangles_mesh`:
+top-AABB cull, the streaming pack B3a, an entry-cell sort, the standalone
+sweep B2, the unpack B3b), in chunks of `pick_chunk(w, h, spp, budget)`
+samples (a budget of 2^24 rays on the card, 2^21 on the CPU).  At depth
+>= 12 the wavefront is staged (`_wavefront.build_staged_wavefront_fn`:
+the ray state is packed into smaller buffers as paths die); the JAX
+package stages only off the CPU, for XLA's compile time, while the port
+stages on both.  An env map is looked up exactly at every miss
+(`env.sample_env_map_v3`) and textures are sampled at full resolution
+(`texture.resolve_diffuse`), as on the JAX package's XLA route.  The
+route runs one call per chunk, with Screen previews and `--checkpoint`,
+when there are more than 4 chunks or a checkpoint path.  All draws come
+from the kernel's hash stream at the render's seed and each sample's
+index, so a resumed render reproduces the remaining chunks exactly.
+
+With a checkpoint path the megakernel and megamesh routes run in passes
+of `pcall` samples, each with its own seed `seed * 100003 + step`,
+posting a preview to the Screen and saving the linear film after each
+pass; an interrupted render resumes at the next pass
+(`server/checkpoint.py`)."""
 from __future__ import annotations
+
+from typing import Optional
 
 import numpy as np
 import torch
 
+from ..ops import mesh_cuda
 from ..ops.bvh import build_mesh_accel
 from ..ops.camera import make_camera
-from ..ops.intersect import make_static_scene
+from ..ops.env import sample_env_map_v3
+from ..ops.intersect import StaticScene, make_static_scene
 from ..ops.mesh_cuda import make_mesh_tables
-from ..ops.pt_core import make_mat_channels, scene_epsilon
+from ..ops.pt_core import (
+    bsdf_bounce, finish_ambient, make_mat_channels, scene_epsilon,
+)
 from ..ops.pt_cuda import (
     MAX_TRIS, check_device, check_supported, make_env_tables,
     make_tex_tables, pt_accumulate, render_bsdf_pt,
 )
+from ..ops.soa import V3
 from ..scene.arrays import build_scene_arrays
 from ..scene.model import Scene
 from ..server.component import RenderComponent, RenderResult
 from ..server.registry import get_server, register_renderer
 from ..utils.timing import GLOBAL_TIMER, PhaseTimer
+from . import _wavefront
+from ._wavefront import (
+    bounce_uniforms, build_staged_wavefront_fn, build_wavefront_fn,
+)
+from .simple_pt import pick_chunk
 
 BVH_THRESHOLD = 64
 MEGAMESH_MAX_TRIS = 1024  # the megamesh route's pools: in-kernel sweep
 ACC_TYPE0_MAX_TRIS = MAX_TRIS  # acc_type=0 (brute force) refused past this
-HYBRID = ("the hybrid mesh route (ROADMAP A7: staged wavefront, the "
-          "standalone sweep B2, the streaming compactor B3a/B3b)")
+STAGED_MIN_DEPTH = 12  # the hybrid route stages its wavefront from here
+HYBRID_BUDGET_RAYS = {"cuda": 1 << 24, "cpu": 1 << 21}  # rays per chunk
 
 
 def accelerates(acc_type: int, n_tri: int) -> bool:
@@ -131,6 +158,82 @@ def progressive_loop(checkpoint_path, seed, timer, w, h, spp, pcall,
     return np.clip(img[::-1], 0.0, 1.0), start, n_steps
 
 
+def _device_textures(textures, device):
+    """(H, W, 3) float32 tensors of (H, W, 3+) images (the scene's textures
+    or env map) on `device`."""
+    return tuple(torch.as_tensor(np.ascontiguousarray(
+        np.asarray(t, np.float32)[..., :3]), device=device)
+        for t in textures)
+
+
+def make_bsdf_bounce(ss: StaticScene, t_min: float, tri_bvh=None,
+                     env_map: Optional[torch.Tensor] = None, textures=None):
+    """`bounce(o, d, thr, rad, alive, u1, u2, u3, coherent=False)`: one
+    `bsdf_bounce` over the scene, and with an env map its exact lookup
+    added at every miss (misses keep their direction and throughput), as
+    the JAX package's XLA bounce does (`acc_pt.py:69-93, :120-142`)."""
+    mat_ch = make_mat_channels(ss)
+
+    def bounce(o, d, thr, rad, alive, u1, u2, u3, coherent=False):
+        out = bsdf_bounce(ss, mat_ch, o, d, thr, rad, alive, u1, u2, u3,
+                          t_min=t_min, tri_bvh=tri_bvh,
+                          with_miss=env_map is not None, textures=textures,
+                          coherent=coherent)
+        if env_map is None:
+            return out
+        o, d, thr, rad, alive, miss = out
+        env = sample_env_map_v3(env_map, d)
+        ew = miss.to(torch.float32)
+        return o, d, thr, V3(rad.x + ew * thr.x * env.x,
+                             rad.y + ew * thr.y * env.y,
+                             rad.z + ew * thr.z * env.z), alive
+
+    return bounce
+
+
+def trace_bsdf_wavefront(ss: StaticScene, o: V3, d: V3, pid: torch.Tensor,
+                         sp: torch.Tensor, seed: int, depth: int,
+                         env_map=None, tri_bvh=None, t_min: float = None,
+                         textures=None) -> V3:
+    """The (N,)-ray wavefront of the five-lobe estimator: `depth` bounces
+    drawing the kernel's uniforms for pixels `pid` and samples `sp`, then
+    the depth cap's ambient; returns the radiance (`acc_pt.py:53-99`)."""
+    if t_min is None:
+        t_min = scene_epsilon(ss)
+    bounce = make_bsdf_bounce(ss, t_min, tri_bvh, env_map, textures)
+    ones = torch.ones_like(o.x)
+    zeros = torch.zeros_like(o.x)
+    thr, rad = V3(ones, ones, ones), V3(zeros, zeros, zeros)
+    alive = torch.ones_like(o.x, dtype=torch.bool)
+    for b in range(depth):
+        o, d, thr, rad, alive = bounce(o, d, thr, rad, alive,
+                                       *bounce_uniforms(pid, sp, seed, b))
+    return finish_ambient(ss, thr, rad, alive)
+
+
+def build_render_fn(ss: StaticScene, cam, width: int, height: int,
+                    depth: int, chunk: int, tri_bvh=None, env_map=None,
+                    textures=None, staged: bool = False):
+    """`render(seed, sp0, n_spp)`: the linear film SUM ((W*H, 3)) of
+    samples [sp0, sp0 + n_spp), by the staged wavefront (`staged`; the
+    camera bounce peeled off as the coherent variant when there is a mesh
+    pipe) or the plain one (`acc_pt.py:102-161`).  `tri_bvh`: the mesh
+    tables (`mesh_cuda.MeshTables`) whose pool runs the mesh pipe;
+    `env_map`: an (He, We, 3) tensor; `textures`: (H, W, 3) tensors."""
+    t_min = scene_epsilon(ss)
+    if staged:
+        return build_staged_wavefront_fn(
+            cam, width, height, chunk,
+            make_bsdf_bounce(ss, t_min, tri_bvh, env_map, textures),
+            lambda thr, rad, alive: finish_ambient(ss, thr, rad, alive),
+            depth, peel_first=tri_bvh is not None)
+    return build_wavefront_fn(
+        cam, width, height, chunk,
+        lambda o, d, pid, sp, seed: trace_bsdf_wavefront(
+            ss, o, d, pid, sp, seed, depth, env_map=env_map,
+            tri_bvh=tri_bvh, t_min=t_min, textures=textures))
+
+
 @register_renderer("AccPathTracer", description=(
     "An accelerated path tracer.\n"
     "Multi-BSDF (Lambertian/conductor/glass/microfacet/plastic) path "
@@ -159,13 +262,11 @@ class AccPathTracerRenderer(RenderComponent):
         textures = arrays.textures if ss.tri_uv else None
         if accelerates(acc_type, n_tri):
             if use_env or n_tri > MEGAMESH_MAX_TRIS:
-                why = ("an env map" if use_env else
-                       f"more than {MEGAMESH_MAX_TRIS} triangles")
-                raise NotImplementedError(
-                    f"AccPathTracer: a mesh scene with {why} ({n_tri} "
-                    f"triangles) takes {HYBRID}, not ported yet")
-            img = self._render_megamesh(arrays, ss, cam, dev, timer, w, h,
-                                        spp, depth, textures)
+                img = self._render_hybrid(arrays, ss, cam, dev, timer, w, h,
+                                          spp, depth, env_map, textures)
+            else:
+                img = self._render_megamesh(arrays, ss, cam, dev, timer, w, h,
+                                            spp, depth, textures)
         else:
             img = self._render_megakernel(ss, cam, dev, timer, w, h, spp,
                                           depth, env_map, textures)
@@ -206,6 +307,64 @@ class AccPathTracerRenderer(RenderComponent):
                          timer.get("render-pass").total_s
                          if n_steps - start > 1 else
                          timer.get("first-pass").total_s)
+        return img
+
+    def _render_hybrid(self, arrays, ss, cam, dev, timer, w, h, spp, depth,
+                       env_map, textures):
+        """The hybrid route; returns the image, row 0 = top."""
+        with timer.phase("bvh-build"):
+            ma = build_mesh_accel(arrays, make_mat_channels(ss))
+            if textures and ma.bt.tex is None:
+                textures = None   # no per-face UVs made it into the pool
+            mesh = make_mesh_tables(ma.bt, dev)
+            env = (_device_textures((env_map,), dev)[0]
+                   if env_map is not None else None)
+            tex = _device_textures(textures, dev) if textures else None
+        chunk = pick_chunk(w, h, spp, budget_rays=HYBRID_BUDGET_RAYS[dev.type])
+        staged = depth >= STAGED_MIN_DEPTH
+        n_steps = spp // chunk
+        get_server().logger.log(
+            f"AccPathTracer: hybrid mesh route, "
+            f"{'staged' if staged else 'plain'} wavefront in chunks of "
+            f"{chunk} spp, standalone sweep over {len(ss.tri)} triangles "
+            f"({ma.bt.n_blocks} blocks of {ma.bt.block}) with the streaming "
+            f"compactor{', env map' if env is not None else ''}"
+            f"{', textures' if tex else ''}")
+        mesh_cuda.reset_route_counts()
+        _wavefront.reset_route_counts()
+        fn = build_render_fn(ss, cam, w, h, depth, chunk, tri_bvh=mesh,
+                             env_map=env, textures=tex, staged=staged)
+        if n_steps > 4 or (self.checkpoint_path and n_steps > 1):
+            from ..server.checkpoint import camera_key
+            img, start, n_run = progressive_loop(
+                self.checkpoint_path, self.seed, timer, w, h, spp, chunk,
+                lambda step: fn(self.seed, step * chunk, chunk),
+                (ss, camera_key(cam), w, h, spp, depth, self.seed, chunk,
+                 True, staged, float(cam.lens_radius) > 0.0,
+                 env is not None),
+                ((np.asarray(env_map),) if env is not None else ())
+                + tuple(textures or ()))
+            GLOBAL_TIMER.add("AccPathTracer.render",
+                             timer.get("render-pass").total_s
+                             if n_run - start > 1 else
+                             timer.get("first-pass").total_s)
+        else:
+            if self.checkpoint_path:
+                get_server().logger.warning(
+                    f"--checkpoint: render fits a single pass ({spp} spp, "
+                    f"chunk {chunk}); nothing to snapshot")
+            render_phase = f"render[{dev.type}]"
+            with timer.phase(render_phase):
+                film = fn(self.seed, 0, spp).cpu().numpy()
+            with timer.phase("host-post"):
+                img = np.sqrt(np.maximum(film / spp, 0.0)).reshape(h, w, 3)
+                img = np.clip(img[::-1], 0.0, 1.0)
+            GLOBAL_TIMER.add("AccPathTracer.render",
+                             timer.get(render_phase).total_s)
+        get_server().logger.log(
+            "hybrid route: " + ", ".join(
+                f"{k} {v}" for k, v in {**mesh_cuda.ROUTE_COUNTS,
+                                        **_wavefront.ROUTE_COUNTS}.items()))
         return img
 
     def _render_megakernel(self, ss, cam, dev, timer, w, h, spp, depth,

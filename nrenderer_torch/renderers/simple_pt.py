@@ -73,3 +73,15 @@ class SimplePathTracerRenderer(RenderComponent):
         get_server().logger.log("Done...")
         rgba = np.concatenate([img, np.ones((h, w, 1), np.float32)], axis=2)
         return RenderResult(pixels=rgba, width=w, height=h)
+
+
+def pick_chunk(width: int, height: int, spp: int,
+               budget_rays: int = 1 << 21) -> int:
+    """Largest spp-divisor chunk keeping the wavefront under ~budget rays
+    (`simple_pt.py:225-233`)."""
+    n_pix = max(1, width * height)
+    best = 1
+    for c in range(1, spp + 1):
+        if spp % c == 0 and n_pix * c <= budget_rays:
+            best = c
+    return best

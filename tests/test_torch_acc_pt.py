@@ -274,11 +274,12 @@ def _mesh_scene(n_tris: int, textured: bool):
 
 def test_refusals_name_the_roadmap_item():
     """Accelerated pools of more than MEGAMESH_MAX_TRIS = 1024 triangles and
-    accelerated pools under an env map take the JAX renderer's hybrid route
-    (ROADMAP A7) and raise; nothing falls back.  Textured faces, pools of
+    accelerated pools under an env map take the hybrid mesh route (they
+    were refused until it was ported) and render; textured faces, pools of
     65 to 1024 triangles (the megamesh route) and acc_type 2 on a small
     pool render; acc_type 0 keeps a 65-triangle pool on the dense kernel,
-    as in JAX."""
+    as in JAX.  The dense kernel itself still refuses a pool past its
+    limit, naming the mesh routes."""
     from nrenderer_torch.renderers.acc_pt import MEGAMESH_MAX_TRIS
     comp = AccPathTracerRenderer(device="cpu")
     px = comp.render(_mesh_scene(3, textured=True)).pixels
@@ -289,11 +290,11 @@ def test_refusals_name_the_roadmap_item():
     one.render_option.acc_type = 2     # accelerate any triangle pool
     assert np.isfinite(comp.render(one).pixels).all()
     huge = _mesh_scene(MEGAMESH_MAX_TRIS + 1, textured=False)
-    with pytest.raises(NotImplementedError, match="A7"):
-        comp.render(huge)
+    px = comp.render(huge).pixels
+    assert px.shape == (4, 4, 4) and np.isfinite(px).all()
     _attach_env(big)
-    with pytest.raises(NotImplementedError, match="A7"):
-        comp.render(big)
+    px = comp.render(big).pixels
+    assert px.shape == (4, 4, 4) and np.isfinite(px).all()
     big = _mesh_scene(65, textured=False)
     big.render_option.acc_type = 0
     px = comp.render(big).pixels
@@ -301,7 +302,7 @@ def test_refusals_name_the_roadmap_item():
     ss = make_static_scene(build_scene_arrays(_mesh_scene(3, True)))
     pt_cuda.check_supported(ss)   # textured faces: the texture form
     many = ss._replace(tri_uv=(), tri=ss.tri * 700)
-    with pytest.raises(NotImplementedError, match="A7"):
+    with pytest.raises(NotImplementedError, match="hybrid mesh route"):
         pt_cuda.check_supported(many)
 
 
@@ -322,20 +323,23 @@ def test_cli_errors_exit_2(tmp_path, args):
 
 def test_cli_refused_scene_exits_2(tmp_path):
     """65 triangles in a .scn under an env map: an accelerated pool with
-    an env map, the hybrid route's (exit 2); without the env map the
-    megamesh route renders it."""
+    an env map, the hybrid mesh route's (it exited 2 before that route was
+    ported); it renders, and without the env map the megamesh route
+    renders it."""
     scn = tmp_path / "mesh.scn"
     tris = "".join(
         f"Triangle T{i} White\nV1 {i} 0 500\nV2 {i + 1} 0 500\n"
         f"V3 {i} 1 500\nN 0 0 -1\n" for i in range(65))
     scn.write_text(GLASS.read_text().replace(
         "Model Tetrahedron", f"Model Fan\n{tris}\nModel Tetrahedron"))
+    out = tmp_path / "x.png"
     argv = ["render", "--scene", str(scn), "--renderer", "AccPathTracer",
             "--width", "4", "--height", "4", "--spp", "1", "--depth", "1",
-            "--device", "cpu", "--out", str(tmp_path / "x.png")]
-    assert cli.main(argv + ["--env-map", str(ENV_PNG)]) == 2
-    assert not (tmp_path / "x.png").exists()
-    assert cli.main(argv) == 0
+            "--device", "cpu", "--out", str(out)]
+    assert cli.main(argv + ["--env-map", str(ENV_PNG)]) == 0
+    assert out.exists() and np.isfinite(read_png(str(out))).all()
+    out.unlink()
+    assert cli.main(argv) == 0 and out.exists()
 
 
 def test_simple_pt_renders_env_scenes(tmp_path):

@@ -36,10 +36,12 @@ def test_module_render_cpu_writes_png(tmp_path):
 
 
 def test_no_jax_imported_after_render(tmp_path):
-    """Every module of the package, and renders through both renderers
-    with an env map, a mesh (`--obj`, the megamesh route) and textures,
-    leave no JAX module loaded; `chip_smoke.py` imports neither JAX nor
-    the JAX package."""
+    """Every module of the package (the hybrid route's
+    `ops/stream_compact`, `renderers/_wavefront` among them), and renders
+    through both renderers with an env map, a mesh (`--obj`: the megamesh
+    route, and the hybrid route staged and under an env map) and
+    textures, leave no JAX module loaded; `chip_smoke.py` imports neither
+    JAX nor the JAX package."""
     env = ["--env-map", str(REPO / "resource" / "env_sky.png")]
     res = REPO / "resource"
     tiny = ["--width", "8", "--height", "8", "--spp", "2", "--depth", "2",
@@ -50,6 +52,11 @@ def test_no_jax_imported_after_render(tmp_path):
     tex = ["render", "--scene", str(res / "tex_grid.scn"), "--obj",
            str(res / "obj" / "tex_grid.obj"), "--renderer", "AccPathTracer",
            *tiny, "--out", str(tmp_path / "t.png")]
+    hybrid = ["render", "--scene", str(res / "mesh_box.scn"), "--obj",
+              str(res / "obj" / "ico_5120.obj"), "--renderer",
+              "AccPathTracer", *tiny[:-4], "--depth", "13", "--device",
+              "cpu", "--out", str(tmp_path / "h.png")]
+    env_mesh = mesh[:-1] + [str(tmp_path / "em.png")] + env
     acc = ["render", "--scene", str(REPO / "resource" / "pt_glass_box.scn"),
            "--renderer", "AccPathTracer", "--width", "8", "--height", "8",
            "--spp", "2", "--depth", "2", "--device", "cpu", "--out",
@@ -58,7 +65,8 @@ def test_no_jax_imported_after_render(tmp_path):
               str(tmp_path / "x.png")],
              ["render", *SMALL, *env, "--device", "cpu", "--out",
               str(tmp_path / "e.png")],
-             acc, acc[:-1] + [str(tmp_path / "b.png")] + env, mesh, tex]
+             acc, acc[:-1] + [str(tmp_path / "b.png")] + env, mesh, tex,
+             hybrid, env_mesh]
     code = (
         "import pkgutil, sys\n"
         "import nrenderer_torch\n"
@@ -66,6 +74,8 @@ def test_no_jax_imported_after_render(tmp_path):
         "'nrenderer_torch.'):\n"
         "    if not m.name.endswith('__main__'):\n"
         "        __import__(m.name)\n"
+        "assert {'nrenderer_torch.ops.stream_compact', "
+        "'nrenderer_torch.renderers._wavefront'} <= set(sys.modules)\n"
         "import chip_smoke\n"
         "from nrenderer_torch.cli import main\n"
         f"for argv in {argvs!r}:\n"

@@ -287,8 +287,10 @@ def test_cli_obj_renders_the_mesh_route(tmp_path, capsys):
 
 @pytest.mark.parametrize("case", ["over_1024", "env_map"])
 def test_hybrid_scenes_exit_2_naming_the_slice(tmp_path, capsys, case):
-    """More than 1024 triangles, or a mesh under an env map: the JAX
-    package's hybrid route, not ported; the CLI exits 2 and says so."""
+    """More than 1024 triangles, or a mesh under an env map: the hybrid
+    mesh route (these scenes exited 2 before it was ported); the CLI
+    renders them, exits 0, writes the PNG and logs the route."""
+    from nrenderer_torch.server.registry import get_server
     args = ["--scene", str(RES / "mesh_box.scn"), "--renderer",
             "AccPathTracer"]
     if case == "over_1024":
@@ -296,10 +298,15 @@ def test_hybrid_scenes_exit_2_naming_the_slice(tmp_path, capsys, case):
     else:
         args += ["--obj", str(OBJ / "blob_960.obj"), "--env-map",
                  str(RES / "env_sky.png")]
+    get_server().logger.clear()
     rc, out = _cli(tmp_path, *args)
-    assert rc == 2 and not out.exists()
-    err = capsys.readouterr().err
-    assert "hybrid mesh route" in err and "A7" in err
+    assert rc == 0 and out.exists()
+    img = read_png(str(out))
+    assert img.shape == (12, 16, 3) and np.isfinite(img).all()
+    assert 0.02 < img.mean() < 0.95
+    log = " | ".join(m.content for m in get_server().logger.get())
+    assert "hybrid mesh route" in log
+    assert ("env map" in log) == (case == "env_map")
 
 
 def test_cli_bad_obj_exits_2(tmp_path, capsys):
@@ -322,7 +329,7 @@ def test_textures_dropped_for_a_pool_without_uvs():
     b = pt_cuda.render_bsdf_pt(ss, cam, 6, 6, 1, 2, mesh_accel=ma,
                                device="cpu")
     assert torch.equal(a, b)
-    with pytest.raises(NotImplementedError, match="hybrid"):
+    with pytest.raises(NotImplementedError, match="hybrid mesh route"):
         pt_cuda.render_bsdf_pt(ss, cam, 6, 6, 1, 2, mesh_accel=ma,
                                env_map=np.ones((4, 8, 3), np.float32),
                                device="cpu")

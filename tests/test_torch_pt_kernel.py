@@ -233,11 +233,12 @@ def test_pack_scene_layout(port_scene):
 
 
 def test_unported_forms_refuse(port_scene):
-    """What the port still refuses: dense triangle pools past the dense
-    kernel's limit and env-map mesh scenes (the hybrid mesh route, A7), and
-    the mesh form of the diffuse estimator (no JAX renderer sends a mesh
-    there).  The env-map and texture forms are ported, so an env-map
-    ambient and textured faces render."""
+    """What the kernel refuses: dense triangle pools past the dense
+    kernel's limit and env-map mesh scenes (AccPathTracer's mesh routes take
+    them: the hybrid mesh route), and the mesh form of the diffuse
+    estimator (no JAX renderer sends a mesh there).  The env-map and
+    texture forms exist, so an env-map ambient and textured faces
+    render."""
     ss, cam = _cpu_setup(port_scene)
     uv = ((0.0, 0.0, 1.0, 0.0, 0.0, 1.0, 0, -1),) * len(ss.tri)
     tex = (np.full((2, 2, 3), 0.5, np.float32),)
@@ -245,10 +246,10 @@ def test_unported_forms_refuse(port_scene):
                                    textures=tex, device="cpu")
     assert torch.isfinite(img).all()
     many = ss._replace(tri=ss.tri * (pt_cuda.MAX_TRIS // len(ss.tri) + 1))
-    with pytest.raises(NotImplementedError, match="A7"):
+    with pytest.raises(NotImplementedError, match="hybrid mesh route"):
         pt_cuda.render_simple_pt(many, cam, 4, 4, 1, 1, device="cpu")
     for bsdf, env in ((True, True), (False, False)):
-        with pytest.raises(NotImplementedError, match="A7"):
+        with pytest.raises(NotImplementedError, match="hybrid mesh route"):
             pt_cuda.kernel_name(bsdf, env, mesh=True)
     env = np.ones((4, 8, 3), np.float32)
     img = pt_cuda.render_simple_pt(ss._replace(ambient_type=1), cam, 4, 4, 1,

@@ -3,6 +3,7 @@
 
     git archive <parent> | tar -x -C build/parent     # a second checkout
     python3 tools/torch_ab.py build/parent              # from the repo root
+    python3 tools/torch_ab.py --hybrid build/parent     # the hybrid paths
 
 Runs the two checkouts in turns (parent, change, change, parent), each in a
 fresh process that builds its own kernel library and then renders, through
@@ -16,8 +17,11 @@ renderer's timer.  Then it times each path's kernel form alone: one
 `pt_accumulate` call of 256 spp at 512x512 at the path's depth (eight
 launches of 32 spp, so the wrapper's host work is a small share even for
 the short env launches), five calls between CUDA events, in ms per 32-spp
-launch.  Prints one line per run and a final `AB` JSON line.  Imports
-nothing of JAX."""
+launch.  With `--hybrid` it renders instead the two hybrid-route paths of
+phases 14-15 (`ico_5120.obj` on `mesh_box.scn`, 500x500, 256 spp, depth
+20; `blob_960.obj` under `env_sky.png`, 512x512, 256 spp, depth 8) the
+same way, then runs phase 16's breakdown of one hybrid chunk.  Prints one
+line per run and a final `AB` JSON line.  Imports nothing of JAX."""
 from __future__ import annotations
 
 import json
@@ -25,20 +29,21 @@ import os
 import subprocess
 import sys
 
-CODE = r'''
+COMMON = r'''
 import json, os, time, torch, chip_smoke as c
 from nrenderer_torch import cli
 from nrenderer_torch.utils.timing import GLOBAL_TIMER
 c.phase_build()
-paths = (("main", c.SCENE, "SimplePathTracer", 2048, 20, False),
-         ("acc", c.GLASS_SCENE, "AccPathTracer", 2048, 20, False),
-         ("env_acc", c.ENV_SCENE, "AccPathTracer", 1024, 8, True),
-         ("env_simple", c.ENV_SCENE, "SimplePathTracer", 1024, 8, True))
 out = {}
-for label, scene, renderer, spp, depth, env in paths:
+
+
+def renders(label, scene, renderer, size, spp, depth, env, objs=()):
+    """A warm-up render, then three whose render phases and CLI walls are
+    kept under `label`."""
     png = os.path.join(c.ROOT, "build", f"ab_{label}.png")
     os.makedirs(os.path.dirname(png), exist_ok=True)
-    argv = c._cli_argv(scene, renderer, 512, 512, spp, depth, png, env=env)
+    argv = c._cli_argv(scene, renderer, size, size, spp, depth, png,
+                       env=env, objs=objs)
     assert cli.main(argv) == 0
     phases, walls = [], []
     for _ in range(3):
@@ -49,6 +54,24 @@ for label, scene, renderer, spp, depth, env in paths:
         walls.append(time.perf_counter() - t0)
         phases.append(GLOBAL_TIMER.get(f"{renderer}.render").total_s - g0)
     out[label] = {"render_phase_s": phases, "cli_s": walls}
+'''
+
+HYBRID = COMMON + r'''
+renders("hybrid", c.MESH_SCENE, "AccPathTracer", 500, 256, 20, False,
+        (c.ICO,))
+renders("env_mesh", c.MESH_SCENE, "AccPathTracer", 512, 256, 8, True,
+        (c.BLOB,))
+out["chunk"] = c.phase_breakdown()
+print("RESULT", json.dumps(out))
+'''
+
+CODE = COMMON + r'''
+paths = (("main", c.SCENE, "SimplePathTracer", 2048, 20, False),
+         ("acc", c.GLASS_SCENE, "AccPathTracer", 2048, 20, False),
+         ("env_acc", c.ENV_SCENE, "AccPathTracer", 1024, 8, True),
+         ("env_simple", c.ENV_SCENE, "SimplePathTracer", 1024, 8, True))
+for label, scene, renderer, spp, depth, env in paths:
+    renders(label, scene, renderer, 512, spp, depth, env)
 from nrenderer_torch.ops import pt_cuda
 from nrenderer_torch.ops.pt_core import scene_epsilon
 for label, scene, renderer, spp, depth, env in paths:
@@ -66,6 +89,8 @@ print("RESULT", json.dumps(out))
 
 
 def main(argv) -> int:
+    hybrid = argv[1:2] == ["--hybrid"]
+    argv = argv[:1] + argv[1 + hybrid:]
     if len(argv) != 2 or not os.path.isfile(
             os.path.join(argv[1], "chip_smoke.py")):
         print(__doc__, file=sys.stderr)
@@ -74,7 +99,8 @@ def main(argv) -> int:
     runs = []
     for who in ("parent", "change", "change", "parent"):
         cwd = argv[1] if who == "parent" else change
-        p = subprocess.run([sys.executable, "-c", CODE], cwd=cwd,
+        p = subprocess.run([sys.executable, "-c",
+                            HYBRID if hybrid else CODE], cwd=cwd,
                            capture_output=True, text=True, timeout=900)
         line = [l for l in p.stdout.splitlines() if l.startswith("RESULT ")]
         if p.returncode or not line:
