@@ -67,11 +67,29 @@ exits non-zero without a result line:
      cut to 256 to fit the script's time; unstaged), checked as phase 14;
  16. where one chunk of the hybrid path's time goes (64 spp of 500x500):
      bounce math, top-AABB test, pack, sort, sweep, unpack, stage packs
-     and banking, each timed between device synchronisations.
+     and banking, each timed between device synchronisations;
+ 17. `mesh_sweep_mxu_kernel` (the MXU sweep, B4) against its plain version
+     on phase 9's 2^20 rays at `ico_5120.obj`, every output bit for bit,
+     with its flip and same-triangle shares against B2 on the same rays
+     and each ray where the two engines part printed beside a float64
+     intersection (their count barred);
+ 18. the hybrid path of phase 14 under NR_MESH_MXU=1: every sweep on B4,
+     the image within bars of phase 14's; then B4 against its plain
+     version, bit for bit, on phase 13's sorted live prefix;
+ 19. MetropolisLightTransport on `cornell_box.scn` through `cli.main`:
+     512x512, 1024 chains x 256 mutations, depth 20 (dense primitives, no
+     kernel of its own);
+ 20. MLT on `mesh_box.scn` + `blob_960.obj` at 128x128, 1024 x 256, depth
+     8, on B2 and under NR_MESH_MXU=1 on B4 (each engine's launches
+     counted, the other's 0; each engine's kernel against its plain
+     version, bit for bit, on one path batch and one shadow batch that the
+     run swept): the two images' linear means within 5% and
+     their 8x8-block correlation >= 0.9, and the ratio of their linear
+     radiance to AccPathTracer's on the same scene.
 
-Each of phases 5-7, 10, 11, 14 and 15 sets every launch count to 0 just
-before its run and reads the counts just after; a kernel its path runs
-must have launched.  The last two lines are the kernels' JSON record and
+Each of phases 5-7, 10, 11, 14, 15 and 18-20 sets every launch count to 0
+just before its run and reads the counts just after; a kernel its path
+runs must have launched.  The last two lines are the kernels' JSON record and
 `{"ok": true, "device": {...}}`.  Imports nothing of JAX.
 """
 from __future__ import annotations
@@ -133,6 +151,28 @@ MESH_MEAN_BAND = (0.28, 0.55)
 ICO_MEAN_BAND = (0.22, 0.5)
 HYBRID_KERNELS = ["mesh_sweep_kernel", "stream_pack_kernel",
                   "stream_unpack_kernel"]
+HYBRID_MXU_KERNELS = ["mesh_sweep_mxu_kernel", "stream_pack_kernel",
+                      "stream_unpack_kernel"]
+# MLT (plain versions on the CPU, seed 0): cornell_box.scn near 0.47 (its
+# light 0.78; 64x64, 1024 chains x 32 mutations, depth 20), mesh_box.scn +
+# blob_960.obj near 0.47 (the blob 0.45, the floor in its shadow 0.35;
+# 64x64, 1024 x 32, depth 8)
+MLT_MEAN_BAND = (0.3, 0.65)
+MLT_MESH_MEAN_BAND = (0.3, 0.65)
+# B4 against B2 on phase 17's 2^20 rays: rays that hit on one side only
+# or whose t differs by more than 1e-3 relative.  Two float formulas
+# decide a ray that crosses the edge shared by two triangles differently
+# (one can reject both and pass through to the surface behind); each such
+# ray is printed with a float64 intersection beside it.  Measured: 3 such
+# rays on an H100 (this phase); the bar is ~5x that.
+EDGE_RAYS_MAX = 16
+# B4's image against B2's on the hybrid path: a path whose ray crosses an
+# edge can flip, and a 500x500, 256 spp, depth 20 render traces ~5000
+# ray-bounces a pixel.  Read on an H100 in three runs (the path is
+# deterministic): mean |d| 3.77e-5 and 0.98997 of pixels within 1e-4; the
+# bars are ~4x the mean and a share 1 point under the reading.
+ENGINE_WITHIN_SHARE_MIN = 0.98
+ENGINE_MEAN_ABS_MAX = 1.5e-4
 ENV_MESH_MEAN_BAND = (0.35, 0.65)
 GRID_MEAN_BAND = (0.1, 0.3)
 PLAIN_GRID_MEAN_BAND = (0.2, 0.4)
@@ -155,6 +195,9 @@ FLOPS_ENV_LOOKUP = 45
 # the blocked sweep (csrc/mesh_sweep.cuh): one block slab test, one
 # triangle test of an entered block
 FLOPS_SLAB, FLOPS_MESH_TRI = 26, 53
+# the MXU sweep (csrc/mesh_sweep_mxu.cu): one triangle test of an entered
+# block (four 10-term forms, 72, and the sign fold and accept tests, 18)
+FLOPS_MXU_TRI = 90
 
 
 def gpu_name_power() -> str:
@@ -375,26 +418,29 @@ def _cli_argv(scene, renderer, width, height, spp, depth, out, env=False,
 
 
 def phase_cli(phase, label, argv, kernels, width, height, spp, depth,
-              band, check) -> dict:
-    """One path through `cli.main`: a warm-up run, then a timed run with
-    every launch count set to 0 just before it and read just after."""
+              band, check, warm_argv=None) -> dict:
+    """One path through `cli.main`: a warm-up run (`warm_argv`, or the same
+    argv), then a timed run with every launch count set to 0 just before
+    it and read just after."""
     print(f"== phase {phase}: {label}, cli render {width}x{height}, "
           f"{spp} spp, depth {depth}")
     from nrenderer_torch import cli
-    from nrenderer_torch.ops import mesh_cuda, pt_cuda, stream_compact
+    from nrenderer_torch.ops import mesh_cuda, mesh_mxu, pt_cuda, \
+        stream_compact
     from nrenderer_torch.renderers import _wavefront
     from nrenderer_torch.server.registry import get_server
     from nrenderer_torch.utils.timing import GLOBAL_TIMER
     out = argv[argv.index("--out") + 1]
     os.makedirs(os.path.dirname(out), exist_ok=True)
     t0 = time.perf_counter()
-    if cli.main(argv) != 0:
+    if cli.main(warm_argv or argv) != 0:
         raise AssertionError(f"{label}: warm-up render failed")
     torch.cuda.synchronize()
     warm_s = time.perf_counter() - t0
 
     pt_cuda.reset_launch_counts()
     mesh_cuda.reset_launch_counts()
+    mesh_mxu.reset_launch_counts()
     stream_compact.reset_launch_counts()
     mesh_cuda.reset_route_counts()
     _wavefront.reset_route_counts()
@@ -407,8 +453,9 @@ def phase_cli(phase, label, argv, kernels, width, height, spp, depth,
     secs = time.perf_counter() - t0
     render_s = GLOBAL_TIMER.get(timer).total_s - render0
     launches = {**pt_cuda.KERNEL_LAUNCHES, **mesh_cuda.KERNEL_LAUNCHES,
-                **stream_compact.KERNEL_LAUNCHES}
-    routes = {**mesh_cuda.ROUTE_COUNTS, **_wavefront.ROUTE_COUNTS}
+                **mesh_mxu.KERNEL_LAUNCHES, **stream_compact.KERNEL_LAUNCHES}
+    routes = {**mesh_cuda.ROUTE_COUNTS, **mesh_cuda.ENGINE_COUNTS,
+              **_wavefront.ROUTE_COUNTS}
     peak = torch.cuda.max_memory_allocated()
     if rc != 0:
         raise AssertionError(f"{label}: timed render failed")
@@ -844,14 +891,15 @@ class _Captured(Exception):
 
 
 def phase_pipe_main_shape(width=500, height=500, chunk=64, depth=20,
-                          sub=1 << 16) -> dict:
+                          sub=1 << 16) -> tuple:
     """One sorted mesh-pipe bounce of a chunk of the hybrid path, at its
     own shape (the second bounce of 64 spp of 500x500: 16 Mi lanes, a cap
     of 4 Mi rays): the pack and the unpack on the kernels and on the plain
     versions, bit for bit, the unpack's result channels as long as the
     live prefix (shorter than the cap, as on every compacted bounce), and
     the sweep against its plain version on the first `sub` rays of the
-    sorted prefix."""
+    sorted prefix.  Returns the stats and (tables, t_min, the sorted
+    prefix) for phase 18."""
     from nrenderer_torch.ops import mesh_cuda, stream_compact as sc
     from nrenderer_torch.ops.pt_core import scene_epsilon
     from nrenderer_torch.ops.soa import V3
@@ -914,7 +962,7 @@ def phase_pipe_main_shape(width=500, height=500, chunk=64, depth=20,
     if pack_err or unpack_err or t_diff or untied or not st["hits"]:
         raise AssertionError(f"mesh pipe at the path's shape disagrees "
                              f"with its plain versions: {st}")
-    return st
+    return st, (mt, t_min, rays)
 
 
 def phase_hybrid_path(width=500, height=500, spp=256, depth=20) -> dict:
@@ -985,7 +1033,356 @@ def phase_breakdown(width=500, height=500, chunk=64, depth=20) -> dict:
     return st
 
 
+@contextlib.contextmanager
+def _mxu_switch(on: bool):
+    """NR_MESH_MXU set to 1 (or removed) for the duration."""
+    old = os.environ.get("NR_MESH_MXU")
+    if on:
+        os.environ["NR_MESH_MXU"] = "1"
+    else:
+        os.environ.pop("NR_MESH_MXU", None)
+    try:
+        yield
+    finally:
+        if old is None:
+            os.environ.pop("NR_MESH_MXU", None)
+        else:
+            os.environ["NR_MESH_MXU"] = old
+
+
+def _ptxas(kernel: str) -> str:
+    """The ptxas register and spill lines of one kernel from the build
+    log (empty when the library was not rebuilt in this run)."""
+    from nrenderer_torch import _build
+    if not _build.LOG_PATH.exists():
+        return ""
+    lines = _build.LOG_PATH.read_text().splitlines()
+    for i, line in enumerate(lines):
+        if "Compiling entry function" in line and kernel in line:
+            return " / ".join(ln.strip() for ln in lines[i + 1:i + 4]
+                              if "registers" in ln or "spill" in ln)
+    return ""
+
+
+def phase_mxu_sweep(n_rays=1 << 20, seed=0) -> dict:
+    """`mesh_sweep_mxu_kernel` against its plain version on phase 9's rays
+    (ico_5120.obj, a tenth of them dead), every output bit for bit, and
+    against B2's kernel on the same rays: the share of rays that hit on
+    one side only, and of rays both hit on the same triangle."""
+    from nrenderer_torch.ops import mesh_mxu
+    from nrenderer_torch.ops.bvh import build_mesh_accel
+    from nrenderer_torch.ops.mesh_cuda import (
+        make_mesh_tables, sweep_mesh_full)
+    from nrenderer_torch.ops.pt_core import make_mat_channels, scene_epsilon
+    from nrenderer_torch.ops.soa import V3
+    ss, _, _, arrays = _setup("cuda", MESH_SCENE, objs=(ICO,))
+    bt = build_mesh_accel(arrays, make_mat_channels(ss)).bt
+    mt = make_mesh_tables(bt, "cuda")
+    t_min = scene_epsilon(ss)
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    u = lambda lo, hi: lo + (hi - lo) * torch.rand(
+        n_rays, generator=g, device="cuda")
+    o = V3(u(-270.0, 270.0), u(-270.0, 270.0), u(760.0, 1300.0))
+    tgt = V3(u(-150.0, 150.0), u(-278.0, -7.0), u(850.0, 1150.0))
+    dv = torch.stack([tgt.x - o.x, tgt.y - o.y, tgt.z - o.z])
+    dv = dv / torch.linalg.vector_norm(dv, dim=0)
+    d = V3(dv[0].contiguous(), dv[1].contiguous(), dv[2].contiguous())
+    cap = torch.where(torch.rand(n_rays, generator=g, device="cuda") < 0.1,
+                      0.0, float("inf"))
+    name = mesh_mxu.KERNEL_NAME
+    print(f"== phase 17: {name} vs plain, ico_5120.obj ({bt.n_blocks} "
+          f"blocks of {bt.block}), {n_rays} rays")
+    work = {}
+    with _mxu_switch(True):
+        before = mesh_mxu.KERNEL_LAUNCHES[name]
+        got = sweep_mesh_full(mt, o, d, t_min, t_cap=cap)
+        if mesh_mxu.KERNEL_LAUNCHES[name] != before + 1:
+            raise AssertionError(f"{name} did not launch")
+        kernel_ms = _time_ms(lambda: sweep_mesh_full(mt, o, d, t_min,
+                                                     t_cap=cap), 5)
+    raw = mesh_mxu.sweep_mxu_plain(mt, o, d, t_min, cap, stats=work)
+    plain_ms = _time_ms(lambda: mesh_mxu.sweep_mxu_plain(mt, o, d, t_min,
+                                                         cap), 1)
+    with _mxu_switch(False):
+        b2 = sweep_mesh_full(mt, o, d, t_min, t_cap=cap)
+    torch.cuda.synchronize()
+    want = [torch.where(raw[1] >= 0, raw[0], float("inf")),
+            raw[1].to(torch.int32)] + list(raw[2:])
+    differ = [int((a != b).sum()) for a, b in zip(got, want)]
+    hit, hit2 = got[1] >= 0, b2[1] >= 0
+    both = hit & hit2
+    flops = (work["slab_tests"] * FLOPS_SLAB
+             + work["tri_tests"] * FLOPS_MXU_TRI)
+    n_bytes = n_rays * 4 * (7 + 6) + _table_bytes(mt.tris, mt.coef, mt.bb)
+    b_ms, b_by = _bound(flops, n_bytes)
+    rel = torch.zeros_like(got[0])
+    rel[both] = (got[0][both] - b2[0][both]).abs() / b2[0][both].abs()
+    edge = torch.nonzero((hit != hit2) | (rel > 1e-3)).flatten()
+    report = _edge_report(mt, o, d, t_min, got, b2, edge[:32])
+    st = {"kernel": name, "rays": n_rays, "hits": int(hit.sum()),
+          "outputs_differ": differ,
+          "max_abs_err": float((got[0][hit] - want[0][hit]).abs().max()),
+          "vs_b2_flip_share": float((hit != hit2).float().mean()),
+          "vs_b2_same_triangle_share": float(
+              (got[1][both] == b2[1][both]).float().mean()),
+          "vs_b2_t_rel_max": float(rel.max()),
+          "vs_b2_edge_rays": int(edge.numel()),
+          "edge_rays_right": {k: sum(r["right"] == k for r in report)
+                              for k in ("b4", "b2", "both", "neither")},
+          "kernel_ms": kernel_ms, "plain_ms": plain_ms,
+          "bound_ms": b_ms, "bound_by": b_by,
+          "slab_tests": work["slab_tests"], "tri_tests": work["tri_tests"],
+          "ptxas": _ptxas(name)}
+    print(json.dumps(st))
+    for r in report:
+        print("  edge ray:", json.dumps(r))
+    if any(differ) or st["hits"] < n_rays // 10:
+        raise AssertionError(f"{name} disagrees with its plain version: "
+                             f"{st}")
+    if st["vs_b2_flip_share"] > 0.002 or \
+            st["vs_b2_same_triangle_share"] < 0.998 or \
+            st["vs_b2_edge_rays"] > EDGE_RAYS_MAX:
+        raise AssertionError(f"{name} against B2 past the bars: {st}")
+    return st
+
+
+def _edge_report(mt, o, d, t_min, b4, b2, rays) -> list:
+    """The rays `rays` with both engines' (t, pid) and a float64
+    intersection with every real triangle of the pool (the float32 table's
+    vertices): its t, pid and the winner's least barycentric coordinate
+    (its distance inside the nearest edge).  An engine is right where its
+    t is within 1e-4 relative (plus 1e-4) of the float64 t."""
+    if rays.numel() == 0:
+        return []
+    tri = mt.tris.to(torch.float64)
+    tri = tri[tri[:, 13] >= 0]
+    v1, e1, e2 = tri[None, :, 0:3], tri[None, :, 3:6], tri[None, :, 6:9]
+    og = torch.stack([o.x[rays], o.y[rays], o.z[rays]], dim=1)
+    dg = torch.stack([d.x[rays], d.y[rays], d.z[rays]], dim=1)
+    o64, d64 = og.to(torch.float64)[:, None], dg.to(torch.float64)[:, None]
+    p = torch.linalg.cross(d64.expand(-1, tri.shape[0], -1),
+                           e2.expand(rays.numel(), -1, -1))
+    det = (e1 * p).sum(-1)
+    tv = o64 - v1
+    q = torch.linalg.cross(tv, e1.expand_as(tv))
+    u = (tv * p).sum(-1) / det
+    v = (d64 * q).sum(-1) / det
+    t = (e2 * q).sum(-1) / det
+    margin = torch.minimum(torch.minimum(u, v), 1.0 - u - v)
+    t_in = torch.where((margin >= 0) & (t >= t_min), t, float("inf"))
+    j = torch.argmin(t_in, dim=1)
+    t_ref = t_in.gather(1, j[:, None])[:, 0]
+    close = lambda te: (te == t_ref) | (
+        (te - t_ref).abs() <= 1e-4 * t_ref.abs() + 1e-4)
+    ok4, ok2 = close(b4[0][rays].double()), close(b2[0][rays].double())
+    right = {(True, True): "both", (True, False): "b4",
+             (False, True): "b2", (False, False): "neither"}
+    out = []
+    for k, i in enumerate(rays.tolist()):
+        out.append({"ray": i, "o": og[k].tolist(), "d": dg[k].tolist(),
+                    "b4": [float(b4[0][i]), int(b4[1][i])],
+                    "b2": [float(b2[0][i]), int(b2[1][i])],
+                    "f64": [float(t_ref[k]), int(tri[j[k], 13]),
+                            float(margin[k, j[k]])],
+                    "right": right[(bool(ok4[k]), bool(ok2[k]))]})
+    return out
+
+
+def _engine_vs_plain(mt, rays, t_min, f2b, mxu, label) -> dict:
+    """One sweep engine's kernel (B4 with `mxu`, else B2) against its plain
+    version on the (7, n) rays `rays` (o, d, cap) on the card: every output
+    bit for bit (t as `sweep_mesh_full` returns it, +inf on a miss)."""
+    from nrenderer_torch.ops import mesh_cuda, mesh_mxu
+    from nrenderer_torch.ops.soa import V3
+    o, d, cap = V3(rays[0], rays[1], rays[2]), V3(rays[3], rays[4],
+                                                   rays[5]), rays[6]
+    if mxu:
+        got = mesh_mxu.sweep_mxu(mt, o, d, t_min, cap)
+        raw = mesh_mxu.sweep_mxu_plain(mt, o, d, t_min, cap)
+    else:
+        got = mesh_cuda._sweep_cuda(mt, o, d, t_min, cap, f2b, False)
+        raw = mesh_cuda.sweep_mesh_plain(mt, o, d, t_min, cap, f2b=f2b)
+    torch.cuda.synchronize()
+    norm = lambda out: [torch.where(out[1] >= 0, out[0], float("inf")),
+                        out[1]] + list(out[2:6])
+    differ = [int((a != b).sum()) for a, b in zip(norm(got), norm(raw))]
+    st = {"check": label, "kernel": (mesh_mxu if mxu else mesh_cuda
+                                     ).KERNEL_NAME,
+          "rays": int(rays.shape[1]), "live": int((cap > t_min).sum()),
+          "hits": int((got[1] >= 0).sum()), "outputs_differ": differ}
+    print(json.dumps(st))
+    if any(differ) or not st["hits"]:
+        raise AssertionError(f"{label}: kernel vs plain version: {st}")
+    return st
+
+
+def _image_bars(a, b, label, share_min, mean_max=MEAN_ABS_MAX) -> dict:
+    """A bar on the mean |d| (phase 4's by default) and a share of pixels
+    within 1e-4 on two gamma'd (H, W, 3) images."""
+    d = np.abs(a - b)
+    st = {"max_abs_err": float(d.max()), "mean_abs_err": float(d.mean()),
+          "share_within_1e-4": float((d.max(axis=-1) <= WITHIN).mean())}
+    print(f"{label}: {json.dumps(st)}")
+    if st["mean_abs_err"] > mean_max or \
+            st["share_within_1e-4"] < share_min:
+        raise AssertionError(f"{label} past the bars: {st}")
+    return st
+
+
+def phase_hybrid_mxu_path(b2_pixels, prefix, width=500, height=500,
+                          spp=256, depth=20) -> dict:
+    """Phase 18: the hybrid path under NR_MESH_MXU=1 through `cli.main`,
+    its image against phase 14's (B2), then B4 against its plain version
+    on phase 13's sorted live prefix of the same path's chunk."""
+    out = os.path.join(ROOT, "build", "smoke_ico_mxu.png")
+    argv = _cli_argv(MESH_SCENE, "AccPathTracer", width, height, spp, depth,
+                     out, objs=(ICO,))
+    from nrenderer_torch.server.registry import get_server
+    with _mxu_switch(True):
+        st = phase_cli(18, "hybrid path under NR_MESH_MXU=1 (AccPathTracer, "
+                       "ico_5120)", argv, HYBRID_MXU_KERNELS, width, height,
+                       spp, depth, ICO_MEAN_BAND, _blob_lit)
+    if st["launches"]["mesh_sweep_kernel"] != 0:
+        raise AssertionError("the hybrid path under NR_MESH_MXU=1 swept "
+                             "on B2")
+    st["vs_b2_image"] = _image_bars(
+        get_server().screen.get_pixels()[:, :, :3], b2_pixels,
+        "hybrid path, B4 image vs B2 image", ENGINE_WITHIN_SHARE_MIN,
+        ENGINE_MEAN_ABS_MAX)
+    mt, t_min, rays = prefix
+    st["prefix_vs_plain"] = _engine_vs_plain(
+        mt, rays, t_min, True, True,
+        "phase 18: B4 on the hybrid chunk's sorted live prefix")
+    return st
+
+
+def _mlt_argv(scene, width, height, depth, chains, mutations, out,
+              objs=()):
+    argv = ["render", "--scene", scene, "--renderer",
+            "MetropolisLightTransport", "--width", str(width), "--height",
+            str(height), "--depth", str(depth), "--chains", str(chains),
+            "--mutations", str(mutations), "--device", "cuda", "--out", out]
+    for obj in objs:
+        argv += ["--obj", obj]
+    return argv
+
+
+def _mlt_stats(st, chains, mutations) -> dict:
+    st["kmutations_per_s"] = chains * mutations / st["render_seconds"] / 1e3
+    print(f"{st['path']}: render {st['render_seconds']:.3f} s, "
+          f"{st['kmutations_per_s']:.1f} Kmut/s")
+    return st
+
+
+def _linear(px):
+    """MLT's tone map pow(1 - exp(-x s), 1/2.2) undone (up to s)."""
+    return -np.log1p(-np.clip(px.astype(np.float64), 0.0, 0.999999) ** 2.2)
+
+
+def _blocks8(px):
+    h, w = px.shape[:2]
+    return px.reshape(h // 8, 8, w // 8, 8, 3).mean(axis=(1, 3)).reshape(-1)
+
+
+def phase_mlt_cornell(width=512, height=512, chains=1024, mutations=256,
+                      depth=20) -> dict:
+    out = os.path.join(ROOT, "build", "smoke_mlt.png")
+    argv = _mlt_argv(SCENE, width, height, depth, chains, mutations, out)
+    warm = _mlt_argv(SCENE, 64, 64, depth, chains, 2, out)
+    st = phase_cli(19, f"MLT (cornell_box), {chains} chains x {mutations} "
+                   f"mutations", argv, [], width, height, 1, depth,
+                   MLT_MEAN_BAND, _light_brighter, warm_argv=warm)
+    return _mlt_stats(st, chains, mutations)
+
+
+@contextlib.contextmanager
+def _held_sweeps(chains: int, held: dict):
+    """Hold a copy of the inputs of the first sweep of each of MLT's
+    batch shapes, the 2-chains-lane path batch ("bounce") and the others
+    (the connection shadow rays), as `sweep_mesh_full` receives them."""
+    from nrenderer_torch.ops import mesh_cuda
+    sweep = mesh_cuda.sweep_mesh_full
+
+    def hold(mt, o, d, t_min, t_cap=None, n_valid=None, f2b=False,
+             with_uv=False):
+        kind = "bounce" if o.x.shape[0] == 2 * chains else "shadow"
+        if kind not in held and t_cap is not None and n_valid is None \
+                and not with_uv:
+            held[kind] = (mt, torch.stack([o.x, o.y, o.z, d.x, d.y, d.z,
+                                           t_cap.to(torch.float32)]),
+                          t_min, f2b)
+        return sweep(mt, o, d, t_min, t_cap=t_cap, n_valid=n_valid,
+                     f2b=f2b, with_uv=with_uv)
+
+    mesh_cuda.sweep_mesh_full = hold
+    try:
+        yield held
+    finally:
+        mesh_cuda.sweep_mesh_full = sweep
+
+
+def phase_mlt_mesh(width=128, height=128, chains=1024, mutations=256,
+                   depth=8) -> tuple:
+    """Phase 20: MLT's mesh scene on each sweep engine, each engine's
+    kernel against its plain version on one of the run's path batches and
+    one of its shadow batches, the two images held to each other, and
+    against AccPathTracer's."""
+    from nrenderer_torch import cli
+    from nrenderer_torch.server.registry import get_server
+    runs, images = [], {}
+    for mxu, kernel in (("0", "mesh_sweep_kernel"),
+                        ("1", "mesh_sweep_mxu_kernel")):
+        out = os.path.join(ROOT, "build", f"smoke_mlt_mesh_{mxu}.png")
+        argv = _mlt_argv(MESH_SCENE, width, height, depth, chains,
+                         mutations, out, objs=(BLOB,))
+        warm = _mlt_argv(MESH_SCENE, width, height, depth, chains, 2, out,
+                         objs=(BLOB,))
+        with _mxu_switch(mxu == "1"), _held_sweeps(chains, {}) as held:
+            st = phase_cli(20, f"MLT mesh scene ({kernel}), {chains} chains "
+                           f"x {mutations} mutations", argv, [kernel],
+                           width, height, 1, depth, MLT_MESH_MEAN_BAND,
+                           _blob_lit, warm_argv=warm)
+        other = ("mesh_sweep_mxu_kernel" if mxu == "0"
+                 else "mesh_sweep_kernel")
+        if st["launches"][other] != 0:
+            raise AssertionError(f"MLT ({kernel}) launched {other}")
+        if sorted(held) != ["bounce", "shadow"]:
+            raise AssertionError(f"MLT ({kernel}) swept no {held.keys()}")
+        st["batches_vs_plain"] = [
+            _engine_vs_plain(mt, rays, t_min, f2b, mxu == "1",
+                             f"phase 20: {kernel} on an MLT {kind} batch")
+            for kind, (mt, rays, t_min, f2b) in sorted(held.items())]
+        images[mxu] = get_server().screen.get_pixels()[:, :, :3].copy()
+        runs.append(_mlt_stats(st, chains, mutations))
+    out = os.path.join(ROOT, "build", "smoke_mlt_mesh_acc.png")
+    if cli.main(_cli_argv(MESH_SCENE, "AccPathTracer", width, height, 256,
+                          depth, out, objs=(BLOB,))) != 0:
+        raise AssertionError("AccPathTracer on MLT's mesh scene failed")
+    pt = get_server().screen.get_pixels()[:, :, :3].astype(np.float64)
+    band = height // 6   # the light quad's rows: MinPathLength = 3
+    lin = {k: _linear(v) for k, v in images.items()}
+    pt_lin = pt ** 2
+    st = {"linear_mean_b2": float(lin["0"].mean()),
+          "linear_mean_b4": float(lin["1"].mean()),
+          "linear_mean_rel_diff": float(abs(lin["1"].mean() / lin["0"].mean()
+                                            - 1.0)),
+          "block_corr_b4_b2": float(np.corrcoef(_blocks8(images["1"]),
+                                                _blocks8(images["0"]))[0, 1]),
+          "ratio_to_acc_pt_b2": float(lin["0"][band:].mean()
+                                      / pt_lin[band:].mean()),
+          "ratio_to_acc_pt_b4": float(lin["1"][band:].mean()
+                                      / pt_lin[band:].mean()),
+          "block_corr_to_acc_pt_b2": float(np.corrcoef(
+              _blocks8(images["0"]), _blocks8(pt))[0, 1])}
+    print(f"MLT mesh scene, B4 vs B2 and vs AccPathTracer: {json.dumps(st)}")
+    if st["linear_mean_rel_diff"] > 0.05 or st["block_corr_b4_b2"] < 0.9:
+        raise AssertionError(f"MLT mesh scene, B4 vs B2 past the bars: {st}")
+    runs[1]["vs_b2"] = st
+    return tuple(runs)
+
+
 def main() -> int:
+    t_start = time.perf_counter()
     gpu = phase_toolchain()
     phase_build()
     phase_hash()
@@ -1012,19 +1409,25 @@ def main() -> int:
         st = phase_parity(size, size, 4, depth, **kw)
         parity[st["kernel"]] = st
     sweep = phase_sweep()
+    mxu = phase_mxu_sweep()
     compactor = phase_compactor()
     phase_hybrid_parity()
-    pipe = phase_pipe_main_shape()
+    pipe, prefix = phase_pipe_main_shape()
+    from nrenderer_torch.server.registry import get_server
     paths = [phase_main_path(), phase_acc_path(), *phase_env_paths(),
-             phase_mesh_path(), *phase_tex_paths(), phase_hybrid_path(),
-             phase_env_mesh_path()]
+             phase_mesh_path(), *phase_tex_paths(), phase_hybrid_path()]
+    b2_pixels = get_server().screen.get_pixels()[:, :, :3].copy()
+    paths += [phase_env_mesh_path(),
+              phase_hybrid_mxu_path(b2_pixels, prefix), phase_mlt_cornell(),
+              *phase_mlt_mesh()]
     breakdown = phase_breakdown()
     launches = {}
     for run in paths:
         for name, n in run["launches"].items():
             if n:
                 launches[name] = launches.get(name, 0) + n
-    from nrenderer_torch.ops import mesh_cuda, pt_cuda, stream_compact
+    from nrenderer_torch.ops import mesh_cuda, mesh_mxu, pt_cuda, \
+        stream_compact
     for run in paths:
         print(f"{run['path']}: {run['seconds']:.3f} s "
               f"(render {run['render_seconds']:.3f} s), "
@@ -1053,6 +1456,13 @@ def main() -> int:
         "inlined_in": ["pt_bsdf_mesh_kernel", "pt_bsdf_mesh_tex_kernel"],
         "inlined_launches": launches.get("pt_bsdf_mesh_kernel", 0)
         + launches.get("pt_bsdf_mesh_tex_kernel", 0)})
+    kernels.append({
+        "name": mesh_mxu.KERNEL_NAME, "route": "cuda",
+        "source": mesh_mxu.KERNEL_SOURCE, "replaces": mesh_mxu.REPLACES,
+        "launches": launches.get(mesh_mxu.KERNEL_NAME, 0),
+        "max_abs_err": mxu["max_abs_err"], "ms": mxu["kernel_ms"],
+        "plain_ms": mxu["plain_ms"], "bound_ms": mxu["bound_ms"],
+        "bound_by": mxu["bound_by"], "library_ms": None})
     for name, key, case in ((stream_compact.PACK, "pack", "stage"),
                             (stream_compact.UNPACK, "unpack", "mesh")):
         st = compactor[case]
@@ -1067,6 +1477,7 @@ def main() -> int:
             "bound_ms": st[f"{key}_bound_ms"], "bound_by": "bytes",
             "library_ms": st.get(f"{key}_library_ms"),
             "shape": st["case"]})
+    print(f"whole script: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -22,4 +22,4 @@ def _register_builtin_renderers() -> None:
     """Import renderer modules for their registration side effects (the
     analogue of the reference's DLL scan + static-initializer registration,
     `ComponentManager.cpp:15-30`)."""
-    from .renderers import acc_pt, simple_pt  # noqa: F401
+    from .renderers import acc_pt, mlt, simple_pt  # noqa: F401

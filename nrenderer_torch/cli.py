@@ -9,6 +9,9 @@
         [--checkpoint film.npz] ...
     python -m nrenderer_torch render --scene resource/mesh_box.scn \
         --obj resource/obj/blob_960.obj --renderer AccPathTracer ...
+    python -m nrenderer_torch render --scene resource/cornell_box.scn \
+        --renderer MetropolisLightTransport --chains 1024 --mutations 256 \
+        [--checkpoint chains.npz] ...
 
 Render settings defaults mirror the UI's `RenderSettingsManager.hpp:20-24`
 (500x500, spp=16, depth=20); the camera defaults mirror `Camera.hpp:22-29`.
@@ -100,6 +103,11 @@ def _cmd_render(args) -> int:
         from .renderers.acc_pt import AccPathTracerRenderer
         component = AccPathTracerRenderer(
             seed=args.seed, checkpoint_path=args.checkpoint, device=device)
+    elif args.renderer == "MetropolisLightTransport":
+        from .renderers.mlt import MetropolisRenderer
+        component = MetropolisRenderer(
+            seed=args.seed, chains=args.chains, mutations=args.mutations,
+            checkpoint_path=args.checkpoint, device=device)
 
     mgr = ComponentManager()
     t0 = time.perf_counter()
@@ -164,7 +172,12 @@ def main(argv=None) -> int:
                     help="global microfacet metalness override")
     pr.add_argument("--checkpoint",
                     help="checkpoint file for resumable rendering "
-                         "(AccPathTracer)")
+                         "(AccPathTracer: the film; "
+                         "MetropolisLightTransport: the Markov chains)")
+    pr.add_argument("--chains", type=int,
+                    help="MLT: parallel Markov chains (default 1024)")
+    pr.add_argument("--mutations", type=int,
+                    help="MLT: mutations per chain (default 256)")
     pr.add_argument("--device", default="cuda",
                     help="'cuda' (the CUDA kernel; fails without a GPU) or "
                          "'cpu' (the plain torch version)")

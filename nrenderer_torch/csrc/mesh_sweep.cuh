@@ -57,6 +57,34 @@ struct SweepHit {
   float u, v, tex;  // with UV tables; 0, 0, -1 on a miss
 };
 
+// 1 / d of one axis, a component under 1e-20 in magnitude taken as 1e-20.
+__device__ __forceinline__ float inv_axis(const float x) {
+  return 1.0f / (fabsf(x) < 1e-20f ? 1e-20f : x);
+}
+
+// The block slab test of both sweeps: the ray (o, 1/d) enters the AABB of
+// block `blk` (rows 2 blk and 2 blk + 1 of `bb`) at or past t_min and before
+// its best hit so far.
+__device__ __forceinline__ bool enters_block(
+    const float4* bb, const int blk, const float ox, const float oy,
+    const float oz, const float inv_dx, const float inv_dy,
+    const float inv_dz, const float t_min, const float t_best) {
+  const float4 lo = bb[2 * blk];
+  const float4 hi = bb[2 * blk + 1];
+  const float t0x = (lo.x - ox) * inv_dx;
+  const float t1x = (hi.x - ox) * inv_dx;
+  const float t0y = (lo.y - oy) * inv_dy;
+  const float t1y = (hi.y - oy) * inv_dy;
+  const float t0z = (lo.z - oz) * inv_dz;
+  const float t1z = (hi.z - oz) * inv_dz;
+  const float t_near = fmaxf(fmaxf(fminf(t0x, t1x), fminf(t0y, t1y)),
+                             fminf(t0z, t1z));
+  const float t_far = fminf(fminf(fmaxf(t0x, t1x), fmaxf(t0y, t1y)),
+                            fmaxf(t0z, t1z));
+  return (t_near <= t_far) && (t_far >= t_min) &&
+         (fmaxf(t_near, t_min) < t_best);
+}
+
 // Sweep one ray.  `oct` >= 0 visits blocks in order[oct] (the ray's
 // direction octant), -1 in natural order.
 template <bool kUv>
@@ -74,25 +102,12 @@ __device__ __forceinline__ void mesh_sweep(const MeshArgs& m, const float ox,
   // no w satisfies t_min <= w < t_cap: nothing to test (a dead or padded
   // ray's zero cap)
   if (!(t_cap > t_min)) return;
-  const float inv_dx = 1.0f / (fabsf(dx) < 1e-20f ? 1e-20f : dx);
-  const float inv_dy = 1.0f / (fabsf(dy) < 1e-20f ? 1e-20f : dy);
-  const float inv_dz = 1.0f / (fabsf(dz) < 1e-20f ? 1e-20f : dz);
+  const float inv_dx = inv_axis(dx), inv_dy = inv_axis(dy),
+              inv_dz = inv_axis(dz);
   for (int s = 0; s < m.n_blocks; ++s) {
     const int blk = oct >= 0 ? m.order[oct * m.n_blocks + s] : s;
-    const float4 lo = m.bb[2 * blk];
-    const float4 hi = m.bb[2 * blk + 1];
-    const float t0x = (lo.x - ox) * inv_dx;
-    const float t1x = (hi.x - ox) * inv_dx;
-    const float t0y = (lo.y - oy) * inv_dy;
-    const float t1y = (hi.y - oy) * inv_dy;
-    const float t0z = (lo.z - oz) * inv_dz;
-    const float t1z = (hi.z - oz) * inv_dz;
-    const float t_near = fmaxf(fmaxf(fminf(t0x, t1x), fminf(t0y, t1y)),
-                               fminf(t0z, t1z));
-    const float t_far = fminf(fminf(fmaxf(t0x, t1x), fmaxf(t0y, t1y)),
-                              fmaxf(t0z, t1z));
-    if (!((t_near <= t_far) && (t_far >= t_min) &&
-          (fmaxf(t_near, t_min) < h.t)))
+    if (!enters_block(m.bb, blk, ox, oy, oz, inv_dx, inv_dy, inv_dz, t_min,
+                      h.t))
       continue;
     const float4* __restrict__ row = m.tris + (size_t)blk * m.block * 4;
     for (int i = 0; i < m.block; ++i) {

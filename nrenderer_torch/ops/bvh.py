@@ -9,9 +9,9 @@ the acc_path_tracing BVH (`acc_path_tracing/include/BVH.hpp:18-223`):
     package's numpy builder and its native C++ one.
   - `pack_blocked_triangles`: the valid triangles in BVH-preorder leaf
     order, chunked into blocks of `block` (128), with per-block and
-    per-sub-block AABBs, per-octant front-to-back block orders and the UV
-    tables of textured faces.  The JAX pool's MXU coefficient table
-    belongs to the MXU sweep (ROADMAP B4) and is not built here.
+    per-sub-block AABBs, per-octant front-to-back block orders, the UV
+    tables of textured faces and the bilinear coefficient table of the
+    MXU sweep (`ops/mesh_mxu.py`).
   - `intersect_triangles_blocked`: the blocked sweep as torch ops over
     (N,) ray tensors, with no culling: the oracle the sweep kernel
     (`ops/mesh_cuda.py`) is held against.
@@ -103,6 +103,12 @@ class BlockedTris(NamedTuple):
     # (8, n_blocks) int32: row o = blocks near to far along direction
     # octant o (bit 2/1/0 = d.x/y/z > 0)
     f2b_ord: np.ndarray
+    # (n_blocks, 4 * B, 16) float32: the Moller-Trumbore terms of each
+    # triangle as linear forms in the ray feature f = [1, o', d, o' x d,
+    # 0 x 6], o' = origin - mxu_center.  Rows [0, B) of a block give det,
+    # [B, 2B) u, [2B, 3B) v, [3B, 4B) t * det; padding slots are all zero
+    mxu_coef: Optional[np.ndarray] = None
+    mxu_center: Optional[tuple] = None   # the pool box's centre, 3 floats
     # UV tables, None when no valid face carries a map: uv at v1, the uv
     # edges and the face's diffuse texture id (the specular map's id rides
     # the material channels)
@@ -131,7 +137,7 @@ UV_FIELDS = ("uv1x", "uv1y", "ue1x", "ue1y", "ue2x", "ue2y", "tex")
 def pack_blocked_triangles(scene_arrays, mat_channels, block: int = 128,
                            sub: int = 32) -> BlockedTris:
     """Chunk the valid triangle pool into BVH-preorder blocks of `block`
-    (`nrenderer_tpu/ops/bvh.py:362`, without the MXU table)."""
+    (`nrenderer_tpu/ops/bvh.py:362`)."""
     a = scene_arrays
     v1 = np.asarray(a.tri_v1, np.float32)
     e1 = np.asarray(a.tri_e1, np.float32)
@@ -198,6 +204,30 @@ def pack_blocked_triangles(scene_arrays, mat_channels, block: int = 128,
                      ue2x=blk(ue2[:, 0]), ue2y=blk(ue2[:, 1]),
                      tex=blk(tex_col))
 
+    # the MXU sweep's bilinear coefficients (`bvh.py:440-457`): det, u, v
+    # and t * det are linear in f = [1, o', d, o' x d] with o' centred on
+    # the pool's box, which bounds the cancellation at world coordinates
+    #   det   = (e2 x e1) . d
+    #   u     = e2 . (o' x d) + (v1' x e2) . d
+    #   v     = -e1 . (o' x d) + (e1 x v1') . d
+    #   t*det = (e1 x e2) . o' - v1' . (e1 x e2)
+    center = ((mn.min(axis=0) + mx.max(axis=0)).astype(np.float32)
+              * np.float32(0.5))
+    v1o, e1o, e2o = v1[order_p], e1[order_p], e2[order_p]
+    v1c = (v1o - center).astype(np.float32)
+    n12 = np.cross(e1o, e2o)
+    coef = np.zeros((t + pad, 4, 16), np.float32)
+    coef[:, 0, 4:7] = np.cross(e2o, e1o)
+    coef[:, 1, 4:7] = np.cross(v1c, e2o)
+    coef[:, 1, 7:10] = e2o
+    coef[:, 2, 4:7] = np.cross(e1o, v1c)
+    coef[:, 2, 7:10] = -e1o
+    coef[:, 3, 0] = -(v1c * n12).sum(axis=-1)
+    coef[:, 3, 1:4] = n12
+    coef[pid < 0] = 0.0   # padding: det 0 fails the 1e-6 test
+    coef = coef.reshape(n_blocks, block, 4, 16).transpose(
+        0, 2, 1, 3).reshape(n_blocks, 4 * block, 16)
+
     # per-octant front-to-back block orders
     cent = (mn + mx) * 0.5
     f2b = np.zeros((8, n_blocks), np.int32)
@@ -217,7 +247,8 @@ def pack_blocked_triangles(scene_arrays, mat_channels, block: int = 128,
         bb_min=np.asarray(mn, np.float32), bb_max=np.asarray(mx, np.float32),
         sb_min=np.asarray(sb_mn, np.float32),
         sb_max=np.asarray(sb_mx, np.float32),
-        f2b_ord=f2b, **uv_kw)
+        f2b_ord=f2b, mxu_coef=np.ascontiguousarray(coef),
+        mxu_center=tuple(float(c) for c in center), **uv_kw)
 
 
 class MeshAccel(NamedTuple):

@@ -65,10 +65,16 @@ class MeshTables(NamedTuple):
     f2b: torch.Tensor             # (8, n_blocks) int32
     n_blocks: int
     block: int
+    # the MXU sweep's (n_blocks * block, 40) coefficient rows (det, u, v,
+    # t*det times features 0-9, `ops/mesh_mxu.py`) and the pool's centre
+    coef: Optional[torch.Tensor] = None
+    center: Optional[tuple] = None
 
 
 def make_mesh_tables(bt: BlockedTris, device) -> MeshTables:
-    """Pack `bt` into contiguous device tables, once per render."""
+    """Pack `bt` into contiguous device tables, once per render.  The MXU
+    coefficient table keeps features 0-9 of each of a triangle's four rows
+    (`bvh.BlockedTris.mxu_coef`; features 10-15 are zero padding)."""
     n = bt.n_blocks * bt.block
     tris = np.zeros((n, TRI_FLOATS), np.float32)
     for j, f in enumerate(("v1x", "v1y", "v1z", "e1x", "e1y", "e1z", "e2x",
@@ -83,10 +89,19 @@ def make_mesh_tables(bt: BlockedTris, device) -> MeshTables:
     bb = np.zeros((bt.n_blocks, BB_FLOATS), np.float32)
     bb[:, 0:3] = bt.bb_min
     bb[:, 4:7] = bt.bb_max
+    coef = None
+    if bt.mxu_coef is not None:
+        c = np.asarray(bt.mxu_coef, np.float32).reshape(
+            bt.n_blocks, 4, bt.block, 16).transpose(0, 2, 1, 3)
+        if c[..., 10:].any():
+            raise ValueError("MXU coefficients past feature 9 must be zero")
+        coef = c[..., :10].reshape(n, 40)
     put = lambda a: torch.as_tensor(np.ascontiguousarray(a), device=device)
     return MeshTables(tris=put(tris), uvs=None if uvs is None else put(uvs),
                       bb=put(bb), f2b=put(np.asarray(bt.f2b_ord, np.int32)),
-                      n_blocks=bt.n_blocks, block=bt.block)
+                      n_blocks=bt.n_blocks, block=bt.block,
+                      coef=None if coef is None else put(coef),
+                      center=bt.mxu_center)
 
 
 def channels_from_mat(mat: torch.Tensor, miss: torch.Tensor,
@@ -122,20 +137,74 @@ def sweep_mesh_plain(mt: MeshTables, o: V3, d: V3, t_min: float,
     function's per-ray semantics, `sweep_tile`'s float order).  Returns
     (t_best, idx, nx, ny, nz, mat), plus (u, v, tex) with `with_uv`, all
     float32: t_best stays at the cap and idx at -1 when no triangle beats
-    the cap (`sweep_tile`'s contract).
-
-    Each block's triangles are tested together for the rays that enter
-    it; the first of the block's triangles at the least accepted w wins,
-    which is what testing them one by one with a strict `w < t_best`
-    picks.  `stats` (optional dict) counts "slab_tests" (rays with a
-    positive cap, times blocks) and "tri_tests" (rays times the real
-    triangles of the blocks they enter)."""
-    n = o.x.shape[0]
+    the cap (`sweep_tile`'s contract).  `stats` as `sweep_blocks_plain`."""
     dev = o.x.device
     with_uv = with_uv and mt.uvs is not None
     tris = mt.tris.to(dev).reshape(mt.n_blocks, mt.block, TRI_FLOATS)
     uvs = (mt.uvs.to(dev).reshape(mt.n_blocks, mt.block, UV_FLOATS)
            if with_uv else None)
+
+    def hit_test(blk, rs, tb):
+        """Moller-Trumbore of the rays `rs` against block `blk`."""
+        t = tris[blk]                        # (B, TRI_FLOATS)
+        col = lambda j: t[:, j][None, :]     # (1, B)
+        sox, soy, soz = o.x[rs][:, None], o.y[rs][:, None], o.z[rs][:, None]
+        sdx, sdy, sdz = d.x[rs][:, None], d.y[rs][:, None], d.z[rs][:, None]
+        v1x, v1y, v1z = col(0), col(1), col(2)
+        e1x, e1y, e1z = col(3), col(4), col(5)
+        e2x, e2y, e2z = col(6), col(7), col(8)
+        px = sdy * e2z - sdz * e2y
+        py = sdz * e2x - sdx * e2z
+        pz = sdx * e2y - sdy * e2x
+        det0 = e1x * px + e1y * py + e1z * pz
+        sign = torch.where(det0 > 0, 1.0, -1.0)
+        det = det0 * sign
+        tx = (sox - v1x) * sign
+        ty = (soy - v1y) * sign
+        tz = (soz - v1z) * sign
+        u = tx * px + ty * py + tz * pz
+        qx = ty * e1z - tz * e1y
+        qy = tz * e1x - tx * e1z
+        qz = tx * e1y - ty * e1x
+        vv = sdx * qx + sdy * qy + sdz * qz
+        inv_det = 1.0 / torch.where(det == 0, 1.0, det)
+        w = (e2x * qx + e2y * qy + e2z * qz) * inv_det
+        ok = ((det >= 1e-6) & (u >= 0) & (u <= det) & (vv >= 0)
+              & (u + vv <= det) & (w >= t_min) & (col(13) >= 0))
+        if uvs is None:
+            return torch.where(ok, w, float("inf")), None
+
+        def winner_uv(rows, ia):
+            ub = uvs[blk][ia]                # (n_acc, UV_FLOATS)
+            bu = u[rows, ia] * inv_det[rows, ia]
+            bv = vv[rows, ia] * inv_det[rows, ia]
+            return (ub[:, 0] + bu * ub[:, 2] + bv * ub[:, 4],
+                    ub[:, 1] + bu * ub[:, 3] + bv * ub[:, 5], ub[:, 6])
+        return torch.where(ok, w, float("inf")), winner_uv
+
+    return sweep_blocks_plain(mt, o, d, t_min, t_cap, hit_test, f2b=f2b,
+                              with_uv=with_uv, stats=stats)
+
+
+def sweep_blocks_plain(mt: MeshTables, o: V3, d: V3, t_min: float,
+                       t_cap: torch.Tensor, hit_test, f2b: bool = False,
+                       with_uv: bool = False, stats: Optional[dict] = None):
+    """The blocked sweep's frame, shared by the plain versions of both
+    engines: each block's slab test, then `hit_test(blk, rs, t_best)` on
+    the rays `rs` (indices into `o`, `d`) that enter it, which gives the
+    (len(rs), B) accepted w (inf where rejected) and, with `with_uv`, a
+    callable of the winners' (rows, triangles) returning their (u, v, tex).
+    The first of the block's triangles at the least accepted w wins when
+    it beats the ray's best, which is what testing them one by one with a
+    strict `w < t_best` picks; the winner's (pid, n, mat) are read from
+    its table row.
+
+    `stats` (optional dict) counts "slab_tests" (rays with a positive cap,
+    times blocks) and "tri_tests" (rays times the real triangles of the
+    blocks they enter)."""
+    n = o.x.shape[0]
+    dev = o.x.device
+    tris = mt.tris.to(dev).reshape(mt.n_blocks, mt.block, TRI_FLOATS)
     bb = mt.bb.to(dev)
     real = (tris[:, :, 13] >= 0).sum(dim=1).tolist()
     out = [t_cap.to(torch.float32).clone(),
@@ -160,16 +229,16 @@ def sweep_mesh_plain(mt: MeshTables, o: V3, d: V3, t_min: float,
         for c0 in range(0, rays.shape[0], PLAIN_CHUNK):
             r = rays[c0:c0 + PLAIN_CHUNK]
             order = orders[g] if orders is not None else range(mt.n_blocks)
-            _sweep_rays(tris, uvs, bb, order, real, o, d, t_min, r, out,
-                        stats)
+            _sweep_rays(tris, bb, order, real, o, d, t_min, r, out, stats,
+                        hit_test)
     return tuple(out)
 
 
-def _sweep_rays(tris, uvs, bb, order, real, o, d, t_min, r, out, stats):
+def _sweep_rays(tris, bb, order, real, o, d, t_min, r, out, stats,
+                hit_test):
     """Sweep the rays `r` (indices) block by block, updating `out`."""
     ox, oy, oz = o.x[r], o.y[r], o.z[r]
-    dx, dy, dz = d.x[r], d.y[r], d.z[r]
-    inv_dx, inv_dy, inv_dz = _inv(dx), _inv(dy), _inv(dz)
+    inv_dx, inv_dy, inv_dz = _inv(d.x[r]), _inv(d.y[r]), _inv(d.z[r])
     t_best = out[0][r]
     res = [a[r] for a in out[1:]]
     for blk in order:
@@ -194,32 +263,7 @@ def _sweep_rays(tris, uvs, bb, order, real, o, d, t_min, r, out, stats):
         if stats is not None:
             stats["tri_tests"] = stats.get("tri_tests", 0) + \
                 int(s.numel()) * real[blk]
-        tb = tris[blk]                       # (B, TRI_FLOATS)
-        col = lambda j: tb[:, j][None, :]    # (1, B)
-        sox, soy, soz = ox[s][:, None], oy[s][:, None], oz[s][:, None]
-        sdx, sdy, sdz = dx[s][:, None], dy[s][:, None], dz[s][:, None]
-        v1x, v1y, v1z = col(0), col(1), col(2)
-        e1x, e1y, e1z = col(3), col(4), col(5)
-        e2x, e2y, e2z = col(6), col(7), col(8)
-        px = sdy * e2z - sdz * e2y
-        py = sdz * e2x - sdx * e2z
-        pz = sdx * e2y - sdy * e2x
-        det0 = e1x * px + e1y * py + e1z * pz
-        sign = torch.where(det0 > 0, 1.0, -1.0)
-        det = det0 * sign
-        tx = (sox - v1x) * sign
-        ty = (soy - v1y) * sign
-        tz = (soz - v1z) * sign
-        u = tx * px + ty * py + tz * pz
-        qx = ty * e1z - tz * e1y
-        qy = tz * e1x - tx * e1z
-        qz = tx * e1y - ty * e1x
-        vv = sdx * qx + sdy * qy + sdz * qz
-        inv_det = 1.0 / torch.where(det == 0, 1.0, det)
-        w = (e2x * qx + e2y * qy + e2z * qz) * inv_det
-        ok = ((det >= 1e-6) & (u >= 0) & (u <= det) & (vv >= 0)
-              & (u + vv <= det) & (w >= t_min) & (col(13) >= 0))
-        w_ok = torch.where(ok, w, float("inf"))
+        w_ok, winner_uv = hit_test(blk, r[s], t_best[s])
         i_best = torch.argmin(w_ok, dim=1)
         w_best = w_ok.gather(1, i_best[:, None])[:, 0]
         acc = w_best < t_best[s]
@@ -228,15 +272,11 @@ def _sweep_rays(tris, uvs, bb, order, real, o, d, t_min, r, out, stats):
         sa, ia = s[acc], i_best[acc]
         t_best[sa] = w_best[acc]
         for k, j in enumerate((13, 9, 10, 11, 12)):   # pid, n, mat
-            res[k][sa] = tb[ia, j]
-        if uvs is not None:
-            ub = uvs[blk][ia]                # (n_acc, UV_FLOATS)
-            rows = torch.nonzero(acc).flatten()
-            bu = u[rows, ia] * inv_det[rows, ia]
-            bv = vv[rows, ia] * inv_det[rows, ia]
-            res[5][sa] = ub[:, 0] + bu * ub[:, 2] + bv * ub[:, 4]
-            res[6][sa] = ub[:, 1] + bu * ub[:, 3] + bv * ub[:, 5]
-            res[7][sa] = ub[:, 6]
+            res[k][sa] = tris[blk][ia, j]
+        if winner_uv is not None:
+            for k, v in enumerate(winner_uv(torch.nonzero(acc).flatten(), ia),
+                                  start=5):
+                res[k][sa] = v
     out[0][r] = t_best
     for a, v in zip(out[1:], res):
         a[r] = v
@@ -295,7 +335,14 @@ def sweep_mesh_full(mt: MeshTables, o: V3, d: V3, t_min: float,
 
     Returns (t, idx, nx, ny, nz, mat[, u, v, tex]): t = +inf and idx = -1
     (int32) with zero shading on a miss.  Rays on a CUDA device go through
-    `mesh_sweep_kernel`, rays on the CPU through `sweep_mesh_plain`."""
+    `mesh_sweep_kernel`, rays on the CPU through `sweep_mesh_plain`.
+
+    The engine select of `mesh_pallas.py:552`: under `NR_MESH_MXU=1` an
+    untextured call on a pool with the MXU table takes the bilinear-form
+    sweep (`mesh_mxu.sweep_mxu`, natural order, `f2b` ignored as the JAX
+    engine ignores it); a textured call stays on this sweep, as the JAX
+    package never sends a textured pool to its MXU engine
+    (`ENGINE_COUNTS` records each)."""
     n = o.x.shape[0]
     dev = o.x.device
     if with_uv and mt.uvs is None:
@@ -306,13 +353,20 @@ def sweep_mesh_full(mt: MeshTables, o: V3, d: V3, t_min: float,
     if n_valid is not None:
         cap = torch.where(torch.arange(n, device=dev) < int(n_valid), cap,
                           0.0)
-    if dev.type == "cuda":
+    from . import mesh_mxu
+    engine = "blocked"
+    if mesh_mxu.enabled() and mt.coef is not None:
+        engine = "blocked_textured_under_mxu" if with_uv else "mxu"
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {dev}")
+    ENGINE_COUNTS[engine] += 1
+    if engine == "mxu":
+        out = mesh_mxu.sweep_mxu(mt, o, d, t_min, cap)
+    elif dev.type == "cuda":
         out = _sweep_cuda(mt, o, d, t_min, cap, f2b, with_uv)
-    elif dev.type == "cpu":
+    else:
         out = sweep_mesh_plain(mt, o, d, t_min, cap, f2b=f2b,
                                with_uv=with_uv)
-    else:
-        raise ValueError(f"unsupported device {dev}")
     t, idx = out[0], out[1]
     t = torch.where(idx >= 0, t, float("inf"))
     return (t, idx.to(torch.int32)) + tuple(out[2:])
@@ -352,14 +406,18 @@ MESH_COMPACT_MIN = 64 * 1024
 CAP_MIN, CAP_ALIGN = 1024, 4096
 CELL_Q = 2
 
-# Which branch each call of `intersect_triangles_mesh` took: a caller
-# resets and reads them (the renderer logs them).
+# Which branch each call of `intersect_triangles_mesh` took, and which
+# engine each call of `sweep_mesh_full` swept with (the blocked sweep B2,
+# the MXU sweep B4, or B2 for a textured call under NR_MESH_MXU=1): a
+# caller resets and reads them (the renderers log them).
 ROUTE_COUNTS = {"uncompacted": 0, "compacted": 0, "overflow_full_sweeps": 0}
+ENGINE_COUNTS = {"blocked": 0, "mxu": 0, "blocked_textured_under_mxu": 0}
 
 
 def reset_route_counts() -> None:
-    for key in ROUTE_COUNTS:
-        ROUTE_COUNTS[key] = 0
+    for counts in (ROUTE_COUNTS, ENGINE_COUNTS):
+        for key in counts:
+            counts[key] = 0
 
 
 def _slab(lo, hi, o: V3, d: V3):

@@ -117,7 +117,7 @@ def onb_local(normal: V3, vec: V3) -> V3:
 
 def closest_hit(ss: StaticScene, o: V3, d: V3, t_min: float, mat_channels,
                 tri_bvh=None, alive=None, with_uv: bool = False,
-                coherent: bool = False):
+                coherent: bool = False, unique_pids: bool = False):
     """Closest hit: the unrolled dense primitives, or, with `tri_bvh`, the
     dense primitives without triangles and then the triangle pool
     (`pt_core.py:110-207`), in one of two forms:
@@ -134,7 +134,12 @@ def closest_hit(ss: StaticScene, o: V3, d: V3, t_min: float, mat_channels,
         its material id (`mesh_cuda.channels_from_mat`).
 
     The XLA engines' other `tri_bvh` forms (the blocked scan, the BVH
-    cursor walk) are not ported."""
+    cursor walk) are not ported.
+
+    `unique_pids`: the mesh ids (triangle-array indices) are offset past
+    the dense pass's own ids (spheres, then planes), so callers that
+    compare prim ids across hits (MLT's visibility test) see one id space
+    (`pt_core.py:119-124, :182-185`)."""
     if tri_bvh is None:
         return intersect_scene_unrolled(ss, o, d, t_min=t_min,
                                         mat_channels=mat_channels,
@@ -166,6 +171,9 @@ def closest_hit(ss: StaticScene, o: V3, d: V3, t_min: float, mat_channels,
         matb = torch.where(missb, 0.0, matb)
         if with_uv and len(out) > 6:
             uvb = (out[6], out[7], torch.where(missb, -1.0, out[8]))
+    if unique_pids:
+        n_dense = len(ss.sph) + len(ss.pln)
+        pidb = torch.where(pidb >= 0, pidb + float(n_dense), pidb)
     closer = tb < hit.t
     t = torch.where(closer, tb, hit.t)
     normal = V3(torch.where(closer, nxb, hit.normal.x),

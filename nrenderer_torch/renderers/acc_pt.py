@@ -364,6 +364,7 @@ class AccPathTracerRenderer(RenderComponent):
         get_server().logger.log(
             "hybrid route: " + ", ".join(
                 f"{k} {v}" for k, v in {**mesh_cuda.ROUTE_COUNTS,
+                                        **mesh_cuda.ENGINE_COUNTS,
                                         **_wavefront.ROUTE_COUNTS}.items()))
         return img
 

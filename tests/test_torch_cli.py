@@ -37,11 +37,12 @@ def test_module_render_cpu_writes_png(tmp_path):
 
 def test_no_jax_imported_after_render(tmp_path):
     """Every module of the package (the hybrid route's
-    `ops/stream_compact`, `renderers/_wavefront` among them), and renders
-    through both renderers with an env map, a mesh (`--obj`: the megamesh
-    route, and the hybrid route staged and under an env map) and
-    textures, leave no JAX module loaded; `chip_smoke.py` imports neither
-    JAX nor the JAX package."""
+    `ops/stream_compact`, `renderers/_wavefront`, the MXU sweep's
+    `ops/mesh_mxu` and `renderers/mlt` among them), and renders through
+    the three renderers with an env map, a mesh (`--obj`: the megamesh
+    route, the hybrid route staged, under an env map and with
+    NR_MESH_MXU=1, and MLT's mesh scene) and textures, leave no JAX module
+    loaded; `chip_smoke.py` imports neither JAX nor the JAX package."""
     env = ["--env-map", str(REPO / "resource" / "env_sky.png")]
     res = REPO / "resource"
     tiny = ["--width", "8", "--height", "8", "--spp", "2", "--depth", "2",
@@ -61,26 +62,42 @@ def test_no_jax_imported_after_render(tmp_path):
            "--renderer", "AccPathTracer", "--width", "8", "--height", "8",
            "--spp", "2", "--depth", "2", "--device", "cpu", "--out",
            str(tmp_path / "a.png")]
+    mlt = ["render", "--scene", SCENE, "--renderer",
+           "MetropolisLightTransport", "--width", "8", "--height", "8",
+           "--depth", "3", "--chains", "1024", "--mutations", "2",
+           "--device", "cpu", "--out", str(tmp_path / "l.png")]
+    mlt_mesh = mlt[:2] + [str(res / "mesh_box.scn"), "--obj",
+                          str(res / "obj" / "blob_960.obj")] + mlt[3:-1] + [
+        str(tmp_path / "lm.png")]
     argvs = [["render", *SMALL, "--device", "cpu", "--out",
               str(tmp_path / "x.png")],
              ["render", *SMALL, *env, "--device", "cpu", "--out",
               str(tmp_path / "e.png")],
              acc, acc[:-1] + [str(tmp_path / "b.png")] + env, mesh, tex,
-             hybrid, env_mesh]
+             hybrid, env_mesh, mlt, mlt_mesh]
     code = (
-        "import pkgutil, sys\n"
+        "import os, pkgutil, sys\n"
+        "import torch\n"
+        "torch.set_num_threads(1)\n"
         "import nrenderer_torch\n"
         "for m in pkgutil.walk_packages(nrenderer_torch.__path__, "
         "'nrenderer_torch.'):\n"
         "    if not m.name.endswith('__main__'):\n"
         "        __import__(m.name)\n"
         "assert {'nrenderer_torch.ops.stream_compact', "
-        "'nrenderer_torch.renderers._wavefront'} <= set(sys.modules)\n"
+        "'nrenderer_torch.renderers._wavefront', "
+        "'nrenderer_torch.ops.mesh_mxu', 'nrenderer_torch.renderers.mlt'} "
+        "<= set(sys.modules)\n"
         "import chip_smoke\n"
         "from nrenderer_torch.cli import main\n"
         f"for argv in {argvs!r}:\n"
         "    rc = main(argv)\n"
         "    assert rc == 0, (rc, argv)\n"
+        "os.environ['NR_MESH_MXU'] = '1'\n"
+        "from nrenderer_torch.ops import mesh_cuda\n"
+        "mesh_cuda.reset_route_counts()\n"
+        f"assert main({hybrid[:-1] + [str(tmp_path / 'hm.png')]!r}) == 0\n"
+        "assert mesh_cuda.ENGINE_COUNTS['mxu'] > 0, mesh_cuda.ENGINE_COUNTS\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith(('jax.', 'jaxlib', 'nrenderer_tpu')))\n"
         "assert not bad, bad\n"
