@@ -47,10 +47,14 @@ exits non-zero without a result line:
      against its plain versions at 2^24 lanes: an 11-channel stage pack
      (o, d, throughput, keep, and the lane id as int32 words) into 2^23
      slots and a 7-channel mesh pack (o, d, t_cap) into 2^22 slots, over
-     random 40%, screen-clustered 20%, empty, full and tail masks; the
-     packed buffer, the count and the round trip bit for bit (the largest
-     word difference is printed); kernel, plain, library (`x[:, mask]`,
-     `fill_` + `masked_scatter_`) and bound times;
+     random 40%, screen-clustered 20%, empty, full and tail masks and the
+     kernels' edges: live lanes only in every 37th tile, dead mask words
+     of -0.0 and NaN, and caps at count, count - 1 and inside a tile;
+     each pack twice in a row (its look-back scratch is cleared every
+     call); the packed buffer, the count, the tile offsets and the round
+     trip bit for bit (the largest word difference is printed); kernel,
+     plain, library (`x[:, mask]`, `fill_` + `masked_scatter_`) and bound
+     times;
  13. the hybrid route (staged wavefront, mesh pipe) with its kernels
      against itself with the plain versions on `ico_5120.obj` at 128x128,
      8 spp, depth 13 (bit for bit), and against `pt_bsdf_mesh_kernel` on
@@ -660,8 +664,11 @@ def phase_tex_paths(width=256, height=256, spp=512, depth=6) -> tuple:
 
 
 def _compactor_inputs(n: int, gen):
-    """The masks of phase 12 over n lanes, and an 11-channel stage state
-    and a 7-channel mesh-pipe state on the card."""
+    """The masks of phase 12 over n lanes, the mask words of a dead lane
+    (0, or for "nan_zero" -0.0, NaN of either sign, 0, -1 and -inf in
+    turn), and an 11-channel stage state and a 7-channel mesh-pipe state on
+    the card."""
+    from nrenderer_torch.ops.stream_compact import TILE
     u = lambda: torch.rand(n, generator=gen, device="cuda")
     lane = torch.arange(n, dtype=torch.int32, device="cuda")
     side = 512
@@ -674,9 +681,15 @@ def _compactor_inputs(n: int, gen):
         "empty": torch.zeros(n, dtype=torch.bool, device="cuda"),
         "full": torch.ones(n, dtype=torch.bool, device="cuda"),
         "tail": lane >= n - 1000,
+        # live lanes only in every 37th tile, after 36 empty ones
+        "sparse_tiles": ((lane // TILE) % 37 == 36) & (u() < 0.5),
+        "nan_zero": u() < 0.3,
     }
+    odd = torch.tensor([-0.0, float("nan"), -float("nan"), 0.0, -1.0,
+                        -float("inf")], device="cuda")
+    dead = {"nan_zero": odd[lane.to(torch.int64) % len(odd)]}
     state = [u() * 2.0 - 1.0 for _ in range(9)]
-    return masks, state, lane
+    return masks, dead, state, lane
 
 
 def _word_err(a: torch.Tensor, b: torch.Tensor) -> int:
@@ -718,6 +731,8 @@ def _compactor_case(chans, cap, mask_from, fills, label, timing):
     from nrenderer_torch.ops import stream_compact as sc
     kp = sc.stream_pack_channels(chans, cap, mask_from)
     pp = sc.stream_pack_plain(chans, cap, mask_from)
+    # a second call on the same scratch sizes: the look-back's reset
+    again = _pack_errs(sc.stream_pack_channels(chans, cap, mask_from), pp)
     res = [kp.packed[c] for c in range(len(chans) - 1)] + [
         kp.packed[-1].view(torch.int32)]
     mask = chans[mask_from]
@@ -726,7 +741,7 @@ def _compactor_case(chans, cap, mask_from, fills, label, timing):
     torch.cuda.synchronize()
     count, n_valid = int(kp.count), min(int(kp.count), cap)
     words = lambda t: t.view(torch.int32)
-    pack_err = _pack_errs(kp, pp)
+    pack_err = max(_pack_errs(kp, pp), again)
     unpack_err = max(_word_err(a, b) for a, b in zip(ku, pu))
     live = mask > 0.0
     slot = torch.cumsum(live.to(torch.int32), 0) - 1
@@ -770,27 +785,45 @@ def phase_compactor(n=1 << 24, seed=0) -> dict:
     kernel's largest word error over every case."""
     print(f"== phase 12: stream_pack_kernel / stream_unpack_kernel vs "
           f"plain, {n} lanes")
+    from nrenderer_torch.ops.stream_compact import TILE
     gen = torch.Generator(device="cuda").manual_seed(seed)
-    masks, state, lane = _compactor_inputs(n, gen)
+    masks, dead, state, lane = _compactor_inputs(n, gen)
     timed = {"pack_err": 0, "unpack_err": 0}
+
+    def case(chans, cap, mask_from, fills, label, timing=False):
+        st = _compactor_case(chans, cap, mask_from, fills, label, timing)
+        timed["pack_err"] = max(timed["pack_err"], st["pack_max_word_err"])
+        timed["unpack_err"] = max(timed["unpack_err"],
+                                  st["unpack_max_word_err"])
+        return st
+
     for name, m in masks.items():
-        keep = m.to(torch.float32)
+        off = dead.get(name, 0.0)
+        keep = torch.where(m, 1.0, off)
         stage = state[:9] + [keep, lane]
-        t_cap = torch.where(m, state[0].abs() * 1000.0 + 1.0, 0.0)
+        t_cap = torch.where(m, state[0].abs() * 1000.0 + 1.0, off)
         mesh = state[:6] + [t_cap]
         for key, chans, cap, mask_from, fills, timed_mask in (
                 ("stage", stage, n // 2, 9, [0.0] * 10 + [-1], "random_40"),
                 ("mesh", mesh, n // 4, 6,
                  [float("inf"), -1.0, 0.0, 0.0, 0.0, 0.0, 0],
                  "clustered_20")):
-            st = _compactor_case(chans, cap, mask_from, fills,
-                                 f"{key} pack, {name}", name == timed_mask)
+            st = case(chans, cap, mask_from, fills, f"{key} pack, {name}",
+                      name == timed_mask)
             if name == timed_mask:
                 timed[key] = st
-            timed["pack_err"] = max(timed["pack_err"],
-                                    st["pack_max_word_err"])
-            timed["unpack_err"] = max(timed["unpack_err"],
-                                      st["unpack_max_word_err"])
+                # the cap at the count, one short of it (the last live lane
+                # dropped), and at the live lanes before the middle of a
+                # tile
+                live = torch.nonzero(chans[mask_from] > 0.0).flatten()
+                mid = (n // TILE // 2) * TILE + TILE // 2 + 1
+                inside = int(torch.searchsorted(
+                    live, torch.tensor(mid, device="cuda")))
+                for at, what in ((len(live), "count"),
+                                 (len(live) - 1, "count - 1"),
+                                 (inside, "inside a tile")):
+                    case(chans, at, mask_from, fills,
+                         f"{key} pack, {name}, cap = {what}")
     return timed
 
 

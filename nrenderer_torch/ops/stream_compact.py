@@ -41,13 +41,14 @@ REPLACES = {
     UNPACK: "nrenderer_tpu/ops/stream_compact.py:383 _unpack_kernel",
 }
 
-# Calls of the pack (four launches: count, scan, scatter, and the clear of
-# the slots past the count) and of the unpack (one launch) that went to the
-# card: a caller resets and reads them to show that a run used the kernels.
+# Calls of the pack (one kernel launch, after a memset of its look-back
+# scratch: count, scan, scatter and the clear of the slots past the count
+# in one grid) and of the unpack (one launch) that went to the card: a
+# caller resets and reads them to show that a run used the kernels.
 KERNEL_LAUNCHES = {PACK: 0, UNPACK: 0}
 
 MAX_CHANNELS = 16  # channels one call moves (csrc/stream_compact.cu)
-TILE = 1024        # lanes per block of the kernels; the unit of tile_off
+TILE = 4096        # lanes per block of the kernels; the unit of tile_off
 
 
 def reset_launch_counts() -> None:
@@ -104,7 +105,7 @@ def _check_pack(channels, cap: int, mask_from: int):
     n, dev = words[0].shape[0], words[0].device
     if any(w.shape[0] != n or w.device != dev for w in words):
         raise ValueError("channels must share one length and device")
-    if cap < 1 or n >= 1 << 31 or len(words) * cap >= 1 << 31:
+    if cap < 1 or n >= (1 << 31) - TILE or len(words) * cap >= 1 << 31:
         raise ValueError(f"unsupported cap {cap} or length {n}")
     return words, n, dev
 
@@ -247,13 +248,15 @@ def _pack_cuda(words, n: int, cap: int, mask_from: int) -> StreamPacked:
     dev = words[0].device
     n_tiles = -(-n // TILE)
     packed = torch.empty((len(words), cap), dtype=torch.int32, device=dev)
-    scratch = torch.empty((2 * n_tiles + 1,), dtype=torch.int32, device=dev)
-    tile_cnt, tile_off = scratch[:n_tiles], scratch[n_tiles:2 * n_tiles]
-    count = scratch[2 * n_tiles]
+    # the look-back status words and the block counter (the call clears
+    # them), then the results: tile offsets and the count
+    status = torch.empty((n_tiles + 1,), dtype=torch.int64, device=dev)
+    res = torch.empty((n_tiles + 1,), dtype=torch.int32, device=dev)
+    tile_off, count = res[:n_tiles], res[n_tiles]
     ptrs = (ctypes.c_void_p * len(words))(*(w.data_ptr() for w in words))
     with torch.cuda.device(dev):
         err = lib.nr_stream_pack(ptrs, len(words), n, mask_from, cap,
-                                 packed.data_ptr(), tile_cnt.data_ptr(),
+                                 packed.data_ptr(), status.data_ptr(),
                                  tile_off.data_ptr(), count.data_ptr(),
                                  torch.cuda.current_stream().cuda_stream)
     _check_launch(lib, err, PACK)

@@ -13,8 +13,15 @@ elsewhere; the port's round trip equals JAX's bit for bit.  The JAX side
 runs at NR_STREAM_ROWS=64, as its own tests do.
 
 The `cuda` test (a GPU; it skips without one) holds the kernels against
-the plain versions: `python -m pytest tests/test_torch_stream_compact.py
--m cuda`."""
+the plain versions, on these masks at 50,000 lanes and on the kernels' own
+edges at 2^22 + 37 lanes (1025 tiles): random 40%, live lanes only in
+every 37th tile, dead mask words of -0.0 and NaN; each at caps with and
+without overflow, count == cap and count == cap + 1, and a cut inside a
+tile, each pack called twice in a row on the same scratch sizes:
+`python -m pytest tests/test_torch_stream_compact.py -m cuda`."""
+import re
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -25,6 +32,7 @@ ROWS = 64
 N = 2 * ROWS * 128 + 1000   # not a multiple of 128
 MASKS = ["random_20", "random_35", "empty", "full", "striped", "one",
          "tail"]
+EDGE_MASKS = ["many_tiles", "sparse_tiles", "nan_zero"]
 
 
 def make_mask(name: str, n: int = N) -> np.ndarray:
@@ -37,16 +45,30 @@ def make_mask(name: str, n: int = N) -> np.ndarray:
         "striped": (np.arange(n) % 128) < 20,
         "one": np.eye(1, n, 777, dtype=bool)[0],
         "tail": np.arange(n) >= n - 130,
+        "many_tiles": rng.random(n) < 0.4,
+        # live lanes only in every 37th tile, after 36 empty ones
+        "sparse_tiles": ((np.arange(n) // sc.TILE) % 37 == 36)
+        & (rng.random(n) < 0.5),
+        "nan_zero": rng.random(n) < 0.3,
     }[name]
 
 
-def _channels(m: np.ndarray, k: int = 2):
+# every word a float reads as not > 0: both zeros, NaNs of either sign,
+# negatives
+DEAD_WORDS = np.array([-0.0, np.nan, -np.nan, 0.0, -1.0, -np.inf],
+                      np.float32)
+
+
+def _channels(m: np.ndarray, k: int = 2, dead: bool = False):
     """k random float channels and a t_cap-like mask channel (1 where
-    live, 0 elsewhere), as numpy."""
+    live, 0 elsewhere; with `dead`, DEAD_WORDS in turn elsewhere), as
+    numpy."""
     rng = np.random.default_rng(1)
     chans = [rng.standard_normal(m.shape[0]).astype(np.float32)
              for _ in range(k)]
-    return chans + [np.where(m, 1.0, 0.0).astype(np.float32)]
+    off = DEAD_WORDS[np.arange(m.shape[0]) % len(DEAD_WORDS)] if dead \
+        else np.float32(0.0)
+    return chans + [np.where(m, np.float32(1.0), off).astype(np.float32)]
 
 
 @pytest.fixture
@@ -217,6 +239,50 @@ def test_refusals():
         sc.stream_unpack_channels(x, [torch.ones(4)], [0.0, 1.0], sp)
 
 
+def test_kernel_source_layout_matches_the_wrapper():
+    """TILE and MAX_CHANNELS in csrc/stream_compact.cu are the wrapper's
+    (the library's own check runs only where it loads, on the card)."""
+    src = (Path(sc.__file__).resolve().parents[1] / "csrc"
+           / "stream_compact.cu").read_text()
+
+    def const(name):
+        return int(re.search(rf"constexpr int {name} = (\d+);",
+                             src).group(1))
+
+    assert const("TILE") == sc.TILE
+    assert const("MAX_CHANNELS") == sc.MAX_CHANNELS
+
+
+@pytest.mark.parametrize("shift", [-1, 0, 1])
+def test_plain_overflow_at_a_tile_boundary(shift):
+    """The plain pack and unpack at TILE: the cap falls on the first live
+    lane of tile 2 (shift 0) or one lane either side; tile offsets count
+    per TILE lanes, the kept lanes are the first `cap` live ones, the
+    dropped ones unpack to their fill."""
+    n = 3 * sc.TILE + 100
+    m = np.ones(n, bool)
+    m[5:sc.TILE:7] = False           # some dead lanes in tile 0
+    m[sc.TILE + 3] = False
+    live = np.nonzero(m)[0]
+    cap = int(np.searchsorted(live, 2 * sc.TILE)) + shift
+    chans = [torch.as_tensor(c) for c in _channels(m)]
+    sp = sc.stream_pack_channels(chans, cap, mask_from=2)
+    assert int(sp.count) == len(live) > cap
+    np.testing.assert_array_equal(sp.packed[0].numpy(),
+                                  chans[0].numpy()[live[:cap]])
+    cnt = np.add.reduceat(np.r_[m, np.zeros(-n % sc.TILE, bool)],
+                          np.arange(0, n + (-n % sc.TILE), sc.TILE))
+    np.testing.assert_array_equal(sp.tile_off.numpy(), np.cumsum(cnt) - cnt)
+    assert int(sp.tile_off[2]) == cap - shift
+    out = sc.stream_unpack_channels(chans[2], [sp.packed[0], sp.packed[1]],
+                                    [-3.0, 4.0], sp)
+    kept = np.zeros(n, bool)
+    kept[live[:cap]] = True
+    for c, fill in ((0, -3.0), (1, 4.0)):
+        np.testing.assert_array_equal(
+            out[c].numpy(), np.where(kept, chans[c].numpy(), fill))
+
+
 @pytest.fixture
 def gpu():
     if not torch.cuda.is_available():
@@ -225,23 +291,32 @@ def gpu():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("name", MASKS)
+@pytest.mark.parametrize("name", MASKS + EDGE_MASKS)
 def test_cuda_kernels_match_plain(gpu, name):
     """stream_pack_kernel and stream_unpack_kernel against the plain
     versions on the same CUDA tensors, bit for bit, with an int32 word
-    channel, at a cap with and without overflow."""
-    m = make_mask(name, 50_000)
-    chans = [torch.as_tensor(c, device=gpu) for c in _channels(m, 4)]
-    chans.append(torch.arange(50_000, dtype=torch.int32, device=gpu))
-    for cap in (50_000, 4096):
-        before = dict(sc.KERNEL_LAUNCHES)
-        k = sc.stream_pack_channels(chans, cap, mask_from=4)
-        p = sc.stream_pack_plain(chans, cap, mask_from=4)
-        assert sc.KERNEL_LAUNCHES[sc.PACK] == before[sc.PACK] + 1
-        assert torch.equal(k.packed.view(torch.int32),
-                           p.packed.view(torch.int32))
-        assert int(k.count) == int(p.count)
-        assert torch.equal(k.tile_off, p.tile_off)
+    channel, at caps with and without overflow: count == cap, count == cap
+    + 1, a cut inside a tile; each pack twice in a row (the look-back
+    scratch is cleared every call)."""
+    n = 50_000 if name in MASKS else (1 << 22) + 37
+    m = make_mask(name, n)
+    chans = [torch.as_tensor(c, device=gpu)
+             for c in _channels(m, 4, dead=name == "nan_zero")]
+    chans.append(torch.arange(n, dtype=torch.int32, device=gpu))
+    live = np.nonzero(m)[0]
+    mid = (n // sc.TILE // 2) * sc.TILE + sc.TILE // 2 + 1
+    caps = {n, 4096, max(1, len(live)), max(1, len(live) - 1),
+            max(1, int(np.searchsorted(live, mid)))}
+    for cap in sorted(caps):
+        for _ in range(2):
+            before = dict(sc.KERNEL_LAUNCHES)
+            k = sc.stream_pack_channels(chans, cap, mask_from=4)
+            p = sc.stream_pack_plain(chans, cap, mask_from=4)
+            assert sc.KERNEL_LAUNCHES[sc.PACK] == before[sc.PACK] + 1
+            assert torch.equal(k.packed.view(torch.int32),
+                               p.packed.view(torch.int32))
+            assert int(k.count) == int(p.count) == len(live)
+            assert torch.equal(k.tile_off, p.tile_off)
         res = [k.packed[c] for c in range(5)] + [
             k.packed[5].view(torch.int32)]
         fills = [0.0, -1.0, 2.0, 3.0, 0.0, -1]

@@ -20,8 +20,12 @@ the short env launches), five calls between CUDA events, in ms per 32-spp
 launch.  With `--hybrid` it renders instead the two hybrid-route paths of
 phases 14-15 (`ico_5120.obj` on `mesh_box.scn`, 500x500, 256 spp, depth
 20; `blob_960.obj` under `env_sky.png`, 512x512, 256 spp, depth 8) the
-same way, then runs phase 16's breakdown of one hybrid chunk.  Prints one
-line per run and a final `AB` JSON line.  Imports nothing of JAX."""
+same way, then runs phase 16's breakdown of one hybrid chunk, and first
+phase 12 (the streaming compactor against its plain versions at 2^24
+lanes: kernel, plain, library and bound times of the stage and mesh
+cases) with the compactor kernels' `nvcc -Xptxas -v` lines (registers,
+shared memory, stack frame, spills).  Prints one line per run and a final
+`AB` JSON line.  Imports nothing of JAX."""
 from __future__ import annotations
 
 import json
@@ -57,6 +61,17 @@ def renders(label, scene, renderer, size, spp, depth, env, objs=()):
 '''
 
 HYBRID = COMMON + r'''
+from nrenderer_torch import _build
+st = c.phase_compactor()
+out["compactor"] = {case: {k: v for k, v in st[case].items()
+                           if k.endswith("_ms") or k == "count"}
+                    for case in ("stage", "mesh")}
+lines = _build.LOG_PATH.read_text().splitlines()
+out["ptxas"] = {ln.split("'")[1]: " / ".join(
+    x.strip() for x in lines[i + 1:i + 5]
+    if "stack" in x or "registers" in x)
+    for i, ln in enumerate(lines)
+    if "Compiling entry function" in ln and "pack" in ln}
 renders("hybrid", c.MESH_SCENE, "AccPathTracer", 500, 256, 20, False,
         (c.ICO,))
 renders("env_mesh", c.MESH_SCENE, "AccPathTracer", 512, 256, 8, True,
