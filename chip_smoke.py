@@ -31,10 +31,16 @@ exits non-zero without a result line:
      `pt_bsdf_mesh_kernel` on `resource/mesh_box.scn` + `blob_960.obj` at
      64x64/16/4 and 500x500/4/20, the texture forms on `tex_quad.obj` (the
      dense forms, with and without `env_sky.png`) and `tex_grid.obj` (the
-     mesh form) at 64x64/16/4 and 256x256/4/6;
+     mesh form) at 64x64/16/4 and 256x256/4/6; the mesh forms' films bit
+     for bit, with the sweep's schedule counts (triangle-test lane slots
+     of the per-lane and the warp-cooperative sweep);
   9. `mesh_sweep_kernel` on `ico_5120.obj` against its plain version, 2^20
-     rays aimed at the mesh, natural and front-to-back block order: t bit
-     for bit, ids equal where t is untied;
+     rays aimed at the mesh, natural and front-to-back block order: every
+     output bit for bit (t and idx on every ray), with time, bound and
+     schedule counts; then prefixes of those rays at ragged counts (1, 31,
+     33, 32 k + 5, with dead lanes) and `tie_pool()` (exact ties: repeated
+     triangles, shared edges, faces on block boxes) in blocks of 16 and
+     128, both orders, bit for bit;
  10. the mesh path: AccPathTracer `--obj blob_960.obj` on `mesh_box.scn`
      at 500x500, 256 spp, depth 20 (the megamesh route); the blob must be
      brighter than the floor in its shadow;
@@ -61,7 +67,8 @@ exits non-zero without a result line:
      `blob_960.obj` at the same shape (phase 4's bars); then one sorted
      mesh-pipe bounce of the hybrid path's own chunk (500x500, 64 spp: 16
      Mi lanes, cap 4 Mi) with the pack and unpack against their plain
-     versions bit for bit and the sweep on a sub-range of the prefix;
+     versions bit for bit and the sweep on the whole sorted live prefix
+     (bit for bit, timed, with its bound and schedule counts);
  14. the hybrid path: AccPathTracer `--obj ico_5120.obj` on `mesh_box.scn`
      at 500x500, 256 spp, depth 20 (staged, 4 chunks of 64 spp); the
      overflow full sweeps, roulette firings and peak memory are printed,
@@ -79,15 +86,16 @@ exits non-zero without a result line:
      intersection (their count barred);
  18. the hybrid path of phase 14 under NR_MESH_MXU=1: every sweep on B4,
      the image within bars of phase 14's; then B4 against its plain
-     version, bit for bit, on phase 13's sorted live prefix;
+     version, bit for bit and timed, on phase 13's sorted live prefix;
  19. MetropolisLightTransport on `cornell_box.scn` through `cli.main`:
      512x512, 1024 chains x 256 mutations, depth 20 (dense primitives, no
      kernel of its own);
  20. MLT on `mesh_box.scn` + `blob_960.obj` at 128x128, 1024 x 256, depth
      8, on B2 and under NR_MESH_MXU=1 on B4 (each engine's launches
      counted, the other's 0; each engine's kernel against its plain
-     version, bit for bit, on one path batch and one shadow batch that the
-     run swept): the two images' linear means within 5% and
+     version, bit for bit and timed, on one path batch (2048 rays) and one
+     shadow batch that the B2 run swept, and B4 also on its own run's):
+     the two images' linear means within 5% and
      their 8x8-block correlation >= 0.9, and the ratio of their linear
      radiance to AccPathTracer's on the same scene.
 
@@ -182,10 +190,28 @@ GRID_MEAN_BAND = (0.1, 0.3)
 PLAIN_GRID_MEAN_BAND = (0.2, 0.4)
 QUAD_ENV_MEAN_BAND = (0.5, 0.8)
 
-# The card's peaks for the bound (NVIDIA's H100 SXM data sheet, at the full
-# 700 W power limit): FP32 outside the tensor cores and HBM bandwidth.
-PEAK_FP32_FLOPS = 67e12
+# The card's peaks for the bound.  HBM bandwidth: NVIDIA's H100 SXM data
+# sheet, at the full 700 W power limit.  FP32 outside the tensor cores: the
+# data sheet's 67 TFLOP/s counts a fused multiply-add as two operations,
+# but the kernels are built with -fmad=false, so every operation counted
+# below is one instruction: the peak is the SMs x 128 FP32 lanes x the
+# SM clock (nvidia-smi clocks.max.sm; 132 x 128 x 1980 MHz = 33.45e12).
 PEAK_BYTES_PER_S = 3.35e12
+FP32_LANES_PER_SM = 128
+_peak_fp32 = []
+
+
+def peak_fp32() -> float:
+    """FP32 instructions a second of the card: SMs x lanes x max SM clock."""
+    if not _peak_fp32:
+        mhz = subprocess.run(
+            ["nvidia-smi", "--query-gpu=clocks.max.sm",
+             "--format=csv,noheader,nounits"], capture_output=True,
+            text=True, check=True, timeout=60).stdout.split()[0]
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
+        _peak_fp32.append(sms * FP32_LANES_PER_SM * float(mhz) * 1e6)
+    return _peak_fp32[0]
+
 
 # FP32 operations the kernel does, counted from csrc/pt_kernel.cu (each
 # add, sub, mul, div, sqrt, rsqrt, sin, cos, min/max and float compare as
@@ -222,7 +248,8 @@ def phase_toolchain() -> str:
     nvcc = subprocess.run([_build.find_nvcc(), "--version"],
                           capture_output=True, text=True, check=True,
                           timeout=60).stdout.strip().splitlines()[-1]
-    print(f"nvidia-smi: {gpu}")
+    print(f"nvidia-smi: {gpu}; FP32 peak for the bounds "
+          f"{peak_fp32():.4g} instructions/s")
     print(f"torch {torch.__version__}, torch.version.cuda "
           f"{torch.version.cuda}, python {sys.version.split()[0]}")
     print(f"nvcc: {nvcc}")
@@ -302,7 +329,7 @@ def _time_ms(fn, reps: int) -> float:
 
 
 def _bound(flops: float, n_bytes: float) -> tuple:
-    ops_ms = flops / PEAK_FP32_FLOPS * 1e3
+    ops_ms = flops / peak_fp32() * 1e3
     bytes_ms = n_bytes / PEAK_BYTES_PER_S * 1e3
     return max(ops_ms, bytes_ms), ("operations" if ops_ms >= bytes_ms
                                    else "bytes")
@@ -362,7 +389,7 @@ def phase_parity(width, height, spp, depth, seed=0, scene=SCENE,
     mesh_t = (make_mesh_tables(build_mesh_accel(
         arrays, make_mat_channels(ss)).bt, "cuda") if mesh else None)
     tex_t = make_tex_tables(arrays.textures, "cuda") if tex else None
-    work = {}
+    work = {"enter": []} if mesh else {}
 
     def kernel():
         film = torch.zeros((n_pix, 3), dtype=torch.float32, device="cuda")
@@ -395,11 +422,15 @@ def phase_parity(width, height, spp, depth, seed=0, scene=SCENE,
         "bound_ms": b_ms, "bound_by": b_by,
         "bounces_per_sample": work["bounces"] / work["samples"],
         **({"slab_tests": work["slab_tests"],
-            "tri_tests": work.get("tri_tests", 0)} if mesh else {}),
+            "tri_tests": work.get("tri_tests", 0),
+            "schedule": _pt_schedule(work["schedule"])} if mesh else {}),
     }
     print(json.dumps({"shape": [width, height, spp, depth], **st}))
     if not st["finite"]:
         raise AssertionError(f"{name} film has non-finite values")
+    if mesh and st["max_abs_err"] != 0.0:
+        raise AssertionError(f"{name}: the film differs from the plain "
+                             f"version's (max |d| {st['max_abs_err']})")
     if st["mean_abs_err"] > MEAN_ABS_MAX:
         raise AssertionError(f"{name}: mean |kernel - plain| "
                              f"{st['mean_abs_err']} > {MEAN_ABS_MAX}")
@@ -408,6 +439,21 @@ def phase_parity(width, height, spp, depth, seed=0, scene=SCENE,
             f"{name}: only {st['share_within_1e-4']:.4f} of pixels within "
             f"{WITHIN} (need {WITHIN_SHARE_MIN})")
     return st
+
+
+def _pt_schedule(sched: dict) -> dict:
+    """The mesh forms' sweep schedules in triangle-test lane slots
+    (`mesh_cuda.schedule_counts`): the per-lane sweep with the warp's lanes
+    at one sample and bounce (the kernel before the warp sweep), the warp
+    sweep the same way (this kernel), and the warp sweep in a flat loop
+    where each lane starts its next sample as soon as its path ends (pairs
+    and dense steps are the kernel's)."""
+    lock, flat = sched["lockstep"], sched["flat"]
+    return {"union_lockstep": lock["union_slots"],
+            "coop_lockstep": lock["coop_slots"],
+            "coop_flat": flat["coop_slots"], "coop_pairs":
+            lock["coop_pairs"], "coop_dense_steps": lock["coop_dense_steps"],
+            "entered": lock["entered_slots"]}
 
 
 def _cli_argv(scene, renderer, width, height, spp, depth, out, env=False,
@@ -536,71 +582,143 @@ def phase_env_paths(width=512, height=512, spp=1024, depth=8) -> tuple:
     return tuple(runs)
 
 
-def phase_sweep(n_rays=1 << 20, seed=0) -> dict:
-    """`mesh_sweep_kernel` against its plain version on rays from the
-    Cornell box's interior aimed at `ico_5120.obj`, a tenth of them with a
-    zero cap (dead), in natural and front-to-back block order."""
+def tie_pool():
+    """A triangle pool and rays built for exact ties, as numpy arrays
+    (verts (V, 3), faces (F, 3) int32, origins and directions (N, 3)
+    float32): the cube [-4, 4]^3, each face a 4x4 grid of 2x2 quads of two
+    triangles (axis-aligned faces, each lying on its block's box face),
+    with the top face's first triangle repeated 20 times (copies inside
+    one block and across two adjacent blocks), and rays in one direction
+    octant (every component below 0) that hit it on edges and vertices:
+    onto the top face, onto the +x face, along the diagonal onto the top
+    face's edges and corners, and from inside the cube.  Every coordinate
+    is a small dyadic number and every det a power of two, so each t is
+    exact in float32 and tied hits are equal bit for bit in any float
+    order."""
+    verts, faces = [], []
+    g = np.arange(-4.0, 4.5, 2.0)
+    for axis in range(3):
+        for sign in (-1.0, 1.0):
+            base = len(verts)
+            for a in g:
+                for b in g:
+                    p = [0.0, 0.0, 0.0]
+                    p[axis] = 4.0 * sign
+                    p[(axis + 1) % 3], p[(axis + 2) % 3] = a, b
+                    verts.append(p)
+            for i in range(4):
+                for j in range(4):
+                    v00 = base + i * 5 + j
+                    faces += [(v00, v00 + 5, v00 + 6), (v00, v00 + 6, v00 + 1)]
+    faces += [faces[160]] * 20   # the top face's first triangle
+    # hit points on a dyadic grid; each ray starts 8 of its directions
+    # back from its point (t = 8), with no zero component (a ray lying in
+    # a block box's face plane is culled by its own slab test, not by
+    # Pallas's per-tile test)
+    xy = np.arange(-5.0, 5.25, 0.5)
+    gx, gy = [a.reshape(-1) for a in np.meshgrid(xy, xy)]
+    four = np.full(gx.size, 4.0)
+    inner = np.arange(-3.0, 3.5, 1.0)
+    ix, iy, iz = [a.reshape(-1) for a in np.meshgrid(inner, inner, inner)]
+    origins, dirs = [], []
+    for pts, d in ((np.stack([gx, gy, four], 1), (-0.5, -0.25, -1.0)),
+                   (np.stack([four, gx, gy], 1), (-1.0, -0.5, -0.25)),
+                   (np.stack([gx, gy, four], 1), (-1.0, -1.0, -1.0))):
+        origins.append(pts - 8.0 * np.asarray(d))
+        dirs.append(np.tile(d, (pts.shape[0], 1)))
+    origins.append(np.stack([ix, iy, iz], 1))   # from inside, down
+    dirs.append(np.tile((-0.25, -0.5, -1.0), (ix.size, 1)))
+    origins, dirs = np.concatenate(origins), np.concatenate(dirs)
+    return (np.asarray(verts, np.float32), np.asarray(faces, np.int32),
+            origins.astype(np.float32), dirs.astype(np.float32))
+
+
+def _ico_rays(n_rays: int, seed: int):
+    """ico_5120.obj's tables on the card and phase 9's rays: from the
+    Cornell box's interior aimed at the mesh, a tenth of them with a zero
+    cap (dead).  Returns (blocked pool, tables, t_min, (7, n) rays)."""
     from nrenderer_torch.ops.bvh import build_mesh_accel
-    from nrenderer_torch.ops.mesh_cuda import (
-        KERNEL_NAME, make_mesh_tables, sweep_mesh_full, sweep_mesh_plain)
+    from nrenderer_torch.ops.mesh_cuda import make_mesh_tables
     from nrenderer_torch.ops.pt_core import make_mat_channels, scene_epsilon
-    from nrenderer_torch.ops.soa import V3
     ss, _, _, arrays = _setup("cuda", MESH_SCENE, objs=(ICO,))
     bt = build_mesh_accel(arrays, make_mat_channels(ss)).bt
-    mt = make_mesh_tables(bt, "cuda")
-    t_min = scene_epsilon(ss)
     g = torch.Generator(device="cuda").manual_seed(seed)
     u = lambda lo, hi: lo + (hi - lo) * torch.rand(
         n_rays, generator=g, device="cuda")
-    o = V3(u(-270.0, 270.0), u(-270.0, 270.0), u(760.0, 1300.0))
-    tgt = V3(u(-150.0, 150.0), u(-278.0, -7.0), u(850.0, 1150.0))
-    dv = torch.stack([tgt.x - o.x, tgt.y - o.y, tgt.z - o.z])
-    dv = dv / torch.linalg.vector_norm(dv, dim=0)
-    d = V3(dv[0].contiguous(), dv[1].contiguous(), dv[2].contiguous())
+    o = torch.stack([u(-270.0, 270.0), u(-270.0, 270.0), u(760.0, 1300.0)])
+    tgt = torch.stack([u(-150.0, 150.0), u(-278.0, -7.0),
+                       u(850.0, 1150.0)])
+    d = (tgt - o) / torch.linalg.vector_norm(tgt - o, dim=0)
     cap = torch.where(torch.rand(n_rays, generator=g, device="cuda") < 0.1,
                       0.0, float("inf"))
+    rays = torch.cat([o, d, cap[None]]).contiguous()
+    return bt, make_mesh_tables(bt, "cuda"), scene_epsilon(ss), rays
+
+
+def _tie_tables(block: int):
+    """`tie_pool()`'s tables on the card with `block`-triangle blocks and
+    its rays as a (7, n) array (no cap)."""
+    from nrenderer_torch import build_scene_arrays
+    from nrenderer_torch.ops.bvh import build_mesh_accel
+    from nrenderer_torch.ops.mesh_cuda import make_mesh_tables
+    from nrenderer_torch.scene import model
+    verts, faces, o, d = tie_pool()
+    s = model.Scene()
+    s.materials += [model.Material(name="A"), model.Material(name="B")]
+    s.mesh_buffer.append(model.Mesh(positions=verts, position_indices=faces
+                                    .reshape(-1), material=1))
+    s.nodes.append(model.Node(name="tie", type=model.NodeType.MESH,
+                              entity=0))
+    bt = build_mesh_accel(build_scene_arrays(s), [(0.25, 9.0), (1.0, 2.0)],
+                          block=block).bt
+    rays = np.concatenate([o.T, d.T, np.full((1, o.shape[0]), np.inf)])
+    return make_mesh_tables(bt, "cuda"), torch.as_tensor(
+        rays.astype(np.float32), device="cuda").contiguous()
+
+
+def phase_sweep(n_rays=1 << 20, seed=0) -> dict:
+    """`mesh_sweep_kernel` against its plain version, every output bit for
+    bit (t and idx on every ray), in natural and front-to-back block
+    order: phase 9's rays at `ico_5120.obj`, with times, bound and schedule
+    counts; then prefixes of them at ragged counts (1, 31, 33, 32 k + 5,
+    with their dead lanes) and `tie_pool()` in blocks of 16 and 128."""
+    from nrenderer_torch.ops.mesh_cuda import (
+        KERNEL_NAME, sweep_mesh_full, sweep_mesh_plain)
+    from nrenderer_torch.ops.soa import V3
+    bt, mt, t_min, rays = _ico_rays(n_rays, seed)
+    o, d, cap = V3(*rays[0:3]), V3(*rays[3:6]), rays[6]
     runs = {}
     for f2b in (False, True):
         label = "f2b" if f2b else "natural"
         print(f"== phase 9: {KERNEL_NAME} vs plain, ico_5120.obj "
               f"({bt.n_blocks} blocks of {bt.block}), {n_rays} rays, "
               f"{label} order")
-        work = {}
-        got = sweep_mesh_full(mt, o, d, t_min, t_cap=cap, f2b=f2b)
-        raw = sweep_mesh_plain(mt, o, d, t_min, cap, f2b=f2b, stats=work)
-        torch.cuda.synchronize()
-        t_p = torch.where(raw[1] >= 0, raw[0], float("inf"))
-        idx_p = raw[1].to(torch.int32)
-        t_diff = int((got[0] != t_p).sum())
-        idx_diff = int((got[1] != idx_p).sum())
-        untied = int(((got[1] != idx_p) & (got[0] != t_p)).sum())
-        hit = got[1] >= 0
-        flops = (work["slab_tests"] * FLOPS_SLAB
-                 + work["tri_tests"] * FLOPS_MESH_TRI)
-        n_bytes = n_rays * 4 * (7 + 6) + _table_bytes(mt.tris, mt.bb)
-        b_ms, b_by = _bound(flops, n_bytes)
-        st = {"kernel": KERNEL_NAME, "order": label, "rays": n_rays,
-              "hits": int(hit.sum()), "t_differ": t_diff,
-              "idx_differ": idx_diff, "idx_differ_t_untied": untied,
-              "max_abs_err": float((got[0][hit] - t_p[hit]).abs().max()),
-              "finite": bool(torch.isfinite(got[0][hit]).all()),
-              "kernel_ms": _time_ms(lambda: sweep_mesh_full(
-                  mt, o, d, t_min, t_cap=cap, f2b=f2b), 5),
-              "plain_ms": _time_ms(lambda: sweep_mesh_plain(
-                  mt, o, d, t_min, cap, f2b=f2b), 1),
-              "bound_ms": b_ms, "bound_by": b_by,
-              "slab_tests": work["slab_tests"],
-              "tri_tests": work["tri_tests"]}
-        print(json.dumps(st))
-        if t_diff or untied or not st["finite"] or st["hits"] < n_rays // 10:
-            raise AssertionError(f"{KERNEL_NAME} ({label}) disagrees with "
-                                 f"its plain version: {st}")
-        runs[label] = (st, got)
-    moved = int((runs["natural"][1][0] != runs["f2b"][1][0]).sum())
+        st = _engine_vs_plain(mt, rays, t_min, f2b, False,
+                              f"phase 9: {label} order", timing=True)
+        st["plain_ms"] = _time_ms(lambda: sweep_mesh_plain(
+            mt, o, d, t_min, cap, f2b=f2b), 1)
+        print(json.dumps({"plain_ms": st["plain_ms"]}))
+        if st["hits"] < n_rays // 10:
+            raise AssertionError(f"{KERNEL_NAME} ({label}): too few hits: "
+                                 f"{st}")
+        runs[label] = st
+    t_nat, t_f2b = (sweep_mesh_full(mt, o, d, t_min, t_cap=cap, f2b=f2b)[0]
+                    for f2b in (False, True))
+    moved = int((t_nat != t_f2b).sum())
     print(f"natural vs f2b order: t differs on {moved} rays; triangle "
-          f"tests {runs['natural'][0]['tri_tests']} -> "
-          f"{runs['f2b'][0]['tri_tests']}")
-    return runs["natural"][0]
+          f"tests {runs['natural']['tri_tests']} -> "
+          f"{runs['f2b']['tri_tests']}")
+    for n in (1, 31, 33, 32 * 1000 + 5):
+        for f2b in (False, True):
+            _engine_vs_plain(mt, rays[:, :n].contiguous(), t_min, f2b, False,
+                             f"phase 9: {n} rays, f2b={f2b}", need_hits=False)
+    for block in (16, 128):
+        mt_t, rays_t = _tie_tables(block)
+        for f2b in (False, True):
+            _engine_vs_plain(mt_t, rays_t, 1e-3, f2b, False,
+                             f"phase 9: tie pool, blocks of {block}, "
+                             f"f2b={f2b}")
+    return runs["natural"]
 
 
 def _blob_lit(px, mean):
@@ -923,16 +1041,16 @@ class _Captured(Exception):
     """Ends a chunk once the mesh pipe's inputs are held."""
 
 
-def phase_pipe_main_shape(width=500, height=500, chunk=64, depth=20,
-                          sub=1 << 16) -> tuple:
+def phase_pipe_main_shape(width=500, height=500, chunk=64, depth=20
+                          ) -> tuple:
     """One sorted mesh-pipe bounce of a chunk of the hybrid path, at its
     own shape (the second bounce of 64 spp of 500x500: 16 Mi lanes, a cap
     of 4 Mi rays): the pack and the unpack on the kernels and on the plain
     versions, bit for bit, the unpack's result channels as long as the
     live prefix (shorter than the cap, as on every compacted bounce), and
-    the sweep against its plain version on the first `sub` rays of the
-    sorted prefix.  Returns the stats and (tables, t_min, the sorted
-    prefix) for phase 18."""
+    the sweep against its plain version on the whole sorted prefix, with
+    its time, bound and schedule counts.  Returns the stats and (tables,
+    t_min, the sorted prefix) for phase 18."""
     from nrenderer_torch.ops import mesh_cuda, stream_compact as sc
     from nrenderer_torch.ops.pt_core import scene_epsilon
     from nrenderer_torch.ops.soa import V3
@@ -968,18 +1086,13 @@ def phase_pipe_main_shape(width=500, height=500, chunk=64, depth=20,
                              f"{cap}")
     lo, hi = mt.bb[:, 0:3].amin(dim=0), mt.bb[:, 4:7].amax(dim=0)
     rays, perm = mesh_cuda.sort_rays(kp.packed[:, :n_hit], lo, hi, t_min)
+    rays = rays.contiguous()
+    sweep = _engine_vs_plain(mt, rays, t_min, True, False,
+                             "phase 13: B2 on the sorted live prefix",
+                             timing=True)
     out = mesh_cuda.sweep_mesh_full(
         mt, V3(rays[0], rays[1], rays[2]), V3(rays[3], rays[4], rays[5]),
         t_min, t_cap=rays[6], f2b=True)
-    k = min(sub, n_hit)
-    raw = mesh_cuda.sweep_mesh_plain(
-        mt, V3(rays[0, :k], rays[1, :k], rays[2, :k]),
-        V3(rays[3, :k], rays[4, :k], rays[5, :k]), t_min, rays[6, :k],
-        f2b=True)
-    t_p = torch.where(raw[1] >= 0, raw[0], float("inf"))
-    idx_p = raw[1].to(torch.int32)
-    t_diff = int((out[0][:k] != t_p).sum())
-    untied = int(((out[1][:k] != idx_p) & (out[0][:k] != t_p)).sum())
     out = mesh_cuda.unsort(out, perm)
     misses = (float("inf"), -1, 0.0, 0.0, 0.0, 0.0)
     ku = sc.stream_unpack_channels(t_cap, out, misses, kp)
@@ -988,11 +1101,9 @@ def phase_pipe_main_shape(width=500, height=500, chunk=64, depth=20,
     torch.cuda.synchronize()
     st = {"lanes": t_cap.shape[0], "cap": cap, "live_prefix": n_hit,
           "pack_max_word_err": pack_err, "unpack_max_word_err": unpack_err,
-          "sweep_rays_checked": k, "sweep_t_differ": t_diff,
-          "sweep_idx_differ_t_untied": untied,
-          "hits": int((ku[1] >= 0).sum())}
-    print(json.dumps(st))
-    if pack_err or unpack_err or t_diff or untied or not st["hits"]:
+          "hits": int((ku[1] >= 0).sum()), "sweep": sweep}
+    print(json.dumps({k: v for k, v in st.items() if k != "sweep"}))
+    if pack_err or unpack_err or not st["hits"]:
         raise AssertionError(f"mesh pipe at the path's shape disagrees "
                              f"with its plain versions: {st}")
     return st, (mt, t_min, rays)
@@ -1103,25 +1214,10 @@ def phase_mxu_sweep(n_rays=1 << 20, seed=0) -> dict:
     against B2's kernel on the same rays: the share of rays that hit on
     one side only, and of rays both hit on the same triangle."""
     from nrenderer_torch.ops import mesh_mxu
-    from nrenderer_torch.ops.bvh import build_mesh_accel
-    from nrenderer_torch.ops.mesh_cuda import (
-        make_mesh_tables, sweep_mesh_full)
-    from nrenderer_torch.ops.pt_core import make_mat_channels, scene_epsilon
+    from nrenderer_torch.ops.mesh_cuda import sweep_mesh_full
     from nrenderer_torch.ops.soa import V3
-    ss, _, _, arrays = _setup("cuda", MESH_SCENE, objs=(ICO,))
-    bt = build_mesh_accel(arrays, make_mat_channels(ss)).bt
-    mt = make_mesh_tables(bt, "cuda")
-    t_min = scene_epsilon(ss)
-    g = torch.Generator(device="cuda").manual_seed(seed)
-    u = lambda lo, hi: lo + (hi - lo) * torch.rand(
-        n_rays, generator=g, device="cuda")
-    o = V3(u(-270.0, 270.0), u(-270.0, 270.0), u(760.0, 1300.0))
-    tgt = V3(u(-150.0, 150.0), u(-278.0, -7.0), u(850.0, 1150.0))
-    dv = torch.stack([tgt.x - o.x, tgt.y - o.y, tgt.z - o.z])
-    dv = dv / torch.linalg.vector_norm(dv, dim=0)
-    d = V3(dv[0].contiguous(), dv[1].contiguous(), dv[2].contiguous())
-    cap = torch.where(torch.rand(n_rays, generator=g, device="cuda") < 0.1,
-                      0.0, float("inf"))
+    bt, mt, t_min, rays = _ico_rays(n_rays, seed)
+    o, d, cap = V3(*rays[0:3]), V3(*rays[3:6]), rays[6]
     name = mesh_mxu.KERNEL_NAME
     print(f"== phase 17: {name} vs plain, ico_5120.obj ({bt.n_blocks} "
           f"blocks of {bt.block}), {n_rays} rays")
@@ -1221,30 +1317,58 @@ def _edge_report(mt, o, d, t_min, b4, b2, rays) -> list:
     return out
 
 
-def _engine_vs_plain(mt, rays, t_min, f2b, mxu, label) -> dict:
+def _engine_vs_plain(mt, rays, t_min, f2b, mxu, label, timing=False,
+                     need_hits=True) -> dict:
     """One sweep engine's kernel (B4 with `mxu`, else B2) against its plain
     version on the (7, n) rays `rays` (o, d, cap) on the card: every output
-    bit for bit (t as `sweep_mesh_full` returns it, +inf on a miss)."""
+    bit for bit (t as `sweep_mesh_full` returns it, +inf on a miss).  With
+    `timing`: the kernel's time (5 calls between events), its bound from
+    the plain version's counts, and for B2 the schedule counts of its
+    warps (`mesh_cuda.schedule_counts`, 32 consecutive rays a warp)."""
     from nrenderer_torch.ops import mesh_cuda, mesh_mxu
     from nrenderer_torch.ops.soa import V3
     o, d, cap = V3(rays[0], rays[1], rays[2]), V3(rays[3], rays[4],
                                                    rays[5]), rays[6]
+    work = {"enter": []} if timing and not mxu else {}
     if mxu:
-        got = mesh_mxu.sweep_mxu(mt, o, d, t_min, cap)
-        raw = mesh_mxu.sweep_mxu_plain(mt, o, d, t_min, cap)
+        sweep = lambda: mesh_mxu.sweep_mxu(mt, o, d, t_min, cap)
+        raw = mesh_mxu.sweep_mxu_plain(mt, o, d, t_min, cap, stats=work)
     else:
-        got = mesh_cuda._sweep_cuda(mt, o, d, t_min, cap, f2b, False)
-        raw = mesh_cuda.sweep_mesh_plain(mt, o, d, t_min, cap, f2b=f2b)
+        sweep = lambda: mesh_cuda._sweep_cuda(mt, o, d, t_min, cap, f2b,
+                                              False)
+        raw = mesh_cuda.sweep_mesh_plain(mt, o, d, t_min, cap, f2b=f2b,
+                                         stats=work)
+    got = sweep()
     torch.cuda.synchronize()
     norm = lambda out: [torch.where(out[1] >= 0, out[0], float("inf")),
                         out[1]] + list(out[2:6])
-    differ = [int((a != b).sum()) for a, b in zip(norm(got), norm(raw))]
+    got, want = norm(got), norm(raw)
+    differ = [int((a != b).sum()) for a, b in zip(got, want)]
+    hit = got[1] >= 0
     st = {"check": label, "kernel": (mesh_mxu if mxu else mesh_cuda
                                      ).KERNEL_NAME,
           "rays": int(rays.shape[1]), "live": int((cap > t_min).sum()),
-          "hits": int((got[1] >= 0).sum()), "outputs_differ": differ}
+          "hits": int(hit.sum()), "outputs_differ": differ,
+          "max_abs_err": float((got[0][hit] - want[0][hit]).abs().max())
+          if bool(hit.any()) else 0.0}
+    if timing:
+        tri_flops = FLOPS_MXU_TRI if mxu else FLOPS_MESH_TRI
+        n_bytes = st["rays"] * 4 * (7 + 6) + _table_bytes(
+            mt.tris, mt.bb, mt.coef if mxu else None)
+        st["kernel_ms"] = _time_ms(sweep, 5)
+        st["bound_ms"], st["bound_by"] = _bound(
+            work["slab_tests"] * FLOPS_SLAB + work["tri_tests"] * tri_flops,
+            n_bytes)
+        st["slab_tests"], st["tri_tests"] = (work["slab_tests"],
+                                             work["tri_tests"])
+        if not mxu:
+            n = st["rays"]
+            st["schedule"] = mesh_cuda.schedule_counts(
+                torch.cat(work["enter"]),
+                torch.arange(n, device=rays.device) // mesh_cuda.WARP,
+                mt.block)
     print(json.dumps(st))
-    if any(differ) or not st["hits"]:
+    if any(differ) or (need_hits and not st["hits"]):
         raise AssertionError(f"{label}: kernel vs plain version: {st}")
     return st
 
@@ -1285,7 +1409,8 @@ def phase_hybrid_mxu_path(b2_pixels, prefix, width=500, height=500,
     mt, t_min, rays = prefix
     st["prefix_vs_plain"] = _engine_vs_plain(
         mt, rays, t_min, True, True,
-        "phase 18: B4 on the hybrid chunk's sorted live prefix")
+        "phase 18: B4 on the hybrid chunk's sorted live prefix",
+        timing=True)
     return st
 
 
@@ -1362,7 +1487,7 @@ def phase_mlt_mesh(width=128, height=128, chains=1024, mutations=256,
     against AccPathTracer's."""
     from nrenderer_torch import cli
     from nrenderer_torch.server.registry import get_server
-    runs, images = [], {}
+    runs, images, batches = [], {}, None
     for mxu, kernel in (("0", "mesh_sweep_kernel"),
                         ("1", "mesh_sweep_mxu_kernel")):
         out = os.path.join(ROOT, "build", f"smoke_mlt_mesh_{mxu}.png")
@@ -1381,10 +1506,20 @@ def phase_mlt_mesh(width=128, height=128, chains=1024, mutations=256,
             raise AssertionError(f"MLT ({kernel}) launched {other}")
         if sorted(held) != ["bounce", "shadow"]:
             raise AssertionError(f"MLT ({kernel}) swept no {held.keys()}")
+        # each engine on the batches the B2 run held, timed; B4 also on
+        # the batches of its own run
+        batches = batches or held
         st["batches_vs_plain"] = [
             _engine_vs_plain(mt, rays, t_min, f2b, mxu == "1",
-                             f"phase 20: {kernel} on an MLT {kind} batch")
-            for kind, (mt, rays, t_min, f2b) in sorted(held.items())]
+                             f"phase 20: {kernel} on an MLT {kind} batch "
+                             f"({rays.shape[1]} rays)", timing=True)
+            for kind, (mt, rays, t_min, f2b) in sorted(batches.items())]
+        if held is not batches:
+            st["batches_vs_plain"] += [
+                _engine_vs_plain(mt, rays, t_min, f2b, True,
+                                 f"phase 20: {kernel} on its own run's MLT "
+                                 f"{kind} batch")
+                for kind, (mt, rays, t_min, f2b) in sorted(held.items())]
         images[mxu] = get_server().screen.get_pixels()[:, :, :3].copy()
         runs.append(_mlt_stats(st, chains, mutations))
     out = os.path.join(ROOT, "build", "smoke_mlt_mesh_acc.png")
@@ -1450,9 +1585,11 @@ def main() -> int:
     paths = [phase_main_path(), phase_acc_path(), *phase_env_paths(),
              phase_mesh_path(), *phase_tex_paths(), phase_hybrid_path()]
     b2_pixels = get_server().screen.get_pixels()[:, :, :3].copy()
-    paths += [phase_env_mesh_path(),
-              phase_hybrid_mxu_path(b2_pixels, prefix), phase_mlt_cornell(),
-              *phase_mlt_mesh()]
+    paths.append(phase_env_mesh_path())
+    mxu_path = phase_hybrid_mxu_path(b2_pixels, prefix)
+    paths += [mxu_path, phase_mlt_cornell()]
+    mlt_runs = phase_mlt_mesh()
+    paths += mlt_runs
     breakdown = phase_breakdown()
     launches = {}
     for run in paths:
@@ -1468,6 +1605,18 @@ def main() -> int:
               f"{run['mbounce_rays_per_s']:.1f} Mbounce-rays/s, peak "
               f"{run['peak_memory_bytes'] / 2**30:.2f} GiB on {gpu}")
     print(f"hybrid chunk: {breakdown['chunk_seconds']:.3f} s on {gpu}")
+    # each sweep engine at its paths' own shapes: the hybrid chunk's sorted
+    # prefix (phases 13 and 18) and MLT's path and shadow batches (phase 20)
+    shape = lambda st: {"rays": st["rays"], "ms": st["kernel_ms"],
+                        "bound_ms": st["bound_ms"]}
+    b2_shapes = {"hybrid_prefix": shape(pipe["sweep"]),
+                 **{f"mlt_{st['rays']}": shape(st)
+                    for st in mlt_runs[0]["batches_vs_plain"]}}
+    b4_shapes = {"hybrid_prefix": shape(mxu_path["prefix_vs_plain"]),
+                 **{f"mlt_{st['rays']}": shape(st)
+                    for st in mlt_runs[1]["batches_vs_plain"][:2]}}
+    for name, shapes in (("B2", b2_shapes), ("B4", b4_shapes)):
+        print(f"{name} at its paths' shapes on {gpu}: {json.dumps(shapes)}")
     print(gpu)
     kernels = [{
         "name": name, "route": "cuda", "source": pt_cuda.KERNEL_SOURCE,
@@ -1486,6 +1635,7 @@ def main() -> int:
         "max_abs_err": sweep["max_abs_err"], "ms": sweep["kernel_ms"],
         "plain_ms": sweep["plain_ms"], "bound_ms": sweep["bound_ms"],
         "bound_by": sweep["bound_by"], "library_ms": None,
+        "path_shapes": b2_shapes,
         "inlined_in": ["pt_bsdf_mesh_kernel", "pt_bsdf_mesh_tex_kernel"],
         "inlined_launches": launches.get("pt_bsdf_mesh_kernel", 0)
         + launches.get("pt_bsdf_mesh_tex_kernel", 0)})
@@ -1495,7 +1645,8 @@ def main() -> int:
         "launches": launches.get(mesh_mxu.KERNEL_NAME, 0),
         "max_abs_err": mxu["max_abs_err"], "ms": mxu["kernel_ms"],
         "plain_ms": mxu["plain_ms"], "bound_ms": mxu["bound_ms"],
-        "bound_by": mxu["bound_by"], "library_ms": None})
+        "bound_by": mxu["bound_by"], "library_ms": None,
+        "path_shapes": b4_shapes})
     for name, key, case in ((stream_compact.PACK, "pack", "stage"),
                             (stream_compact.UNPACK, "unpack", "mesh")):
         st = compactor[case]

@@ -2,9 +2,10 @@
 //
 // Replaces the TPU kernel nrenderer_tpu/ops/mesh_pallas.py:439 _sweep_kernel
 // (pallas_call :491, built by _build_sweep :477, called by sweep_mesh_full
-// :503): the closest triangle for each ray of a batch.  One thread per ray
-// runs the device function nr_mesh::mesh_sweep (csrc/mesh_sweep.cuh, which
-// says what it computes, what bounds it and how it is laid out).  The
+// :503): the closest triangle for each ray of a batch.  One thread per ray;
+// each warp runs the warp-cooperative device function nr_mesh::warp_sweep
+// (csrc/mesh_sweep.cuh, which says what it computes, what bounds it and
+// how it is laid out) with all 32 lanes, a lane past the end with no ray.  The
 // Python wrapper, the plain torch version and the launch counter are in
 // nrenderer_torch/ops/mesh_cuda.py.
 //
@@ -31,13 +32,23 @@ mesh_sweep_kernel(const float* __restrict__ rays, const int n,
                   const nr_mesh::MeshArgs m, const float t_min,
                   const int f2b, float* __restrict__ out) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const float dx = rays[3 * n + i], dy = rays[4 * n + i],
-              dz = rays[5 * n + i];
+  // lanes past the end take part in the warp sweep with no ray
+  const bool real = i < n;
+  float ox = 0.0f, oy = 0.0f, oz = 0.0f, dx = 0.0f, dy = 0.0f, dz = 1.0f;
+  float cap = 0.0f;
+  if (real) {
+    ox = rays[i];
+    oy = rays[n + i];
+    oz = rays[2 * n + i];
+    dx = rays[3 * n + i];
+    dy = rays[4 * n + i];
+    dz = rays[5 * n + i];
+    cap = rays[6 * n + i];
+  }
   const int oct = f2b ? (dx > 0.0f) * 4 + (dy > 0.0f) * 2 + (dz > 0.0f) : -1;
   nr_mesh::SweepHit h;
-  nr_mesh::mesh_sweep<kUv>(m, rays[i], rays[n + i], rays[2 * n + i], dx, dy,
-                           dz, t_min, rays[6 * n + i], oct, h);
+  nr_mesh::warp_sweep<kUv>(m, ox, oy, oz, dx, dy, dz, t_min, cap, oct, h);
+  if (!real) return;
   out[i] = h.idx >= 0.0f ? h.t : INFINITY;
   out[n + i] = h.idx;
   out[2 * n + i] = h.nx;

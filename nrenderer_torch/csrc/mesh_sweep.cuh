@@ -17,18 +17,25 @@
 // winner's (u, v) is uv1 + bu * ue1 + bv * ue2 with bu = u * inv_det.  The
 // best t starts at the cap and stays there on a miss (idx -1).
 //
-// Design for the H100: one thread is one ray.  Pallas culls a block for a
-// whole 32x128 ray tile; here each ray culls for itself, so a ray only
-// tests the triangles of the blocks its own slab test enters (results
-// differ from the tile cull only where a hit lies on a block's AABB face
-// within rounding).  The triangle table stays in global memory (5120
-// triangles x 64 bytes is 320 KB, past a block's shared memory): a triangle
-// row is 16 floats, read as four aligned float4 loads, and the lanes of a
-// warp that sweep the same block read the same row at once, so the loads
-// are broadcasts served from L1.  Bound: FP32 issue, ~40 operations per
-// triangle test and ~18 per block slab test, times the tests that the rays
-// need; warps diverge where their rays enter different blocks.  No
-// sub-block gating (it never changes a result).
+// Design for the H100: a warp sweeps 32 rays, one a lane (warp_sweep).
+// Pallas culls a block for a whole 32x128 ray tile; here each ray culls
+// for itself, so only the blocks a ray's own slab test enters are tested
+// for it (results differ from the tile cull only where a hit lies on a
+// block's AABB face within rounding, or on a box face that the ray runs
+// inside, where its slab test finds t_far = 0).  A lane that tests its entered
+// block alone makes the whole warp wait for its 128 serial tests while
+// the lanes that did not enter idle (0.5 to 4 entered blocks a ray against
+// up to 40 blocks on the paths), and in front-to-back order the lanes'
+// rows differ, so their loads are a gather.  So where few lanes enter a
+// block at a step, the warp tests each entering lane's block together,
+// a triangle a lane, and reduces to the winner: one block costs block / 32
+// tests a lane and the rows are read as 32 consecutive 64-byte rows.
+// Where many lanes enter, each tests alone as before.  The triangle table
+// stays in global memory (5120 triangles x 64 bytes is 320 KB, past a
+// block's shared memory), read through L1.  Bound: FP32 issue, ~53
+// operations per triangle test and ~26 per block slab test (chip_smoke.py
+// counts them), times the tests the rays need.  No sub-block gating (it
+// never changes a result).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -85,10 +92,101 @@ __device__ __forceinline__ bool enters_block(
          (fmaxf(t_near, t_min) < t_best);
 }
 
-// Sweep one ray.  `oct` >= 0 visits blocks in order[oct] (the ray's
-// direction octant), -1 in natural order.
+// One Moller-Trumbore test of the ray against the triangle row `r` (four
+// float4: v1x v1y v1z e1x | e1y e1z e2x e2y | e2z nx ny nz | mat pid):
+// its w when accepted (t_min <= w < t_best, pid >= 0), else +inf, which no
+// comparison with a best can let win (a NaN w is rejected by w >= t_min).
+// `u`, `vv` and `inv_det` are the winner's barycentric terms for the UV
+// interpolation.
+__device__ __forceinline__ float tri_hit(
+    const float4* __restrict__ r, const float ox, const float oy,
+    const float oz, const float dx, const float dy, const float dz,
+    const float t_min, const float t_best, float& u, float& vv,
+    float& inv_det) {
+  const float4 a = r[0];  // v1x v1y v1z e1x
+  const float4 b = r[1];  // e1y e1z e2x e2y
+  const float e2z = r[2].x;
+  const float pid = r[3].y;
+  const float e1x = a.w, e1y = b.x, e1z = b.y;
+  const float e2x = b.z, e2y = b.w;
+  const float px = dy * e2z - dz * e2y;
+  const float py = dz * e2x - dx * e2z;
+  const float pz = dx * e2y - dy * e2x;
+  const float det0 = e1x * px + e1y * py + e1z * pz;
+  const float sign = det0 > 0.0f ? 1.0f : -1.0f;
+  const float det = det0 * sign;
+  const float tx = (ox - a.x) * sign;
+  const float ty = (oy - a.y) * sign;
+  const float tz = (oz - a.z) * sign;
+  u = tx * px + ty * py + tz * pz;
+  const float qx = ty * e1z - tz * e1y;
+  const float qy = tz * e1x - tx * e1z;
+  const float qz = tx * e1y - ty * e1x;
+  vv = dx * qx + dy * qy + dz * qz;
+  inv_det = 1.0f / (det == 0.0f ? 1.0f : det);
+  const float w = (e2x * qx + e2y * qy + e2z * qz) * inv_det;
+  const bool ok = (det >= 1e-6f) && (u >= 0.0f) && (u <= det) &&
+                  (vv >= 0.0f) && (u + vv <= det) && (w >= t_min) &&
+                  (w < t_best) && (pid >= 0.0f);
+  return ok ? w : INFINITY;
+}
+
+// The winner `i` of block `blk` at `w` becomes the ray's best: its shading
+// from its row and, with UV tables, its (u, v, tex).
 template <bool kUv>
-__device__ __forceinline__ void mesh_sweep(const MeshArgs& m, const float ox,
+__device__ __forceinline__ void take_hit(const MeshArgs& m, const int blk,
+                                         const int i, const float w,
+                                         const float u, const float vv,
+                                         const float inv_det, SweepHit& h) {
+  const size_t k = (size_t)blk * m.block + i;
+  const float4 c = m.tris[4 * k + 2];  // e2z nx ny nz
+  const float4 e = m.tris[4 * k + 3];  // mat pid
+  h.t = w;
+  h.idx = e.y;
+  h.nx = c.y;
+  h.ny = c.z;
+  h.nz = c.w;
+  h.mat = e.x;
+  if constexpr (kUv) {
+    const float4 f = m.uvs[2 * k];
+    const float4 g = m.uvs[2 * k + 1];
+    const float bu = u * inv_det;
+    const float bv = vv * inv_det;
+    h.u = f.x + bu * f.z + bv * g.x;
+    h.v = f.y + bu * f.w + bv * g.y;
+    h.tex = g.z;
+  }
+}
+
+// Lanes of a warp that enter a block at one step: at or above this count
+// each entering lane tests its block alone (the dense step: `block` serial
+// tests, the warp busy once for all of them); below it the warp tests
+// each entering lane's block together (the sparse step: block / 32 tests
+// a lane, plus ~18 shuffles, per entering lane).  Chosen on an H100 80GB
+// HBM3 at 700 W with tools/torch_ab.py --mesh --dense-min (PERF.md):
+// against 24 in the same call, 16 ran B1e's 33-spp launch in 34.86 ms
+// (35.08-35.12), the textured grid's launch in 3.89 ms (4.15-4.16), B2 on
+// 2048 front-to-back rays in 0.125 ms (0.161-0.189) and tied elsewhere;
+// 32 was slower on every mesh form.
+constexpr int kDenseMin = 16;
+
+constexpr unsigned kFullMask = 0xffffffffu;
+
+// Sweep one ray per lane; all 32 lanes of the warp call it converged, each
+// with its own ray, a lane without one with a zero cap (no w satisfies
+// t_min <= w < t_cap: it only helps the others).  `oct` >= 0 visits blocks
+// in order[oct] (the ray's direction octant), -1 in natural order.
+//
+// At step s each lane slab-tests its s-th block against its running best
+// and the warp ballots the lanes that enter.  Fewer than kDenseMin: for
+// each entering lane in turn, its ray, best and block go to every lane,
+// lane j tests triangles j, j + 32, ... of that block, a warp reduction
+// takes the least accepted w and, among equal w, the lowest triangle, and
+// the owner takes it if w beats its best strictly.  That is the winner a
+// serial w < t_best loop over the block picks (the first at the least w),
+// so every (lane, block) pair gives the serial sweep's result bit for bit.
+template <bool kUv>
+__device__ __forceinline__ void warp_sweep(const MeshArgs& m, const float ox,
                                            const float oy, const float oz,
                                            const float dx, const float dy,
                                            const float dz, const float t_min,
@@ -99,59 +197,69 @@ __device__ __forceinline__ void mesh_sweep(const MeshArgs& m, const float ox,
   h.nx = h.ny = h.nz = h.mat = 0.0f;
   h.u = h.v = 0.0f;
   h.tex = -1.0f;
-  // no w satisfies t_min <= w < t_cap: nothing to test (a dead or padded
-  // ray's zero cap)
-  if (!(t_cap > t_min)) return;
+  const bool live = t_cap > t_min;
+  if (__ballot_sync(kFullMask, live) == 0u) return;
+  const int lane = threadIdx.x & 31;
   const float inv_dx = inv_axis(dx), inv_dy = inv_axis(dy),
               inv_dz = inv_axis(dz);
   for (int s = 0; s < m.n_blocks; ++s) {
     const int blk = oct >= 0 ? m.order[oct * m.n_blocks + s] : s;
-    if (!enters_block(m.bb, blk, ox, oy, oz, inv_dx, inv_dy, inv_dz, t_min,
-                      h.t))
-      continue;
-    const float4* __restrict__ row = m.tris + (size_t)blk * m.block * 4;
-    for (int i = 0; i < m.block; ++i) {
-      const float4 a = row[4 * i];      // v1x v1y v1z e1x
-      const float4 b = row[4 * i + 1];  // e1y e1z e2x e2y
-      const float4 c = row[4 * i + 2];  // e2z nx ny nz
-      const float4 e = row[4 * i + 3];  // mat pid
-      const float e1x = a.w, e1y = b.x, e1z = b.y;
-      const float e2x = b.z, e2y = b.w, e2z = c.x;
-      const float px = dy * e2z - dz * e2y;
-      const float py = dz * e2x - dx * e2z;
-      const float pz = dx * e2y - dy * e2x;
-      const float det0 = e1x * px + e1y * py + e1z * pz;
-      const float sign = det0 > 0.0f ? 1.0f : -1.0f;
-      const float det = det0 * sign;
-      const float tx = (ox - a.x) * sign;
-      const float ty = (oy - a.y) * sign;
-      const float tz = (oz - a.z) * sign;
-      const float u = tx * px + ty * py + tz * pz;
-      const float qx = ty * e1z - tz * e1y;
-      const float qy = tz * e1x - tx * e1z;
-      const float qz = tx * e1y - ty * e1x;
-      const float vv = dx * qx + dy * qy + dz * qz;
-      const float inv_det = 1.0f / (det == 0.0f ? 1.0f : det);
-      const float w = (e2x * qx + e2y * qy + e2z * qz) * inv_det;
-      const bool ok = (det >= 1e-6f) && (u >= 0.0f) && (u <= det) &&
-                      (vv >= 0.0f) && (u + vv <= det) && (w >= t_min) &&
-                      (w < h.t) && (e.y >= 0.0f);
-      if (ok) {
-        h.t = w;
-        h.idx = e.y;
-        h.nx = c.y;
-        h.ny = c.z;
-        h.nz = c.w;
-        h.mat = e.x;
-        if constexpr (kUv) {
-          const float4 f = m.uvs[2 * ((size_t)blk * m.block + i)];
-          const float4 g = m.uvs[2 * ((size_t)blk * m.block + i) + 1];
-          const float bu = u * inv_det;
-          const float bv = vv * inv_det;
-          h.u = f.x + bu * f.z + bv * g.x;
-          h.v = f.y + bu * f.w + bv * g.y;
-          h.tex = g.z;
+    const bool enters = live && enters_block(m.bb, blk, ox, oy, oz, inv_dx,
+                                             inv_dy, inv_dz, t_min, h.t);
+    unsigned todo = __ballot_sync(kFullMask, enters);
+    if (todo == 0u) continue;
+    if (__popc(todo) >= kDenseMin) {  // dense step: each lane alone
+      if (enters) {
+        const float4* __restrict__ row = m.tris + (size_t)blk * m.block * 4;
+        for (int i = 0; i < m.block; ++i) {
+          float u, vv, inv_det;
+          const float w = tri_hit(row + 4 * i, ox, oy, oz, dx, dy, dz, t_min,
+                                  h.t, u, vv, inv_det);
+          if (w < h.t) take_hit<kUv>(m, blk, i, w, u, vv, inv_det, h);
         }
+      }
+      continue;
+    }
+    while (todo != 0u) {  // sparse step: the warp tests each lane's block
+      const int src = __ffs(todo) - 1;
+      todo &= todo - 1u;
+      const float sox = __shfl_sync(kFullMask, ox, src);
+      const float soy = __shfl_sync(kFullMask, oy, src);
+      const float soz = __shfl_sync(kFullMask, oz, src);
+      const float sdx = __shfl_sync(kFullMask, dx, src);
+      const float sdy = __shfl_sync(kFullMask, dy, src);
+      const float sdz = __shfl_sync(kFullMask, dz, src);
+      const float st = __shfl_sync(kFullMask, h.t, src);
+      const int sblk = __shfl_sync(kFullMask, blk, src);
+      const float4* __restrict__ row = m.tris + (size_t)sblk * m.block * 4;
+      float bw = INFINITY;
+      int bi = m.block;
+      for (int i = lane; i < m.block; i += 32) {
+        float u, vv, inv_det;
+        const float w = tri_hit(row + 4 * i, sox, soy, soz, sdx, sdy, sdz,
+                                t_min, st, u, vv, inv_det);
+        if (w < bw) {  // strict: the lane's first at its least w
+          bw = w;
+          bi = i;
+        }
+      }
+      for (int off = 16; off > 0; off >>= 1) {
+        const float ow = __shfl_xor_sync(kFullMask, bw, off);
+        const int oi = __shfl_xor_sync(kFullMask, bi, off);
+        if (ow < bw || (ow == bw && oi < bi)) {
+          bw = ow;
+          bi = oi;
+        }
+      }
+      if (lane == src && bw < h.t) {
+        // the winner's barycentric terms, recomputed on the owner's own
+        // ray with the same operations: the same bits
+        float u = 0.0f, vv = 0.0f, inv_det = 0.0f;
+        if constexpr (kUv) {
+          tri_hit(row + 4 * bi, ox, oy, oz, dx, dy, dz, t_min, h.t, u, vv,
+                  inv_det);
+        }
+        take_hit<kUv>(m, blk, bi, bw, u, vv, inv_det, h);
       }
     }
   }

@@ -1,17 +1,17 @@
-// Path-tracing megakernel for NVIDIA Hopper (sm_90a), in ten forms.
+// Path-tracing megakernels for NVIDIA Hopper (sm_90a), in ten forms.
 //
 // Replaces the TPU kernel nrenderer_tpu/ops/pt_pallas.py:123 _pt_kernel in
 // its forms bsdf=False / bsdf=True, each without or with the env-map terms
 // (env_rows / env_exact), the mesh form (mesh=(n_blocks, b): the blocked
 // triangle sweep inline in the bounce loop) and the texture form (n_tex > 0,
-// mesh_uv: binned surface textures).  pt_kernel<kBsdf, kEnv, kMesh, kTex> is
-// instantiated ten times: pt_diffuse_kernel <false, false, false, false>
-// (SimplePathTracer's main path), pt_bsdf_kernel <true, false, false, false>
-// (AccPathTracer), pt_diffuse_env_kernel and pt_bsdf_env_kernel (kEnv),
-// pt_bsdf_mesh_kernel <true, false, true, false> (AccPathTracer's megamesh
-// route, 65 to 1024 triangles, no env map), and each of those five with
-// kTex: pt_diffuse_tex_kernel, pt_bsdf_tex_kernel, pt_diffuse_env_tex_kernel,
-// pt_bsdf_env_tex_kernel and pt_bsdf_mesh_tex_kernel.  The Python wrapper,
+// mesh_uv: binned surface textures).  pt_kernel<kBsdf, kEnv, kTex> is
+// instantiated eight times: pt_diffuse_kernel <false, false, false>
+// (SimplePathTracer's main path), pt_bsdf_kernel <true, false, false>
+// (AccPathTracer), pt_diffuse_env_kernel and pt_bsdf_env_kernel (kEnv), and
+// each of those four with kTex: pt_diffuse_tex_kernel, pt_bsdf_tex_kernel,
+// pt_diffuse_env_tex_kernel and pt_bsdf_env_tex_kernel; pt_mesh_kernel<kTex>
+// twice: pt_bsdf_mesh_kernel (AccPathTracer's megamesh route, 65 to 1024
+// triangles, no env map) and pt_bsdf_mesh_tex_kernel.  The Python wrapper,
 // its plain torch version and the launch counters are in
 // nrenderer_torch/ops/pt_cuda.py.
 //
@@ -41,11 +41,13 @@
 // the Pallas kernel peels bounce 0, the env form runs it even at depth 0.
 //
 // The mesh form: the dense pass tests spheres and planes only (the wrapper
-// packs no triangles); then nr_mesh::mesh_sweep (csrc/mesh_sweep.cuh) runs
-// over the blocked triangle pool with the dense hit's t as its cap, in
-// natural block order (the Pallas mesh form passes no ord_ref), and a
-// triangle that beats the cap wins.  Its material row is the one the JAX
-// select chain over the material table gives its id (mesh_mat_row).
+// packs no triangles); then the warp-cooperative sweep nr_mesh::warp_sweep
+// (csrc/mesh_sweep.cuh) runs over the blocked triangle pool with the dense
+// hit's t as its cap, in natural block order (the Pallas mesh form passes
+// no ord_ref), and a triangle that beats the cap wins.  Its material row is
+// the one the JAX select chain over the material table gives its id
+// (mesh_mat_row).  The warp sweep needs all 32 lanes at every call, so the
+// mesh forms have a kernel of their own (pt_mesh_kernel).
 //
 // The texture form: a hit carries (u, v, texture id), from the winning
 // dense triangle's UV row (uv1 + (bu * ue1 + bv * ue2), the dense
@@ -66,7 +68,10 @@
 //
 // Design: one thread per pixel; each thread loops over its samples and their
 // bounces in registers and stops a path as soon as it dies (a dead path
-// changes nothing in the estimator, so stopping early is exact).  Pixel ids
+// changes nothing in the estimator, so stopping early is exact).  In the
+// mesh forms a lane whose path has ended stays in the bounce loop with no
+// ray until the warp's last path ends, so the warp sweep keeps all 32
+// lanes.  Pixel ids
 // follow the JAX kernel's numbering, pid = py * W + px with py = 0 the bottom
 // row, so both draw the same hash values.  The scene is a small packed
 // float32 table in device memory; every thread of a warp reads the same
@@ -84,12 +89,12 @@
 // paths die at different bounces and, in the BSDF form, as lanes of a warp
 // take different lobes of the material switch; memory traffic is one film
 // read and write per pixel per launch plus a few env texels per sample.
-// The mesh form adds per bounce a slab test per block and ~40 operations
-// per triangle of each entered block (the sweep's bound, mesh_sweep.cuh),
-// with divergence where the lanes of a warp enter different blocks; the
-// texture form adds one or two texel reads per hit.
-// This first design does nothing about either yet: no per-scene
-// specialisation, no path regeneration, no sorting of rays by material.
+// The mesh form adds per bounce a slab test per block and ~53 operations
+// per triangle of each entered block (the sweep's bound, mesh_sweep.cuh);
+// the warp sweep tests a block few lanes enter with the whole warp, so
+// lanes that enter different blocks no longer serialise 128 tests each.
+// The texture form adds one or two texel reads per hit.  Not done: per-
+// scene specialisation, sorting of rays by material.
 //
 // Built with nvcc for sm_90a without --use_fast_math (the hit tests and the
 // hash need IEEE division and sqrt) and with -fmad=false (see above; the
@@ -437,7 +442,7 @@ __device__ __forceinline__ int mesh_mat_row(const float mat, const int n_mat) {
   return ((float)mi == mat && mi >= 1 && mi < n_mat) ? mi : 0;
 }
 
-template <bool kBsdf, bool kEnv, bool kMesh, bool kTex>
+template <bool kBsdf, bool kEnv, bool kTex>
 __global__ void __launch_bounds__(128)
 pt_kernel(float* __restrict__ film, const float* __restrict__ scene,
           const SceneCounts nc, const CamArgs cam, const int width,
@@ -594,23 +599,6 @@ pt_kernel(float* __restrict__ film, const float* __restrict__ scene,
           htex = q[6];
         }
       }
-      if constexpr (kMesh) {  // the blocked sweep, capped by the dense hit
-        nr_mesh::SweepHit sh;
-        nr_mesh::mesh_sweep<kTex>(mesh, ox, oy, oz, dx, dy, dz, cam.t_min,
-                                  t_best, -1, sh);
-        if (sh.idx >= 0.0f) {
-          t_best = sh.t;
-          nx = sh.nx;
-          ny = sh.ny;
-          nz = sh.nz;
-          m_best = mesh_mat_row(sh.mat, nc.n_mat);
-          if constexpr (kTex) {
-            hu = sh.u;
-            hv = sh.v;
-            htex = sh.tex;
-          }
-        }
-      }
       float t_l = INFINITY, lr_ = 0.0f, lg_ = 0.0f, lb_ = 0.0f;
       for (int i = 0; i < nc.n_al; ++i) {
         const float* p = al + i * AL_STRIDE;
@@ -746,6 +734,222 @@ pt_kernel(float* __restrict__ film, const float* __restrict__ scene,
   film[3 * pid + 2] = fb;
 }
 
+// The mesh forms (B1e and its texture form): pt_kernel's BSDF bounce
+// around the warp sweep.  Their scene table holds no triangles (the
+// launcher checks), so the dense pass is spheres and planes.
+
+// A jittered camera ray of sample `sp` of pixel (pxf, pyf) (thin lens when
+// lens_r > 0), normalised: pt_kernel's, in its order.
+__device__ __forceinline__ void camera_ray(const CamArgs& cam,
+                                           const uint32_t upid,
+                                           const uint32_t sp,
+                                           const uint32_t seed,
+                                           const float pxf, const float pyf,
+                                           float& ox, float& oy, float& oz,
+                                           float& dx, float& dy, float& dz) {
+  const float rx = hash_uniform(upid, sp, 0u, seed) * 2.0f - 1.0f;
+  const float ry = hash_uniform(upid, sp, 1u, seed) * 2.0f - 1.0f;
+  const float s = (pxf + rx) * cam.inv_w;
+  const float t = (pyf + ry) * cam.inv_h;
+  ox = cam.pos[0];
+  oy = cam.pos[1];
+  oz = cam.pos[2];
+  if (cam.lens_r > 0.0f) {
+    const float lr = sqrtf(hash_uniform(upid, sp, 2u, seed)) * cam.lens_r;
+    const float phi = hash_uniform(upid, sp, 3u, seed) * TWO_PI;
+    const float du = lr * cosf(phi);
+    const float dv = lr * sinf(phi);
+    ox = cam.pos[0] + du * cam.u[0] + dv * cam.v[0];
+    oy = cam.pos[1] + du * cam.u[1] + dv * cam.v[1];
+    oz = cam.pos[2] + du * cam.u[2] + dv * cam.v[2];
+  }
+  dx = cam.ll[0] + s * cam.hor[0] + t * cam.ver[0] - ox;
+  dy = cam.ll[1] + s * cam.hor[1] + t * cam.ver[1] - oy;
+  dz = cam.ll[2] + s * cam.hor[2] + t * cam.ver[2] - oz;
+  const float inv_len = rsqrtf(dx * dx + dy * dy + dz * dz);
+  dx *= inv_len;
+  dy *= inv_len;
+  dz *= inv_len;
+}
+
+// The closest hit over spheres and planes (pt_kernel's dense pass without
+// triangles): t (INFINITY on a miss), normal and material row.
+__device__ __forceinline__ float sphere_plane_hit(
+    const float* __restrict__ sph, const float* __restrict__ pln,
+    const SceneCounts& nc, const float t_min, const float ox, const float oy,
+    const float oz, const float dx, const float dy, const float dz,
+    float& nx, float& ny, float& nz, int& m_best) {
+  float t_best = INFINITY;
+  nx = ny = nz = 0.0f;
+  m_best = 0;
+  for (int i = 0; i < nc.n_sph; ++i) {
+    const float* p = sph + i * SPH_STRIDE;
+    const float ocx = ox - p[0], ocy = oy - p[1], ocz = oz - p[2];
+    const float bq = ocx * dx + ocy * dy + ocz * dz;
+    const float c = ocx * ocx + ocy * ocy + ocz * ocz - p[3];
+    const float a = dx * dx + dy * dy + dz * dz;
+    const float disc = bq * bq - a * c;
+    const float sq = sqrtf(fmaxf(disc, 0.0f));
+    const float inv_a = 1.0f / a;
+    const float t1 = (-bq - sq) * inv_a;
+    const float t2 = (-bq + sq) * inv_a;
+    const bool ok = disc > 0.0f;
+    const float th = (ok && t1 >= t_min) ? t1
+                                         : ((ok && t2 >= t_min) ? t2
+                                                                : INFINITY);
+    if (th < t_best) {
+      t_best = th;
+      nx = (ox + th * dx - p[0]) * p[4];
+      ny = (oy + th * dy - p[1]) * p[4];
+      nz = (oz + th * dz - p[2]) * p[4];
+      m_best = (int)p[5];
+    }
+  }
+  for (int i = 0; i < nc.n_pln; ++i) {
+    const float* p = pln + i * PLN_STRIDE;
+    const float th = patch_t(p, ox, oy, oz, dx, dy, dz, t_min);
+    if (th < t_best) {
+      t_best = th;
+      nx = p[3];
+      ny = p[4];
+      nz = p[5];
+      m_best = (int)p[13];
+    }
+  }
+  return t_best;
+}
+
+// pt_kernel<true, false, kTex> with the blocked pool swept by the warp
+// sweep.  The warp sweep needs all 32 lanes at every call, so the bounce
+// loop runs while any lane of the warp still has a live path, and a lane
+// whose path has ended (or that lies past the image) sweeps with no ray,
+// as a helper; every lane then starts the next sample together.  (A flat
+// loop, each lane starting its next sample as soon as its path ends,
+// gives the same film but was slower on the card: the lanes starting a
+// sample and the lanes scattering diverge in every iteration, and it
+// saves no sweep work, see chip_smoke.py phase 8's schedule counts.)
+template <bool kTex>
+__global__ void __launch_bounds__(128)
+pt_mesh_kernel(float* __restrict__ film, const float* __restrict__ scene,
+               const SceneCounts nc, const CamArgs cam, const int width,
+               const int height, const int sp0, const int n_spp,
+               const int depth, const uint32_t seed,
+               const nr_mesh::MeshArgs mesh,
+               const float* __restrict__ tex_tab, const int n_tex) {
+  const int pid = blockIdx.x * blockDim.x + threadIdx.x;
+  const bool in_image = pid < width * height;
+  const int py = pid / width;
+  const int px = pid - py * width;
+  const float pxf = (float)px;
+  const float pyf = (float)py;
+  const uint32_t upid = (uint32_t)pid;
+
+  const float* __restrict__ sph = scene;
+  const float* __restrict__ pln = sph + nc.n_sph * SPH_STRIDE;
+  const float* __restrict__ al = pln + nc.n_pln * PLN_STRIDE;
+  const float* __restrict__ mat = al + nc.n_al * AL_STRIDE;
+  const float* __restrict__ amb = mat + nc.n_mat * MAT_STRIDE;
+  const float amb_r = amb[0], amb_g = amb[1], amb_b = amb[2];
+
+  float fr = 0.0f, fg = 0.0f, fb = 0.0f;
+  if (in_image) {
+    fr = film[3 * pid + 0];
+    fg = film[3 * pid + 1];
+    fb = film[3 * pid + 2];
+  }
+  for (int k = 0; k < n_spp; ++k) {
+    float ox, oy, oz, dx, dy, dz;
+    camera_ray(cam, upid, (uint32_t)(sp0 + k), seed, pxf, pyf, ox, oy, oz,
+               dx, dy, dz);
+    const uint32_t sp = (uint32_t)(sp0 + k);
+    float tr = 1.0f, tg = 1.0f, tb = 1.0f;
+    float rr = 0.0f, rg = 0.0f, rb = 0.0f;
+    bool alive = in_image;
+    for (int b = 0; b < depth; ++b) {
+      if (!__any_sync(nr_mesh::kFullMask, alive)) break;
+      const uint32_t bseed = seed + (uint32_t)b * 0x9E3779B1u;
+      float nx = 0.0f, ny = 0.0f, nz = 0.0f;
+      int m_best = 0;
+      float t_best = -INFINITY;
+      if (alive) {
+        t_best = sphere_plane_hit(sph, pln, nc, cam.t_min, ox, oy, oz, dx,
+                                  dy, dz, nx, ny, nz, m_best);
+      }
+      nr_mesh::SweepHit sh;
+      nr_mesh::warp_sweep<kTex>(mesh, ox, oy, oz, dx, dy, dz, cam.t_min,
+                                t_best, -1, sh);
+      if (!alive) continue;
+      float hu = 0.0f, hv = 0.0f, htex = -1.0f;
+      if (sh.idx >= 0.0f) {
+        t_best = sh.t;
+        nx = sh.nx;
+        ny = sh.ny;
+        nz = sh.nz;
+        m_best = mesh_mat_row(sh.mat, nc.n_mat);
+        if constexpr (kTex) {
+          hu = sh.u;
+          hv = sh.v;
+          htex = sh.tex;
+        }
+      }
+      float t_l = INFINITY, lr_ = 0.0f, lg_ = 0.0f, lb_ = 0.0f;
+      for (int i = 0; i < nc.n_al; ++i) {
+        const float* p = al + i * AL_STRIDE;
+        const float th = patch_t(p, ox, oy, oz, dx, dy, dz, cam.t_min);
+        if (th < t_l) {
+          t_l = th;
+          lr_ = p[13];
+          lg_ = p[14];
+          lb_ = p[15];
+        }
+      }
+      if (!((t_best < INFINITY) && (t_best < t_l))) {
+        if (t_l < INFINITY) {
+          rr += tr * lr_;
+          rg += tg * lg_;
+          rb += tb * lb_;
+        }
+        alive = false;
+        continue;
+      }
+      const float u1 = hash_uniform(upid, sp, 4u, bseed);
+      const float u2 = hash_uniform(upid, sp, 5u, bseed);
+      const float* mt = mat + m_best * MAT_STRIDE;
+      const float* df = mt + M_DIFFUSE;
+      const float* alb = mt + M_ALBEDO;
+      float tdf[3], tal[3];
+      if constexpr (kTex) {
+        if (tex_lookup(tex_tab, n_tex, hu, hv, htex, tdf)) df = tdf;
+        if (tex_lookup(tex_tab, n_tex, hu, hv, mt[M_STEX], tal)) alb = tal;
+      }
+      F3 nd, w;
+      bsdf_scatter(mt, df, alb, F3{dx, dy, dz}, F3{nx, ny, nz}, u1, u2, upid,
+                   sp, bseed, &nd, &w);
+      tr = tr * w.x;
+      tg = tg * w.y;
+      tb = tb * w.z;
+      ox = ox + t_best * dx;
+      oy = oy + t_best * dy;
+      oz = oz + t_best * dz;
+      dx = nd.x;
+      dy = nd.y;
+      dz = nd.z;
+    }
+    if (alive) {
+      rr += tr * amb_r;
+      rg += tg * amb_g;
+      rb += tb * amb_b;
+    }
+    fr += rr;
+    fg += rg;
+    fb += rb;
+  }
+  if (!in_image) return;
+  film[3 * pid + 0] = fr;
+  film[3 * pid + 1] = fg;
+  film[3 * pid + 2] = fb;
+}
+
 __global__ void hash_fill_kernel(const int32_t* __restrict__ pid,
                                  const int32_t* __restrict__ sample,
                                  const int32_t* __restrict__ draw,
@@ -804,27 +1008,34 @@ int nr_pt_render(float* film, const float* scene, const int* counts,
       ((form & 8) != 0) != has_tex ||
       ((form & 4) && (form & 8) && mesh_uvs == nullptr))
     return (int)cudaErrorInvalidValue;
+  // the mesh forms' dense pass has no triangles (pt_cuda.pack_scene)
+  if ((form & 4) && nc.n_tri != 0) return (int)cudaErrorInvalidValue;
   const int n_pix = width * height;
   const int threads = 128;
   const int blocks = (n_pix + threads - 1) / threads;
   cudaStream_t st = (cudaStream_t)stream;
-#define NR_LAUNCH(B, E, M, T)                                               \
-  pt_kernel<B, E, M, T><<<blocks, threads, 0, st>>>(                        \
+#define NR_LAUNCH(B, E, T)                                                  \
+  pt_kernel<B, E, T><<<blocks, threads, 0, st>>>(                           \
       film, scene, nc, ca, width, height, sp0, n_spp, depth, (uint32_t)seed, \
       env_bin, env_map, env_h, env_w, mesh, tex_tab, n_tex)
+#define NR_LAUNCH_MESH(T)                                                   \
+  pt_mesh_kernel<T><<<blocks, threads, 0, st>>>(                            \
+      film, scene, nc, ca, width, height, sp0, n_spp, depth, (uint32_t)seed, \
+      mesh, tex_tab, n_tex)
   switch (form) {
-    case 0: NR_LAUNCH(false, false, false, false); break;
-    case 1: NR_LAUNCH(true, false, false, false); break;
-    case 2: NR_LAUNCH(false, true, false, false); break;
-    case 3: NR_LAUNCH(true, true, false, false); break;
-    case 5: NR_LAUNCH(true, false, true, false); break;
-    case 8: NR_LAUNCH(false, false, false, true); break;
-    case 9: NR_LAUNCH(true, false, false, true); break;
-    case 10: NR_LAUNCH(false, true, false, true); break;
-    case 11: NR_LAUNCH(true, true, false, true); break;
-    case 13: NR_LAUNCH(true, false, true, true); break;
+    case 0: NR_LAUNCH(false, false, false); break;
+    case 1: NR_LAUNCH(true, false, false); break;
+    case 2: NR_LAUNCH(false, true, false); break;
+    case 3: NR_LAUNCH(true, true, false); break;
+    case 5: NR_LAUNCH_MESH(false); break;
+    case 8: NR_LAUNCH(false, false, true); break;
+    case 9: NR_LAUNCH(true, false, true); break;
+    case 10: NR_LAUNCH(false, true, true); break;
+    case 11: NR_LAUNCH(true, true, true); break;
+    case 13: NR_LAUNCH_MESH(true); break;
     default: return (int)cudaErrorInvalidValue;
   }
+#undef NR_LAUNCH_MESH
 #undef NR_LAUNCH
   return (int)cudaGetLastError();
 }

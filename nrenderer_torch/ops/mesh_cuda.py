@@ -21,7 +21,9 @@ visited in natural order, or near to far along the ray's own direction
 octant (`f2b_ord`).  The Pallas kernel culls a block for a whole 32x128
 ray tile (it sweeps when any ray of the tile enters); here each ray culls
 for itself.  The two differ only where a hit lies on a block's AABB face
-within rounding."""
+within rounding, or on a box face that the ray runs inside (a zero
+direction component: its slab test finds t_far = 0 and skips the
+block)."""
 from __future__ import annotations
 
 import ctypes
@@ -201,7 +203,9 @@ def sweep_blocks_plain(mt: MeshTables, o: V3, d: V3, t_min: float,
 
     `stats` (optional dict) counts "slab_tests" (rays with a positive cap,
     times blocks) and "tri_tests" (rays times the real triangles of the
-    blocks they enter)."""
+    blocks they enter); with a list under "enter" it also appends the
+    call's (n, n_blocks) bool matrix of which ray enters a block at which
+    step of its order (`schedule_counts` reads it)."""
     n = o.x.shape[0]
     dev = o.x.device
     tris = mt.tris.to(dev).reshape(mt.n_blocks, mt.block, TRI_FLOATS)
@@ -222,26 +226,70 @@ def sweep_blocks_plain(mt: MeshTables, o: V3, d: V3, t_min: float,
     else:
         groups = [(None, torch.nonzero(live).flatten())]
         orders = None
+    enter = None
     if stats is not None:
         stats["slab_tests"] = (stats.get("slab_tests", 0)
                                + int(live.sum()) * mt.n_blocks)
+        if "enter" in stats:
+            enter = torch.zeros((n, mt.n_blocks), dtype=torch.bool,
+                                device=dev)
+            stats["enter"].append(enter)
     for g, rays in groups:
         for c0 in range(0, rays.shape[0], PLAIN_CHUNK):
             r = rays[c0:c0 + PLAIN_CHUNK]
             order = orders[g] if orders is not None else range(mt.n_blocks)
             _sweep_rays(tris, bb, order, real, o, d, t_min, r, out, stats,
-                        hit_test)
+                        hit_test, enter)
     return tuple(out)
 
 
+# The warp sweep's dense-step threshold, `kDenseMin` in csrc/mesh_sweep.cuh
+# (a test reads it from there).
+DENSE_MIN = 16
+WARP = 32
+
+
+def schedule_counts(enter: torch.Tensor, group: torch.Tensor,
+                    block: int) -> dict:
+    """Triangle tests that two schedules of the blocked sweep execute, in
+    lane slots (a warp's pass over one triangle is 32 slots, busy or idle),
+    from the (n, steps) matrix `enter` of `sweep_blocks_plain` and the
+    (n,) int64 `group` of each row (the warp and, for the path-tracing
+    kernel, the iteration its 32 lanes share):
+
+      - "union": each lane tests its entered block alone, so a group runs
+        `block` passes at every step where any of its lanes enters (the
+        per-lane sweep that the warp sweep replaced);
+      - "coop": the warp sweep (csrc/mesh_sweep.cuh): at a step where
+        DENSE_MIN or more lanes enter, `block` passes; below it,
+        ceil(block / 32) passes for each entering lane (a pair), each pair
+        also paying ~18 shuffles.
+
+    Returns both totals, the pairs and dense steps, and the needed lane
+    tests (rows times the block) beside them."""
+    n_groups = int(group.max()) + 1 if group.numel() else 0
+    cnt = torch.zeros((n_groups, enter.shape[1]), dtype=torch.int32,
+                      device=enter.device)
+    cnt.index_add_(0, group, enter.to(torch.int32))
+    dense = cnt >= DENSE_MIN
+    pairs = int(torch.where(dense, 0, cnt).sum())
+    n_dense = int(dense.sum())
+    per_pair = -(-block // WARP) * WARP
+    return {"union_slots": int((cnt > 0).sum()) * block * WARP,
+            "coop_slots": n_dense * block * WARP + pairs * per_pair,
+            "coop_pairs": pairs, "coop_dense_steps": n_dense,
+            "entered_slots": int(enter.sum()) * block}
+
+
 def _sweep_rays(tris, bb, order, real, o, d, t_min, r, out, stats,
-                hit_test):
-    """Sweep the rays `r` (indices) block by block, updating `out`."""
+                hit_test, enter=None):
+    """Sweep the rays `r` (indices) block by block, updating `out` (and
+    marking `enter[ray, step]`)."""
     ox, oy, oz = o.x[r], o.y[r], o.z[r]
     inv_dx, inv_dy, inv_dz = _inv(d.x[r]), _inv(d.y[r]), _inv(d.z[r])
     t_best = out[0][r]
     res = [a[r] for a in out[1:]]
-    for blk in order:
+    for step, blk in enumerate(order):
         lo, hi = bb[blk, 0:3], bb[blk, 4:7]
         t0x = (lo[0] - ox) * inv_dx
         t1x = (hi[0] - ox) * inv_dx
@@ -255,11 +303,13 @@ def _sweep_rays(tris, bb, order, real, o, d, t_min, r, out, stats,
         t_far = torch.minimum(torch.minimum(torch.maximum(t0x, t1x),
                                             torch.maximum(t0y, t1y)),
                               torch.maximum(t0z, t1z))
-        enter = ((t_near <= t_far) & (t_far >= t_min)
-                 & (torch.clamp(t_near, min=t_min) < t_best))
-        s = torch.nonzero(enter).flatten()
+        ent = ((t_near <= t_far) & (t_far >= t_min)
+               & (torch.clamp(t_near, min=t_min) < t_best))
+        s = torch.nonzero(ent).flatten()
         if s.numel() == 0:
             continue
+        if enter is not None:
+            enter[r[s], step] = True
         if stats is not None:
             stats["tri_tests"] = stats.get("tri_tests", 0) + \
                 int(s.numel()) * real[blk]

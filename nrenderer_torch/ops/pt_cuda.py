@@ -27,9 +27,11 @@ with the Pallas kernel's polynomial angles (`ops.env`).
 
 Mesh form: the dense pass runs without triangles and the sweep
 (`mesh_cuda`) runs over the mesh tables with the dense hit's t as its cap,
-in natural block order.  Texture form: hits carry (u, v, texture id), from
-a dense triangle's UV row or from the sweep, resolved against the binned
-(n_tex, 3, 32, 128) tables (`ops/texture.py`).  The mesh and texture
+in natural block order; on the card its kernel (`pt_mesh_kernel`) runs
+the warp-cooperative sweep, with the same film.  Texture form: hits carry
+(u, v, texture id), from a dense triangle's UV row or from the sweep,
+resolved against the binned (n_tex, 3, 32, 128) tables
+(`ops/texture.py`).  The mesh and texture
 tables are packed once per render (`make_mesh_tables`, `make_tex_tables`),
 like the env tables.
 
@@ -51,8 +53,8 @@ from .env import (
     ENV_LANES, ENV_ROWS, bin_env_map, env_bin_lookup, env_native_lookup,
 )
 from .intersect import StaticScene, np_dot
-from .mesh_cuda import MeshTables, check_tables, make_mesh_tables, \
-    sweep_mesh_plain
+from .mesh_cuda import WARP, MeshTables, check_tables, make_mesh_tables, \
+    schedule_counts, sweep_mesh_plain
 from .pt_core import (
     PI, bounce_seed, bsdf_bounce, diffuse_bounce, effective_lobe,
     finish_ambient, hash_uniform, lobe_order, make_mat_channels,
@@ -463,7 +465,12 @@ def pt_accumulate_plain(film: torch.Tensor, ss: StaticScene,
 
     `stats` (a dict, optional) counts the work the kernel does on these
     inputs: "samples" and "bounces" (bounce iterations of live paths), and
-    with a mesh the sweep's "slab_tests" and "tri_tests"."""
+    with a mesh the sweep's "slab_tests" and "tri_tests"; with a mesh and a
+    list under "enter", "schedule" holds `mesh_cuda.schedule_counts` of
+    the sweeps grouped as two loops would run them: "lockstep" (the warp's
+    lanes at the same sample and bounce, ended paths waiting for the
+    warp's longest: the kernels' loop) and "flat" (each lane at its own
+    bounce count, starting its next sample as soon as a path ends)."""
     dev = film.device
     cam = CameraParams(*(x.to(dev) for x in cam))
     n_pix = width * height
@@ -481,6 +488,9 @@ def pt_accumulate_plain(film: torch.Tensor, ss: StaticScene,
     n_bounces = max(depth, 1) if env is not None else depth
     chunk = max(1, min(n_spp, PLAIN_RAYS_PER_WAVEFRONT // n_pix))
     pid1 = torch.arange(n_pix, dtype=torch.int64, device=dev)
+    sched = [] if mesh is not None and stats is not None \
+        and "enter" in stats else None
+    it0 = torch.zeros(n_pix, dtype=torch.int64, device=dev)
     for c0 in range(0, n_spp, chunk):
         c = min(chunk, n_spp - c0)
         sp = torch.arange(sp0 + c0, sp0 + c0 + c, dtype=torch.int64,
@@ -494,9 +504,12 @@ def pt_accumulate_plain(film: torch.Tensor, ss: StaticScene,
         thr_m = V3(zeros, zeros, zeros)   # throughput at a miss (b > 0)
         d_m = V3(zeros, zeros, ones)      # direction at that miss
         alive = torch.ones_like(o.x, dtype=torch.bool)
+        alive_at = []
         for b in range(n_bounces):
             if stats is not None:
                 stats["bounces"] = stats.get("bounces", 0) + int(alive.sum())
+            if sched is not None:
+                alive_at.append(alive)
             bseed = bounce_seed(seed, b)
             u1 = hash_uniform(pid, sp, 4, bseed)
             u2 = hash_uniform(pid, sp, 5, bseed)
@@ -532,13 +545,44 @@ def pt_accumulate_plain(film: torch.Tensor, ss: StaticScene,
             rad = V3(rad.x + thr_m.x * e.x, rad.y + thr_m.y * e.y,
                      rad.z + thr_m.z * e.z)
         rad = finish_ambient(ss, thr, rad, alive)
+        if sched is not None:
+            enters = [stats["enter"].pop() for _ in alive_at][::-1]
+            it0 = _sweep_groups(sched, enters, alive_at, it0, c0, c, n_pix,
+                                n_spp, n_bounces)
         if stats is not None:
             stats["samples"] = stats.get("samples", 0) + c * n_pix
         samples = torch.stack([rad.x, rad.y, rad.z], dim=-1).reshape(
             c, n_pix, 3)
         for k in range(c):  # one sample after another, as the kernel adds
             film += samples[k]
+    if sched:
+        enter = torch.cat([e for e, _, _ in sched])
+        stats["schedule"] = {
+            name: schedule_counts(enter, torch.cat([g[j] for _, *g in sched]),
+                                  mesh.block)
+            for j, name in enumerate(("lockstep", "flat"))}
     return film
+
+
+def _sweep_groups(sched: list, enters: list, alive_at: list,
+                  it0: torch.Tensor, c0: int, c: int, n_pix: int, n_spp: int,
+                  n_bounces: int) -> torch.Tensor:
+    """Append to `sched` each live ray's sweep steps of one wavefront chunk
+    (samples c0 .. c0 + c, one `enters` matrix per bounce) with its two
+    groups: lockstep (sample, bounce, warp) and flat (warp, iteration),
+    where a lane's iteration counts the bounces of its earlier samples
+    (`it0` before the chunk; returned after it)."""
+    alive = torch.stack(alive_at)                      # (bounces, c * n_pix)
+    nb = alive.sum(dim=0).reshape(c, n_pix)
+    start = it0[None, :] + torch.cumsum(nb, dim=0) - nb
+    n_warps = -(-n_pix // WARP)
+    for b, enter in enumerate(enters):
+        rows = torch.nonzero(alive[b]).flatten()
+        k, p = rows // n_pix, rows % n_pix
+        lockstep = ((c0 + k) * n_bounces + b) * n_warps + p // WARP
+        flat = (p // WARP) * (n_spp * n_bounces) + start[k, p] + b
+        sched.append((enter[rows], lockstep, flat))
+    return it0 + nb.sum(dim=0)
 
 
 def render_pt_linear(ss: StaticScene, cam: CameraParams, width: int,

@@ -350,11 +350,32 @@ def _gpu_form(which, gpu, tmp):
     return arrays, ss, make_camera(scene.camera, device=gpu)
 
 
+def _tie_box(gpu):
+    """`mesh_box.scn` with `chip_smoke.tie_pool()`'s cube (a triangle of it
+    repeated 20 times, faces on block boxes) scaled to the blob's place in
+    place of the blob."""
+    sys.path.insert(0, str(REPO))
+    from chip_smoke import tie_pool
+    verts, faces, _, _ = tie_pool()
+    scene = _blob_inputs()[0]
+    blob = scene.mesh_buffer[0].positions
+    centre = (blob.max(axis=0) + blob.min(axis=0)) / 2
+    size = float((blob.max(axis=0) - blob.min(axis=0)).max())
+    scene.mesh_buffer[0].positions = (
+        verts * (size / 16.0) + centre).astype(np.float32)
+    scene.mesh_buffer[0].position_indices = faces.reshape(-1)
+    arrays = P.build_scene_arrays(scene)
+    ss = make_static_scene(arrays)
+    return arrays, ss, make_camera(scene.camera, device=gpu)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("form", sorted(pt_cuda.KERNELS.values()))
 def test_cuda_forms_match_plain(gpu, tmp_path, form):
     """Every instantiation against its plain version at 64x64, 16 spp,
-    depth 4 (chip_smoke.py's bars; bit-exact on an H100 so far)."""
+    depth 4 (chip_smoke.py's bars; bit-exact on an H100 so far).  The mesh
+    forms bit for bit, also at 37x23 (a warp past the image's last pixel
+    helps the others' sweeps) and, untextured, on the tie pool's cube."""
     key = next(k for k, v in pt_cuda.KERNELS.items() if v == form)
     bsdf, env, mesh, tex = key
     which = ("tex_grid" if mesh and tex else "blob_960" if mesh
@@ -382,6 +403,21 @@ def test_cuda_forms_match_plain(gpu, tmp_path, form):
     assert torch.isfinite(lin_k).all() and float(img(lin_k).mean()) > 0.01
     assert float(d.mean()) <= 2e-3
     assert float((d.max(dim=1).values <= 1e-4).float().mean()) >= 0.995
+    if not mesh:
+        return
+    assert torch.equal(lin_k, lin_p)
+    cases = [(arrays, ss, cam, 37, 23, 5, 6)]
+    if not tex:
+        cases.append((*_tie_box(gpu), 40, 30, 4, 5))
+    for arrays, ss, cam, w, h, spp, depth in cases:
+        t_min = scene_epsilon(ss)
+        m = mesh_cuda.make_mesh_tables(
+            build_mesh_accel(arrays, make_mat_channels(ss)).bt, gpu)
+        films = [fn(torch.zeros((w * h, 3), device=gpu), ss, cam, w, h, 0,
+                    spp, depth, 0, t_min, bsdf=bsdf, env=envt, mesh=m, tex=tx)
+                 for fn in (pt_cuda.pt_accumulate,
+                            pt_cuda.pt_accumulate_plain)]
+        assert torch.equal(films[0], films[1]), (w, h)
 
 
 @pytest.mark.cuda

@@ -287,20 +287,52 @@ def gpu():
     return torch.device("cuda")
 
 
+def _tie_tables(device):
+    """`chip_smoke.tie_pool()` (exact ties) in blocks of 16, and its rays."""
+    sys.path.insert(0, str(REPO))
+    from chip_smoke import tie_pool
+    verts, faces, o, d = tie_pool()
+    s = model.Scene()
+    s.materials += [model.Material(name="A"), model.Material(name="B")]
+    s.mesh_buffer.append(model.Mesh(positions=verts, position_indices=faces
+                                    .reshape(-1), material=1))
+    s.nodes.append(model.Node(name="tie", type=model.NodeType.MESH,
+                              entity=0))
+    bt = build_mesh_accel(build_scene_arrays(s), CHANNELS, block=16).bt
+    col = lambda a: V3(*(torch.as_tensor(np.ascontiguousarray(a[:, i]),
+                                         device=device) for i in range(3)))
+    return mesh_cuda.make_mesh_tables(bt, device), col(o), col(d)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("f2b", [False, True])
 def test_cuda_sweep_matches_plain(port, gpu, f2b):
     """`mesh_sweep_kernel` against the plain version on the same CUDA
-    rays: t bit-exact, ids equal where t is untied."""
+    rays, every output bit for bit (t and idx on every ray): the blob's
+    rays, prefixes of them at ragged counts (1, 31, 33, 32 k + 5) with
+    dead lanes (zero caps), and the tie pool."""
     ma, _, o, d = port
-    mt = mesh_cuda.make_mesh_tables(ma.bt, gpu)
-    og = V3(*(a.to(gpu) for a in o))
-    dg = V3(*(a.to(gpu) for a in d))
-    before = mesh_cuda.KERNEL_LAUNCHES[mesh_cuda.KERNEL_NAME]
-    got = mesh_cuda.sweep_mesh_full(mt, og, dg, T_MIN, f2b=f2b)
-    assert mesh_cuda.KERNEL_LAUNCHES[mesh_cuda.KERNEL_NAME] == before + 1
-    cap = torch.full((N_RAYS,), float("inf"), device=gpu)
-    plain = mesh_cuda.sweep_mesh_plain(mt, og, dg, T_MIN, cap, f2b=f2b)
-    t_p = torch.where(plain[1] >= 0, plain[0], float("inf"))
-    assert torch.equal(got[0], t_p)
-    assert torch.equal(got[1], plain[1].to(torch.int32))
+    cases = [("blob", mesh_cuda.make_mesh_tables(ma.bt, gpu),
+              V3(*(a.to(gpu) for a in o)), V3(*(a.to(gpu) for a in d)),
+              None)]
+    for n in (1, 31, 33, 32 * 40 + 5):
+        mt, og, dg = cases[0][1:4]
+        cases.append((f"{n} rays", mt, V3(*(a[:n] for a in og)),
+                      V3(*(a[:n] for a in dg)),
+                      torch.where(torch.arange(n, device=gpu) % 3 == 1, 0.0,
+                                  float("inf"))))
+    cases.append(("ties", *_tie_tables(gpu), None))
+    for label, mt, og, dg, cap in cases:
+        n = og.x.shape[0]
+        before = mesh_cuda.KERNEL_LAUNCHES[mesh_cuda.KERNEL_NAME]
+        got = mesh_cuda.sweep_mesh_full(mt, og, dg, T_MIN, t_cap=cap,
+                                        f2b=f2b)
+        assert mesh_cuda.KERNEL_LAUNCHES[mesh_cuda.KERNEL_NAME] == before + 1
+        if cap is None:
+            cap = torch.full((n,), float("inf"), device=gpu)
+        plain = mesh_cuda.sweep_mesh_plain(mt, og, dg, T_MIN, cap, f2b=f2b)
+        t_p = torch.where(plain[1] >= 0, plain[0], float("inf"))
+        assert torch.equal(got[0], t_p), label
+        assert torch.equal(got[1], plain[1].to(torch.int32)), label
+        for k in range(2, 6):
+            assert torch.equal(got[k], plain[k]), (label, k)

@@ -1,9 +1,11 @@
 #!/usr/bin/env python3
-"""A/B of the port's analytic-scene paths on one NVIDIA GPU.
+"""A/B of the port's paths on one NVIDIA GPU against another checkout.
 
     git archive <parent> | tar -x -C build/parent     # a second checkout
-    python3 tools/torch_ab.py build/parent              # from the repo root
+    python3 tools/torch_ab.py build/parent              # the analytic paths
     python3 tools/torch_ab.py --hybrid build/parent     # the hybrid paths
+    python3 tools/torch_ab.py --mesh build/parent       # the mesh sweep
+    python3 tools/torch_ab.py --mesh --dense-min 8,16,32 build/parent
 
 Runs the two checkouts in turns (parent, change, change, parent), each in a
 fresh process that builds its own kernel library and then renders, through
@@ -17,19 +19,42 @@ renderer's timer.  Then it times each path's kernel form alone: one
 `pt_accumulate` call of 256 spp at 512x512 at the path's depth (eight
 launches of 32 spp, so the wrapper's host work is a small share even for
 the short env launches), five calls between CUDA events, in ms per 32-spp
-launch.  With `--hybrid` it renders instead the two hybrid-route paths of
+launch.
+
+With `--hybrid` it renders instead the two hybrid-route paths of
 phases 14-15 (`ico_5120.obj` on `mesh_box.scn`, 500x500, 256 spp, depth
 20; `blob_960.obj` under `env_sky.png`, 512x512, 256 spp, depth 8) the
 same way, then runs phase 16's breakdown of one hybrid chunk, and first
 phase 12 (the streaming compactor against its plain versions at 2^24
 lanes: kernel, plain, library and bound times of the stage and mesh
 cases) with the compactor kernels' `nvcc -Xptxas -v` lines (registers,
-shared memory, stack frame, spills).  Prints one line per run and a final
-`AB` JSON line.  Imports nothing of JAX."""
+shared memory, stack frame, spills).
+
+With `--mesh` it times the blocked mesh sweep and its callers: the
+`-Xptxas -v` lines of every path-tracing form and of the sweep kernels;
+each path-tracing form alone at its phase 4 / phase 8 size and depth
+(512x512, the mesh forms 500x500 and the texture forms 256x256; the
+untextured mesh form also on the grid, `tex_grid_plain.obj`) in ms per
+launch of the renders' launch size (eight launches a call, five calls
+between CUDA events); `mesh_sweep_kernel` (B2) on phase 9's rays at
+`ico_5120.obj` at 2^20 rays and at MLT's batch sizes, 2048 and 36,864
+rays, in both block orders; phase 10's megamesh render (`blob_960.obj`,
+500x500, 256 spp, depth 20, warm-up and three renders); and the
+megamesh/hybrid crossover: `blob_960.obj` and `ico_5120.obj` each
+rendered once on both routes (500x500, 256 spp, depth 20), the route
+forced by setting `acc_pt.MEGAMESH_MAX_TRIS` for that render.  With
+`--dense-min K,...` it then runs the `--mesh` measurements once more in a
+copy of this checkout for each K, with the warp sweep's dense-step
+threshold (`kDenseMin` in `csrc/mesh_sweep.cuh`) set to K.
+
+Prints one line per run and a final `AB` JSON line.  Imports nothing of
+JAX."""
 from __future__ import annotations
 
 import json
 import os
+import re
+import shutil
 import subprocess
 import sys
 
@@ -80,6 +105,97 @@ out["chunk"] = c.phase_breakdown()
 print("RESULT", json.dumps(out))
 '''
 
+MESH = COMMON + r'''
+from nrenderer_torch import _build
+from nrenderer_torch.ops import mesh_cuda, pt_cuda
+from nrenderer_torch.ops.bvh import build_mesh_accel
+from nrenderer_torch.ops.pt_core import make_mat_channels, scene_epsilon
+from nrenderer_torch.ops.soa import V3
+from nrenderer_torch.renderers import acc_pt
+lines = _build.LOG_PATH.read_text().splitlines()
+out["ptxas"] = {ln.split("'")[1]: " / ".join(
+    x.strip() for x in lines[i + 1:i + 5]
+    if "stack" in x or "registers" in x)
+    for i, ln in enumerate(lines)
+    if "Compiling entry function" in ln and ("pt_kernel" in ln
+                                              or "mesh_sweep" in ln)}
+forms = (("diffuse", c.SCENE, (), False, False, 512, 20),
+         ("bsdf", c.GLASS_SCENE, (), True, False, 512, 20),
+         ("diffuse_env", c.ENV_SCENE, (), False, True, 512, 8),
+         ("bsdf_env", c.ENV_SCENE, (), True, True, 512, 8),
+         ("bsdf_mesh", c.MESH_SCENE, (c.BLOB,), True, False, 500, 20),
+         ("diffuse_tex", c.TEX_SCENE, (c.TEX_QUAD,), False, False, 256, 6),
+         ("bsdf_tex", c.TEX_SCENE, (c.TEX_QUAD,), True, False, 256, 6),
+         ("diffuse_env_tex", c.TEX_SCENE, (c.TEX_QUAD,), False, True, 256, 6),
+         ("bsdf_env_tex", c.TEX_SCENE, (c.TEX_QUAD,), True, True, 256, 6),
+         ("bsdf_mesh_tex", c.TEX_SCENE, (c.TEX_GRID,), True, False, 256, 6),
+         ("bsdf_mesh_grid", c.TEX_SCENE, (c.TEX_GRID_PLAIN,), True, False,
+          256, 6))
+out["kernel_ms"] = {}
+for label, scene, objs, bsdf, env, size, depth in forms:
+    ss, cam, emap, arrays = c._setup("cuda", scene, env, objs)
+    mesh = "mesh" in label
+    mt = (mesh_cuda.make_mesh_tables(build_mesh_accel(
+        arrays, make_mat_channels(ss)).bt, "cuda") if mesh else None)
+    kw = dict(bsdf=bsdf, mesh=mt,
+              env=pt_cuda.make_env_tables(emap, "cuda") if env else None,
+              tex=(pt_cuda.make_tex_tables(arrays.textures, "cuda")
+                   if "tex" in label else None))
+    film = torch.zeros((size * size, 3), device="cuda")
+    per_launch = max(1, pt_cuda.PIXEL_SAMPLES_PER_LAUNCH // (size * size))
+    call = lambda: pt_cuda.pt_accumulate(film, ss, cam, size, size, 0,
+                                         8 * per_launch, depth, 0,
+                                         scene_epsilon(ss), **kw)
+    call()
+    torch.cuda.synchronize()
+    out["kernel_ms"][label] = c._time_ms(call, 5) / 8
+# B2 on phase 9's rays at ico_5120.obj (its law, inline: the parent's
+# chip_smoke.py has no helper for it)
+ss, _, _, arrays = c._setup("cuda", c.MESH_SCENE, objs=(c.ICO,))
+mt = mesh_cuda.make_mesh_tables(build_mesh_accel(
+    arrays, make_mat_channels(ss)).bt, "cuda")
+t_min = scene_epsilon(ss)
+out["b2_ms"] = {}
+for n in (1 << 20, 36864, 2048):
+    g = torch.Generator(device="cuda").manual_seed(0)
+    u = lambda lo, hi: lo + (hi - lo) * torch.rand(n, generator=g,
+                                                   device="cuda")
+    o = V3(u(-270.0, 270.0), u(-270.0, 270.0), u(760.0, 1300.0))
+    tgt = V3(u(-150.0, 150.0), u(-278.0, -7.0), u(850.0, 1150.0))
+    dv = torch.stack([tgt.x - o.x, tgt.y - o.y, tgt.z - o.z])
+    dv = dv / torch.linalg.vector_norm(dv, dim=0)
+    d = V3(dv[0].contiguous(), dv[1].contiguous(), dv[2].contiguous())
+    cap = torch.where(torch.rand(n, generator=g, device="cuda") < 0.1,
+                      0.0, float("inf"))
+    for f2b in (False, True):
+        sweep = lambda: mesh_cuda.sweep_mesh_full(mt, o, d, t_min,
+                                                  t_cap=cap, f2b=f2b)
+        sweep()
+        torch.cuda.synchronize()
+        out["b2_ms"][f"{n}_{'f2b' if f2b else 'natural'}"] = c._time_ms(
+            sweep, 20 if n < 1 << 20 else 5)
+renders("megamesh", c.MESH_SCENE, "AccPathTracer", 500, 256, 20, False,
+        (c.BLOB,))
+# the megamesh/hybrid crossover: each pool on both routes
+out["crossover_render_s"] = {}
+for obj in (c.BLOB, c.ICO):
+    for route, limit in (("megamesh", 1 << 30), ("hybrid", 0)):
+        saved, acc_pt.MEGAMESH_MAX_TRIS = acc_pt.MEGAMESH_MAX_TRIS, limit
+        try:
+            png = os.path.join(c.ROOT, "build", f"ab_cross_{route}.png")
+            argv = c._cli_argv(c.MESH_SCENE, "AccPathTracer", 500, 500, 256,
+                               20, png, objs=(obj,))
+            g0 = GLOBAL_TIMER.get("AccPathTracer.render").total_s
+            assert cli.main(argv) == 0
+            torch.cuda.synchronize()
+            out["crossover_render_s"][
+                f"{os.path.basename(obj)}_{route}"] = (
+                GLOBAL_TIMER.get("AccPathTracer.render").total_s - g0)
+        finally:
+            acc_pt.MEGAMESH_MAX_TRIS = saved
+print("RESULT", json.dumps(out))
+'''
+
 CODE = COMMON + r'''
 paths = (("main", c.SCENE, "SimplePathTracer", 2048, 20, False),
          ("acc", c.GLASS_SCENE, "AccPathTracer", 2048, 20, False),
@@ -103,27 +219,63 @@ print("RESULT", json.dumps(out))
 '''
 
 
+def _run(cwd: str, code: str) -> dict:
+    p = subprocess.run([sys.executable, "-c", code], cwd=cwd,
+                       capture_output=True, text=True, timeout=900)
+    line = [l for l in p.stdout.splitlines() if l.startswith("RESULT ")]
+    if p.returncode or not line:
+        print(p.stdout[-2000:], p.stderr[-3000:], file=sys.stderr)
+        raise SystemExit(f"run in {cwd} failed")
+    return json.loads(line[0][len("RESULT "):])
+
+
+def _dense_min_copy(change: str, k: int) -> str:
+    """A copy of this checkout's package and script (resources linked)
+    with the warp sweep's dense-step threshold set to `k`."""
+    dst = os.path.join(change, "build", f"dense_min_{k}")
+    shutil.rmtree(dst, ignore_errors=True)
+    os.makedirs(dst)
+    shutil.copytree(os.path.join(change, "nrenderer_torch"),
+                    os.path.join(dst, "nrenderer_torch"),
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    shutil.copy(os.path.join(change, "chip_smoke.py"), dst)
+    os.symlink(os.path.join(change, "resource"),
+               os.path.join(dst, "resource"))
+    src = os.path.join(dst, "nrenderer_torch", "csrc", "mesh_sweep.cuh")
+    text, n = re.subn(r"constexpr int kDenseMin = \d+;",
+                      f"constexpr int kDenseMin = {k};", open(src).read())
+    if n != 1:
+        raise SystemExit("no kDenseMin line in mesh_sweep.cuh")
+    open(src, "w").write(text)
+    return dst
+
+
 def main(argv) -> int:
-    hybrid = argv[1:2] == ["--hybrid"]
-    argv = argv[:1] + argv[1 + hybrid:]
-    if len(argv) != 2 or not os.path.isfile(
-            os.path.join(argv[1], "chip_smoke.py")):
+    mode, dense_min = "analytic", []
+    args = argv[1:]
+    while args and args[0].startswith("--"):
+        flag = args.pop(0)
+        if flag in ("--hybrid", "--mesh"):
+            mode = flag[2:]
+        elif flag == "--dense-min" and args:
+            dense_min = [int(k) for k in args.pop(0).split(",")]
+        else:
+            args = []
+    if len(args) != 1 or (dense_min and mode != "mesh") or not os.path.isfile(
+            os.path.join(args[0], "chip_smoke.py")):
         print(__doc__, file=sys.stderr)
         return 2
+    code = {"analytic": CODE, "hybrid": HYBRID, "mesh": MESH}[mode]
     change = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     runs = []
     for who in ("parent", "change", "change", "parent"):
-        cwd = argv[1] if who == "parent" else change
-        p = subprocess.run([sys.executable, "-c",
-                            HYBRID if hybrid else CODE], cwd=cwd,
-                           capture_output=True, text=True, timeout=900)
-        line = [l for l in p.stdout.splitlines() if l.startswith("RESULT ")]
-        if p.returncode or not line:
-            print(p.stdout[-2000:], p.stderr[-3000:], file=sys.stderr)
-            raise SystemExit(f"{who} run failed")
-        st = json.loads(line[0][len("RESULT "):])
+        st = _run(args[0] if who == "parent" else change, code)
         runs.append((who, st))
         print(who, json.dumps(st), flush=True)
+    for k in dense_min:
+        st = _run(_dense_min_copy(change, k), code)
+        runs.append((f"dense_min={k}", st))
+        print(f"dense_min={k}", json.dumps(st), flush=True)
     print("AB", json.dumps(runs))
     return 0
 
