@@ -40,7 +40,8 @@ exits non-zero without a result line:
      schedule counts; then prefixes of those rays at ragged counts (1, 31,
      33, 32 k + 5, with dead lanes) and `tie_pool()` (exact ties: repeated
      triangles, shared edges, faces on block boxes) in blocks of 16 and
-     128, both orders, bit for bit;
+     128, both orders, and `mesh_sweep_mxu_kernel` (B4) on each of them,
+     bit for bit;
  10. the mesh path: AccPathTracer `--obj blob_960.obj` on `mesh_box.scn`
      at 500x500, 256 spp, depth 20 (the megamesh route); the blob must be
      brighter than the floor in its shadow;
@@ -83,18 +84,23 @@ exits non-zero without a result line:
      on phase 9's 2^20 rays at `ico_5120.obj`, every output bit for bit,
      with its flip and same-triangle shares against B2 on the same rays
      and each ray where the two engines part printed beside a float64
-     intersection (their count barred);
+     intersection (their count barred); its schedule counts (pairs and
+     batches), its `-Xptxas -v` line, and the `-Xptxas -v` figures of the
+     kernels it leaves as they were (B1e, B2, the eight `pt_kernel`
+     forms) held to the parent's (`KEPT_PTXAS`);
  18. the hybrid path of phase 14 under NR_MESH_MXU=1: every sweep on B4,
      the image within bars of phase 14's; then B4 against its plain
-     version, bit for bit and timed, on phase 13's sorted live prefix;
+     version, bit for bit and timed, with its schedule counts, on phase
+     13's sorted live prefix;
  19. MetropolisLightTransport on `cornell_box.scn` through `cli.main`:
      512x512, 1024 chains x 256 mutations, depth 20 (dense primitives, no
      kernel of its own);
  20. MLT on `mesh_box.scn` + `blob_960.obj` at 128x128, 1024 x 256, depth
      8, on B2 and under NR_MESH_MXU=1 on B4 (each engine's launches
      counted, the other's 0; each engine's kernel against its plain
-     version, bit for bit and timed, on one path batch (2048 rays) and one
-     shadow batch that the B2 run swept, and B4 also on its own run's):
+     version, bit for bit and timed, with its schedule counts, on one
+     path batch (2048 rays) and one shadow batch that the B2 run swept,
+     and B4 also on its own run's):
      the two images' linear means within 5% and
      their 8x8-block correlation >= 0.9, and the ratio of their linear
      radiance to AccPathTracer's on the same scene.
@@ -228,6 +234,25 @@ FLOPS_SLAB, FLOPS_MESH_TRI = 26, 53
 # the MXU sweep (csrc/mesh_sweep_mxu.cu): one triangle test of an entered
 # block (four 10-term forms, 72, and the sign fold and accept tests, 18)
 FLOPS_MXU_TRI = 90
+# `-Xptxas -v` of the kernels that the MXU sweep's redesign leaves as they
+# were, read from the parent tree's build on an H100 (sm_90a): (stack
+# frame, spill stores, spill loads, registers), by the kernel's mangled
+# name past its translation unit's prefix.  pt_kernel<kBsdf, kEnv, kTex>
+# (the eight forms), pt_mesh_kernel<kTex> (B1e, B1d's mesh form) and
+# mesh_sweep_kernel<kUv> (B2).
+KEPT_PTXAS = {
+    "9pt_kernelILb0ELb0ELb0EE": (0, 0, 0, 56),
+    "9pt_kernelILb1ELb0ELb0EE": (16, 16, 16, 56),
+    "9pt_kernelILb0ELb1ELb0EE": (32, 0, 0, 48),
+    "9pt_kernelILb1ELb1ELb0EE": (56, 20, 20, 48),
+    "9pt_kernelILb0ELb0ELb1EE": (32, 0, 0, 56),
+    "9pt_kernelILb1ELb0ELb1EE": (56, 0, 0, 56),
+    "9pt_kernelILb0ELb1ELb1EE": (32, 0, 0, 56),
+    "9pt_kernelILb1ELb1ELb1EE": (56, 0, 0, 56),
+    "14pt_mesh_kernelILb0EE": (56, 20, 20, 72),
+    "14pt_mesh_kernelILb1EE": (80, 28, 28, 80),
+    "17mesh_sweep_kernelILb0EE": (0, 0, 0, 56),
+    "17mesh_sweep_kernelILb1EE": (0, 0, 0, 63)}
 
 
 def gpu_name_power() -> str:
@@ -708,16 +733,20 @@ def phase_sweep(n_rays=1 << 20, seed=0) -> dict:
     print(f"natural vs f2b order: t differs on {moved} rays; triangle "
           f"tests {runs['natural']['tri_tests']} -> "
           f"{runs['f2b']['tri_tests']}")
+    # each ragged and tie case on B2 in both orders and on B4 (natural)
+    engines = ((False, False), (True, False), (False, True))
     for n in (1, 31, 33, 32 * 1000 + 5):
-        for f2b in (False, True):
-            _engine_vs_plain(mt, rays[:, :n].contiguous(), t_min, f2b, False,
-                             f"phase 9: {n} rays, f2b={f2b}", need_hits=False)
+        for f2b, mxu in engines:
+            _engine_vs_plain(mt, rays[:, :n].contiguous(), t_min, f2b, mxu,
+                             f"phase 9: {n} rays, "
+                             f"{'B4' if mxu else f'f2b={f2b}'}",
+                             need_hits=False)
     for block in (16, 128):
         mt_t, rays_t = _tie_tables(block)
-        for f2b in (False, True):
-            _engine_vs_plain(mt_t, rays_t, 1e-3, f2b, False,
+        for f2b, mxu in engines:
+            _engine_vs_plain(mt_t, rays_t, 1e-3, f2b, mxu,
                              f"phase 9: tie pool, blocks of {block}, "
-                             f"f2b={f2b}")
+                             f"{'B4' if mxu else f'f2b={f2b}'}")
     return runs["natural"]
 
 
@@ -1208,6 +1237,61 @@ def _ptxas(kernel: str) -> str:
     return ""
 
 
+def _ptxas_table() -> dict:
+    """Every kernel's (stack frame, spill stores, spill loads, registers)
+    from the build log, by its mangled name past the translation unit's
+    prefix (empty when the library was not rebuilt in this run)."""
+    import re
+    from nrenderer_torch import _build
+    if not _build.LOG_PATH.exists():
+        return {}
+    lines = _build.LOG_PATH.read_text().splitlines()
+    out = {}
+    for i, line in enumerate(lines):
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if not m:
+            continue
+        got = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                        r"(\d+) bytes spill loads.*?Used (\d+) registers",
+                        " ".join(lines[i + 1:i + 5]))
+        if got:
+            name = re.sub(
+                r"^_ZN\d+_GLOBAL__N__[0-9a-f]+_\d+_\w+?_cu_[0-9a-f]{8}", "",
+                m.group(1))
+            out[name] = tuple(int(x) for x in got.groups())
+    return out
+
+
+def check_kept_ptxas() -> dict:
+    """The `-Xptxas -v` figures of the kernels that KEPT_PTXAS lists
+    against it: raises where one differs."""
+    table = _ptxas_table()
+    if not table:
+        print("ptxas: the library was not rebuilt in this run; not checked")
+        return {}
+    got = {}
+    for key, want in KEPT_PTXAS.items():
+        found = [v for k, v in table.items() if k.startswith(key)]
+        got[key] = found[0] if len(found) == 1 else None
+    print(f"ptxas of the kept kernels (stack, spill stores, spill loads, "
+          f"registers): {json.dumps(got)}")
+    bad = {k: (v, KEPT_PTXAS[k]) for k, v in got.items()
+           if v != KEPT_PTXAS[k]}
+    if bad:
+        raise AssertionError(f"-Xptxas -v differs from the parent's: {bad}")
+    return got
+
+
+def _schedule(mt, work: dict, n_rays: int, mxu: bool, device) -> dict:
+    """The sweep's schedule counts (`mesh_cuda.schedule_counts`, 32
+    consecutive rays a warp; B4's with its ray batch)."""
+    from nrenderer_torch.ops import mesh_cuda, mesh_mxu
+    return mesh_cuda.schedule_counts(
+        torch.cat(work["enter"]),
+        torch.arange(n_rays, device=device) // mesh_cuda.WARP, mt.block,
+        ray_batch=mesh_mxu.RAY_BATCH if mxu else None)
+
+
 def phase_mxu_sweep(n_rays=1 << 20, seed=0) -> dict:
     """`mesh_sweep_mxu_kernel` against its plain version on phase 9's rays
     (ico_5120.obj, a tenth of them dead), every output bit for bit, and
@@ -1221,7 +1305,8 @@ def phase_mxu_sweep(n_rays=1 << 20, seed=0) -> dict:
     name = mesh_mxu.KERNEL_NAME
     print(f"== phase 17: {name} vs plain, ico_5120.obj ({bt.n_blocks} "
           f"blocks of {bt.block}), {n_rays} rays")
-    work = {}
+    kept_ptxas = check_kept_ptxas()
+    work = {"enter": []}
     with _mxu_switch(True):
         before = mesh_mxu.KERNEL_LAUNCHES[name]
         got = sweep_mesh_full(mt, o, d, t_min, t_cap=cap)
@@ -1242,7 +1327,8 @@ def phase_mxu_sweep(n_rays=1 << 20, seed=0) -> dict:
     both = hit & hit2
     flops = (work["slab_tests"] * FLOPS_SLAB
              + work["tri_tests"] * FLOPS_MXU_TRI)
-    n_bytes = n_rays * 4 * (7 + 6) + _table_bytes(mt.tris, mt.coef, mt.bb)
+    n_bytes = n_rays * 4 * (7 + 6) + _table_bytes(mt.tris, mt.coef_t,
+                                                  mt.bb)
     b_ms, b_by = _bound(flops, n_bytes)
     rel = torch.zeros_like(got[0])
     rel[both] = (got[0][both] - b2[0][both]).abs() / b2[0][both].abs()
@@ -1261,7 +1347,9 @@ def phase_mxu_sweep(n_rays=1 << 20, seed=0) -> dict:
           "kernel_ms": kernel_ms, "plain_ms": plain_ms,
           "bound_ms": b_ms, "bound_by": b_by,
           "slab_tests": work["slab_tests"], "tri_tests": work["tri_tests"],
-          "ptxas": _ptxas(name)}
+          "schedule": _schedule(mt, work, n_rays, True, rays.device),
+          "ptxas": _ptxas(name),
+          "kept_ptxas": kept_ptxas}
     print(json.dumps(st))
     for r in report:
         print("  edge ray:", json.dumps(r))
@@ -1329,7 +1417,7 @@ def _engine_vs_plain(mt, rays, t_min, f2b, mxu, label, timing=False,
     from nrenderer_torch.ops.soa import V3
     o, d, cap = V3(rays[0], rays[1], rays[2]), V3(rays[3], rays[4],
                                                    rays[5]), rays[6]
-    work = {"enter": []} if timing and not mxu else {}
+    work = {"enter": []} if timing else {}
     if mxu:
         sweep = lambda: mesh_mxu.sweep_mxu(mt, o, d, t_min, cap)
         raw = mesh_mxu.sweep_mxu_plain(mt, o, d, t_min, cap, stats=work)
@@ -1354,19 +1442,14 @@ def _engine_vs_plain(mt, rays, t_min, f2b, mxu, label, timing=False,
     if timing:
         tri_flops = FLOPS_MXU_TRI if mxu else FLOPS_MESH_TRI
         n_bytes = st["rays"] * 4 * (7 + 6) + _table_bytes(
-            mt.tris, mt.bb, mt.coef if mxu else None)
+            mt.tris, mt.bb, mt.coef_t if mxu else None)
         st["kernel_ms"] = _time_ms(sweep, 5)
         st["bound_ms"], st["bound_by"] = _bound(
             work["slab_tests"] * FLOPS_SLAB + work["tri_tests"] * tri_flops,
             n_bytes)
         st["slab_tests"], st["tri_tests"] = (work["slab_tests"],
                                              work["tri_tests"])
-        if not mxu:
-            n = st["rays"]
-            st["schedule"] = mesh_cuda.schedule_counts(
-                torch.cat(work["enter"]),
-                torch.arange(n, device=rays.device) // mesh_cuda.WARP,
-                mt.block)
+        st["schedule"] = _schedule(mt, work, st["rays"], mxu, rays.device)
     print(json.dumps(st))
     if any(differ) or (need_hits and not st["hits"]):
         raise AssertionError(f"{label}: kernel vs plain version: {st}")
@@ -1608,7 +1691,8 @@ def main() -> int:
     # each sweep engine at its paths' own shapes: the hybrid chunk's sorted
     # prefix (phases 13 and 18) and MLT's path and shadow batches (phase 20)
     shape = lambda st: {"rays": st["rays"], "ms": st["kernel_ms"],
-                        "bound_ms": st["bound_ms"]}
+                        "bound_ms": st["bound_ms"],
+                        "schedule": st["schedule"]}
     b2_shapes = {"hybrid_prefix": shape(pipe["sweep"]),
                  **{f"mlt_{st['rays']}": shape(st)
                     for st in mlt_runs[0]["batches_vs_plain"]}}
@@ -1646,7 +1730,7 @@ def main() -> int:
         "max_abs_err": mxu["max_abs_err"], "ms": mxu["kernel_ms"],
         "plain_ms": mxu["plain_ms"], "bound_ms": mxu["bound_ms"],
         "bound_by": mxu["bound_by"], "library_ms": None,
-        "path_shapes": b4_shapes})
+        "schedule": mxu["schedule"], "path_shapes": b4_shapes})
     for name, key, case in ((stream_compact.PACK, "pack", "stage"),
                             (stream_compact.UNPACK, "unpack", "mesh")):
         st = compactor[case]

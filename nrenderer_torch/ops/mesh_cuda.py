@@ -71,12 +71,16 @@ class MeshTables(NamedTuple):
     # t*det times features 0-9, `ops/mesh_mxu.py`) and the pool's centre
     coef: Optional[torch.Tensor] = None
     center: Optional[tuple] = None
+    # the same rows as the MXU kernel reads them: (n_blocks, 10, block, 4),
+    # each float4 of a block's triangles side by side
+    coef_t: Optional[torch.Tensor] = None
 
 
 def make_mesh_tables(bt: BlockedTris, device) -> MeshTables:
     """Pack `bt` into contiguous device tables, once per render.  The MXU
     coefficient table keeps features 0-9 of each of a triangle's four rows
-    (`bvh.BlockedTris.mxu_coef`; features 10-15 are zero padding)."""
+    (`bvh.BlockedTris.mxu_coef`; features 10-15 are zero padding), and
+    its kernel's form of it (`coef_t`) is built beside it."""
     n = bt.n_blocks * bt.block
     tris = np.zeros((n, TRI_FLOATS), np.float32)
     for j, f in enumerate(("v1x", "v1y", "v1z", "e1x", "e1y", "e1z", "e2x",
@@ -103,7 +107,10 @@ def make_mesh_tables(bt: BlockedTris, device) -> MeshTables:
                       bb=put(bb), f2b=put(np.asarray(bt.f2b_ord, np.int32)),
                       n_blocks=bt.n_blocks, block=bt.block,
                       coef=None if coef is None else put(coef),
-                      center=bt.mxu_center)
+                      center=bt.mxu_center,
+                      coef_t=None if coef is None else put(coef.reshape(
+                          bt.n_blocks, bt.block, 10, 4).transpose(0, 2, 1,
+                                                                  3)))
 
 
 def channels_from_mat(mat: torch.Tensor, miss: torch.Tensor,
@@ -249,8 +256,8 @@ DENSE_MIN = 16
 WARP = 32
 
 
-def schedule_counts(enter: torch.Tensor, group: torch.Tensor,
-                    block: int) -> dict:
+def schedule_counts(enter: torch.Tensor, group: torch.Tensor, block: int,
+                    ray_batch: Optional[int] = None) -> dict:
     """Triangle tests that two schedules of the blocked sweep execute, in
     lane slots (a warp's pass over one triangle is 32 slots, busy or idle),
     from the (n, steps) matrix `enter` of `sweep_blocks_plain` and the
@@ -266,19 +273,25 @@ def schedule_counts(enter: torch.Tensor, group: torch.Tensor,
         also paying ~18 shuffles.
 
     Returns both totals, the pairs and dense steps, and the needed lane
-    tests (rows times the block) beside them."""
+    tests (rows times the block) beside them.  With `ray_batch` (the MXU
+    sweep, csrc/mesh_sweep_mxu.cu) every step is cooperative, with no
+    dense step, and "coop_batches" counts its batches: ceil(lanes /
+    ray_batch) a step, each reading the block's coefficients once."""
     n_groups = int(group.max()) + 1 if group.numel() else 0
     cnt = torch.zeros((n_groups, enter.shape[1]), dtype=torch.int32,
                       device=enter.device)
     cnt.index_add_(0, group, enter.to(torch.int32))
-    dense = cnt >= DENSE_MIN
+    dense = (cnt >= (DENSE_MIN if ray_batch is None else WARP + 1))
     pairs = int(torch.where(dense, 0, cnt).sum())
     n_dense = int(dense.sum())
     per_pair = -(-block // WARP) * WARP
-    return {"union_slots": int((cnt > 0).sum()) * block * WARP,
-            "coop_slots": n_dense * block * WARP + pairs * per_pair,
-            "coop_pairs": pairs, "coop_dense_steps": n_dense,
-            "entered_slots": int(enter.sum()) * block}
+    out = {"union_slots": int((cnt > 0).sum()) * block * WARP,
+           "coop_slots": n_dense * block * WARP + pairs * per_pair,
+           "coop_pairs": pairs, "coop_dense_steps": n_dense,
+           "entered_slots": int(enter.sum()) * block}
+    if ray_batch is not None:
+        out["coop_batches"] = int(((cnt + ray_batch - 1) // ray_batch).sum())
+    return out
 
 
 def _sweep_rays(tris, bb, order, real, o, d, t_min, r, out, stats,

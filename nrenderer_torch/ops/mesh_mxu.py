@@ -29,7 +29,11 @@ untextured calls on pools with the table; rays on a CUDA device launch
 `sweep_mxu_plain`.  The JAX kernel sums on the TPU's matrix unit at
 HIGHEST precision; both forms here sum on float32 units in one fixed order,
 so they agree with each other bit for bit and with the JAX route within
-its tests' tolerance (`tests/test_torch_mxu_sweep.py`)."""
+its tests' tolerance (`tests/test_torch_mxu_sweep.py`).  The kernel is
+warp-cooperative: the rays of a warp that enter a block are tested
+against it by the whole warp, RAY_BATCH rays for each triangle a lane
+loads, and a reduction per ray picks the serial loop's winner; it reads
+the table as `MeshTables.coef_t`."""
 from __future__ import annotations
 
 import ctypes
@@ -53,6 +57,9 @@ KERNEL_LAUNCHES = {KERNEL_NAME: 0}
 
 N_FEATURES = 10                  # 1, o'xyz, dxyz, (o' x d)xyz
 COEF_FLOATS = 4 * N_FEATURES     # det, u, v, t*det rows of one triangle
+# Entering rays the kernel tests against each triangle it loads
+# (kRayBatch, which the library reports).
+RAY_BATCH = 4
 
 
 def reset_launch_counts() -> None:
@@ -151,8 +158,8 @@ def _kernels() -> ctypes.CDLL:
         lib.nr_mesh_mxu_layout.restype = ci
         lib.nr_error_string.argtypes = [ci]
         lib.nr_error_string.restype = ctypes.c_char_p
-        want = (COEF_FLOATS, TRI_FLOATS, BB_FLOATS, RAY_CHANNELS)
-        if tuple(lib.nr_mesh_mxu_layout(i) for i in range(4)) != want:
+        want = (COEF_FLOATS, TRI_FLOATS, BB_FLOATS, RAY_CHANNELS, RAY_BATCH)
+        if tuple(lib.nr_mesh_mxu_layout(i) for i in range(5)) != want:
             raise RuntimeError("kernel library MXU table layout mismatch")
         _bound = lib
     return _bound
@@ -162,6 +169,11 @@ def _sweep_mxu_cuda(mt, o, d, t_min, cap):
     n = o.x.shape[0]
     if n >= 1 << 31:
         raise ValueError(f"too many rays for one launch: {n}")
+    ct, shape = mt.coef_t, (mt.n_blocks, N_FEATURES, mt.block, 4)
+    if (ct is None or ct.dtype != torch.float32 or not ct.is_contiguous()
+            or ct.device != o.x.device or tuple(ct.shape) != shape):
+        raise ValueError(f"the MXU kernel needs `coef_t` as a contiguous "
+                         f"float32 {shape} tensor on {o.x.device}")
     lib = _kernels()
     rays = torch.stack([o.x, o.y, o.z, d.x, d.y, d.z, cap]).to(
         torch.float32).contiguous()
@@ -169,7 +181,7 @@ def _sweep_mxu_cuda(mt, o, d, t_min, cap):
     cx, cy, cz = (float(c) for c in mt.center)
     with torch.cuda.device(rays.device):
         err = lib.nr_mesh_sweep_mxu(
-            rays.data_ptr(), n, mt.tris.data_ptr(), mt.coef.data_ptr(),
+            rays.data_ptr(), n, mt.tris.data_ptr(), ct.data_ptr(),
             mt.bb.data_ptr(), mt.n_blocks, mt.block, cx, cy, cz,
             float(t_min), out.data_ptr(),
             torch.cuda.current_stream().cuda_stream)

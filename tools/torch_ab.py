@@ -6,6 +6,9 @@
     python3 tools/torch_ab.py --hybrid build/parent     # the hybrid paths
     python3 tools/torch_ab.py --mesh build/parent       # the mesh sweep
     python3 tools/torch_ab.py --mesh --dense-min 8,16,32 build/parent
+    python3 tools/torch_ab.py --mxu build/parent        # the MXU sweep
+    python3 tools/torch_ab.py --mxu --ray-batch 2,6 --min-blocks 4,6 \
+        build/parent
 
 Runs the two checkouts in turns (parent, change, change, parent), each in a
 fresh process that builds its own kernel library and then renders, through
@@ -47,6 +50,23 @@ forced by setting `acc_pt.MEGAMESH_MAX_TRIS` for that render.  With
 copy of this checkout for each K, with the warp sweep's dense-step
 threshold (`kDenseMin` in `csrc/mesh_sweep.cuh`) set to K.
 
+With `--mxu` it times the MXU sweep (B4, `mesh_sweep_mxu_kernel`) at its
+paths' shapes and the renders around it: the `-Xptxas -v` lines of every
+path-tracing form and sweep kernel; B4 on phase 17's 2^20 rays at
+`ico_5120.obj`, on phase 18's sorted live prefix of a hybrid chunk
+(3,379,039 rays) and on MLT's first path and shadow batches of the mesh
+scene (`blob_960.obj`, 1024 chains: 2048 and 36,864 rays, held from a
+two-mutation run), five calls between CUDA events (twenty for MLT's);
+then, each a warm-up render and three timed ones, the main path, the
+megamesh render (`blob_960.obj`, 500x500, 256 spp, depth 20), the hybrid
+render (`ico_5120.obj`, 500x500, 256 spp, depth 20) on B2 and the same
+under NR_MESH_MXU=1 on B4.  With `--ray-batch K,...` it then times B4
+alone (no renders) once more in a copy of this checkout for each K, with
+the rays the MXU kernel tests against each triangle it loads
+(`kRayBatch` in `csrc/mesh_sweep_mxu.cu`, `RAY_BATCH` in
+`ops/mesh_mxu.py`) set to K, and with `--min-blocks K,...` for each K
+with its launch bound's blocks an SM (`kMinBlocks`) set to K.
+
 Prints one line per run and a final `AB` JSON line.  Imports nothing of
 JAX."""
 from __future__ import annotations
@@ -85,6 +105,17 @@ def renders(label, scene, renderer, size, spp, depth, env, objs=()):
     out[label] = {"render_phase_s": phases, "cli_s": walls}
 '''
 
+PTXAS = r'''
+from nrenderer_torch import _build
+lines = _build.LOG_PATH.read_text().splitlines()
+out["ptxas"] = {ln.split("'")[1]: " / ".join(
+    x.strip() for x in lines[i + 1:i + 5]
+    if "stack" in x or "registers" in x)
+    for i, ln in enumerate(lines)
+    if "Compiling entry function" in ln and ("pt_kernel" in ln
+                                              or "mesh_sweep" in ln)}
+'''
+
 HYBRID = COMMON + r'''
 from nrenderer_torch import _build
 st = c.phase_compactor()
@@ -105,20 +136,12 @@ out["chunk"] = c.phase_breakdown()
 print("RESULT", json.dumps(out))
 '''
 
-MESH = COMMON + r'''
-from nrenderer_torch import _build
+MESH = COMMON + PTXAS + r'''
 from nrenderer_torch.ops import mesh_cuda, pt_cuda
 from nrenderer_torch.ops.bvh import build_mesh_accel
 from nrenderer_torch.ops.pt_core import make_mat_channels, scene_epsilon
 from nrenderer_torch.ops.soa import V3
 from nrenderer_torch.renderers import acc_pt
-lines = _build.LOG_PATH.read_text().splitlines()
-out["ptxas"] = {ln.split("'")[1]: " / ".join(
-    x.strip() for x in lines[i + 1:i + 5]
-    if "stack" in x or "registers" in x)
-    for i, ln in enumerate(lines)
-    if "Compiling entry function" in ln and ("pt_kernel" in ln
-                                              or "mesh_sweep" in ln)}
 forms = (("diffuse", c.SCENE, (), False, False, 512, 20),
          ("bsdf", c.GLASS_SCENE, (), True, False, 512, 20),
          ("diffuse_env", c.ENV_SCENE, (), False, True, 512, 8),
@@ -196,6 +219,51 @@ for obj in (c.BLOB, c.ICO):
 print("RESULT", json.dumps(out))
 '''
 
+MXU_TIMES = COMMON + PTXAS + r'''
+from nrenderer_torch.ops import mesh_mxu
+from nrenderer_torch.ops.soa import V3
+
+
+def b4_ms(mt, rays, t_min, reps):
+    o, d, cap = V3(*rays[0:3]), V3(*rays[3:6]), rays[6]
+    call = lambda: mesh_mxu.sweep_mxu(mt, o, d, t_min, cap)
+    call()
+    torch.cuda.synchronize()
+    return c._time_ms(call, reps)
+
+
+out["b4_ms"] = {}
+bt, mt, t_min, rays = c._ico_rays(1 << 20, 0)
+out["b4_ms"]["phase17_1048576"] = b4_ms(mt, rays, t_min, 5)
+del rays
+_, (mtp, t_p, rays_p) = c.phase_pipe_main_shape()
+out["b4_ms"][f"prefix_{rays_p.shape[1]}"] = b4_ms(mtp, rays_p, t_p, 5)
+del rays_p
+held = {}
+png = os.path.join(c.ROOT, "build", "ab_mlt.png")
+with c._held_sweeps(1024, held):
+    assert cli.main(c._mlt_argv(c.MESH_SCENE, 128, 128, 8, 1024, 2, png,
+                                objs=(c.BLOB,))) == 0
+for kind, (mtm, rays_m, t_m, _) in sorted(held.items()):
+    out["b4_ms"][f"mlt_{kind}_{rays_m.shape[1]}"] = b4_ms(
+        mtm, rays_m.contiguous(), t_m, 20)
+'''
+
+MXU_KERNEL = MXU_TIMES + 'print("RESULT", json.dumps(out))\n'
+
+MXU = MXU_TIMES + r'''
+renders("main", c.SCENE, "SimplePathTracer", 512, 2048, 20, False)
+renders("megamesh", c.MESH_SCENE, "AccPathTracer", 500, 256, 20, False,
+        (c.BLOB,))
+os.environ.pop("NR_MESH_MXU", None)
+renders("hybrid_b2", c.MESH_SCENE, "AccPathTracer", 500, 256, 20, False,
+        (c.ICO,))
+os.environ["NR_MESH_MXU"] = "1"
+renders("hybrid_b4", c.MESH_SCENE, "AccPathTracer", 500, 256, 20, False,
+        (c.ICO,))
+print("RESULT", json.dumps(out))
+'''
+
 CODE = COMMON + r'''
 paths = (("main", c.SCENE, "SimplePathTracer", 2048, 20, False),
          ("acc", c.GLASS_SCENE, "AccPathTracer", 2048, 20, False),
@@ -229,10 +297,27 @@ def _run(cwd: str, code: str) -> dict:
     return json.loads(line[0][len("RESULT "):])
 
 
-def _dense_min_copy(change: str, k: int) -> str:
+# The thresholds a copy can set: (source, its constant, the Python module
+# and constant that repeat it, or None) by flag
+THRESHOLDS = {
+    "dense_min": ("mesh_sweep.cuh", "kDenseMin", None, None),
+    "min_blocks": ("mesh_sweep_mxu.cu", "kMinBlocks", None, None),
+    "ray_batch": ("mesh_sweep_mxu.cu", "kRayBatch", "mesh_mxu.py",
+                  "RAY_BATCH")}
+
+
+def _set_line(path: str, pattern: str, line: str) -> None:
+    text, n = re.subn(pattern, line, open(path).read(), flags=re.M)
+    if n != 1:
+        raise SystemExit(f"no single {pattern!r} line in {path}")
+    open(path, "w").write(text)
+
+
+def _threshold_copy(change: str, values: dict) -> str:
     """A copy of this checkout's package and script (resources linked)
-    with the warp sweep's dense-step threshold set to `k`."""
-    dst = os.path.join(change, "build", f"dense_min_{k}")
+    with sweep thresholds set (`THRESHOLDS` name -> value)."""
+    tag = "_".join(f"{k}_{v}" for k, v in sorted(values.items()))
+    dst = os.path.join(change, "build", tag)
     shutil.rmtree(dst, ignore_errors=True)
     os.makedirs(dst)
     shutil.copytree(os.path.join(change, "nrenderer_torch"),
@@ -241,41 +326,51 @@ def _dense_min_copy(change: str, k: int) -> str:
     shutil.copy(os.path.join(change, "chip_smoke.py"), dst)
     os.symlink(os.path.join(change, "resource"),
                os.path.join(dst, "resource"))
-    src = os.path.join(dst, "nrenderer_torch", "csrc", "mesh_sweep.cuh")
-    text, n = re.subn(r"constexpr int kDenseMin = \d+;",
-                      f"constexpr int kDenseMin = {k};", open(src).read())
-    if n != 1:
-        raise SystemExit("no kDenseMin line in mesh_sweep.cuh")
-    open(src, "w").write(text)
+    pkg = os.path.join(dst, "nrenderer_torch")
+    for which, k in values.items():
+        src, const, py, py_const = THRESHOLDS[which]
+        _set_line(os.path.join(pkg, "csrc", src),
+                  rf"^constexpr int {const} = \d+;",
+                  f"constexpr int {const} = {k};")
+        if py is not None:
+            _set_line(os.path.join(pkg, "ops", py), rf"^{py_const} = \d+$",
+                      f"{py_const} = {k}")
     return dst
 
 
 def main(argv) -> int:
-    mode, dense_min = "analytic", []
+    mode, sweeps = "analytic", []
     args = argv[1:]
     while args and args[0].startswith("--"):
         flag = args.pop(0)
-        if flag in ("--hybrid", "--mesh"):
+        if flag in ("--hybrid", "--mesh", "--mxu"):
             mode = flag[2:]
-        elif flag == "--dense-min" and args:
-            dense_min = [int(k) for k in args.pop(0).split(",")]
+        elif flag in ("--dense-min", "--min-blocks", "--ray-batch") and args:
+            which = flag[2:].replace("-", "_")
+            sweeps += [{which: int(k)} for k in args.pop(0).split(",")]
         else:
             args = []
-    if len(args) != 1 or (dense_min and mode != "mesh") or not os.path.isfile(
+    bad = any(mode != {"dense_min": "mesh", "min_blocks": "mxu",
+                       "ray_batch": "mxu"}[which]
+              for sw in sweeps for which in sw)
+    if len(args) != 1 or bad or not os.path.isfile(
             os.path.join(args[0], "chip_smoke.py")):
         print(__doc__, file=sys.stderr)
         return 2
-    code = {"analytic": CODE, "hybrid": HYBRID, "mesh": MESH}[mode]
+    code = {"analytic": CODE, "hybrid": HYBRID, "mesh": MESH,
+            "mxu": MXU}[mode]
     change = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     runs = []
     for who in ("parent", "change", "change", "parent"):
         st = _run(args[0] if who == "parent" else change, code)
         runs.append((who, st))
         print(who, json.dumps(st), flush=True)
-    for k in dense_min:
-        st = _run(_dense_min_copy(change, k), code)
-        runs.append((f"dense_min={k}", st))
-        print(f"dense_min={k}", json.dumps(st), flush=True)
+    for sw in sweeps:
+        label = ",".join(f"{k}={v}" for k, v in sorted(sw.items()))
+        st = _run(_threshold_copy(change, sw),
+                  MXU_KERNEL if mode == "mxu" else code)
+        runs.append((label, st))
+        print(label, json.dumps(st), flush=True)
     print("AB", json.dumps(runs))
     return 0
 
