@@ -17,7 +17,14 @@ exits non-zero without a result line:
      times for both and the least time the card could take (the bound):
      the diffuse form on the Cornell box, the BSDF form on
      `resource/pt_glass_box.scn`, the diffuse and BSDF env forms on
-     `resource/env_spheres.scn` under `resource/env_sky.png`;
+     `resource/env_spheres.scn` under `resource/env_sky.png`; the two
+     dense forms (`pt_diffuse_kernel`, `pt_bsdf_kernel`) also at a ragged
+     split shape (61x37, 33 spp as 20 + 13, depth 0, 1 and 6, thin lens)
+     and at one launch of their own size (512x512, the spp of
+     `DENSE_PIXEL_SAMPLES_PER_LAUNCH`, depth 20; their record), their
+     films bit for bit at every shape, each with its loop's lane slots
+     (`pt_cuda.loop_slots`: the flat loop's useful share beside the
+     nested loop's);
   5. the main path, `nrenderer_torch.cli.main(["render", ...])` at 512x512,
      2048 spp, depth 20 on the GPU: once to warm up, once timed with its
      kernel launches counted; the image must be finite, in [0, 1], within a
@@ -86,8 +93,8 @@ exits non-zero without a result line:
      and each ray where the two engines part printed beside a float64
      intersection (their count barred); its schedule counts (pairs and
      batches), its `-Xptxas -v` line, and the `-Xptxas -v` figures of the
-     kernels it leaves as they were (B1e, B2, the eight `pt_kernel`
-     forms) held to the parent's (`KEPT_PTXAS`);
+     path-tracing kernels (the two dense forms, the six `pt_kernel` forms,
+     B1e) and B2 held to their recorded figures (`KEPT_PTXAS`);
  18. the hybrid path of phase 14 under NR_MESH_MXU=1: every sweep on B4,
      the image within bars of phase 14's; then B4 against its plain
      version, bit for bit and timed, with its schedule counts, on phase
@@ -234,15 +241,17 @@ FLOPS_SLAB, FLOPS_MESH_TRI = 26, 53
 # the MXU sweep (csrc/mesh_sweep_mxu.cu): one triangle test of an entered
 # block (four 10-term forms, 72, and the sign fold and accept tests, 18)
 FLOPS_MXU_TRI = 90
-# `-Xptxas -v` of the kernels that the MXU sweep's redesign leaves as they
-# were, read from the parent tree's build on an H100 (sm_90a): (stack
-# frame, spill stores, spill loads, registers), by the kernel's mangled
-# name past its translation unit's prefix.  pt_kernel<kBsdf, kEnv, kTex>
-# (the eight forms), pt_mesh_kernel<kTex> (B1e, B1d's mesh form) and
-# mesh_sweep_kernel<kUv> (B2).
+# `-Xptxas -v` of the path-tracing and sweep kernels, read from builds on
+# an H100 (sm_90a): (stack frame, spill stores, spill loads, registers), by
+# the kernel's mangled name past its translation unit's prefix.
+# pt_dense_kernel<kBsdf> (the dense forms: the diffuse form with its float4
+# records, 64 registers at 8 blocks an SM), pt_kernel<kBsdf, kEnv, kTex>
+# (the six env and texture forms), pt_mesh_kernel<kTex> (B1e, B1d's mesh
+# form) and mesh_sweep_kernel<kUv> (B2).  A change to one kernel must
+# leave the others' figures as they are.
 KEPT_PTXAS = {
-    "9pt_kernelILb0ELb0ELb0EE": (0, 0, 0, 56),
-    "9pt_kernelILb1ELb0ELb0EE": (16, 16, 16, 56),
+    "15pt_dense_kernelILb0EE": (24, 44, 24, 64),
+    "15pt_dense_kernelILb1EE": (0, 0, 0, 61),
     "9pt_kernelILb0ELb1ELb0EE": (32, 0, 0, 48),
     "9pt_kernelILb1ELb1ELb0EE": (56, 20, 20, 48),
     "9pt_kernelILb0ELb0ELb1EE": (32, 0, 0, 56),
@@ -328,12 +337,16 @@ def phase_hash() -> None:
                              f"{n_diff} of {n} draws")
 
 
-def _setup(device, scene_path=SCENE, env=False, objs=()):
+def _setup(device, scene_path=SCENE, env=False, objs=(), lens=False):
+    """(StaticScene, camera, env map or None, scene arrays); `lens`: the
+    scene's camera with a thin lens (aperture 20, focus 1000)."""
     from nrenderer_torch import build_scene_arrays, load_obj, load_scn
     from nrenderer_torch.io.image import load_image
     from nrenderer_torch.ops.camera import make_camera
     from nrenderer_torch.ops.intersect import make_static_scene
     scene = load_scn(scene_path)
+    if lens:
+        scene.camera.aperture, scene.camera.focus_distance = 20.0, 1000.0
     for obj in objs:
         load_obj(obj, scene, material=0 if scene.materials else None)
     arrays = build_scene_arrays(scene)
@@ -378,7 +391,8 @@ def bound_ms(ss, n_pix: int, work: dict, env_map, mesh=None,
     n_tri = 0 if mesh is not None else len(ss.tri)
     per_bounce = (len(ss.sph) * FLOPS_SPHERE + n_tri * FLOPS_TRIANGLE
                   + (len(ss.pln) + len(ss.al)) * FLOPS_PATCH + FLOPS_SCATTER)
-    flops = (work["samples"] * FLOPS_SAMPLE + work["bounces"] * per_bounce
+    flops = (work["samples"] * FLOPS_SAMPLE
+             + work.get("bounces", 0) * per_bounce
              + work.get("slab_tests", 0) * FLOPS_SLAB
              + work.get("tri_tests", 0) * FLOPS_MESH_TRI)
     n_bytes = (2 * n_pix * 3 * 4
@@ -396,7 +410,11 @@ def bound_ms(ss, n_pix: int, work: dict, env_map, mesh=None,
 
 def phase_parity(width, height, spp, depth, seed=0, scene=SCENE,
                  bsdf=False, env=False, objs=(), mesh=False, tex=False,
-                 phase=4) -> dict:
+                 phase=4, split=None, lens=False) -> dict:
+    """One kernel form against its plain version on the same CUDA inputs.
+    `split`: the spp as consecutive calls of these sizes (from sample 0);
+    `lens`: a thin-lens camera."""
+    from nrenderer_torch.ops import pt_cuda
     from nrenderer_torch.ops.bvh import build_mesh_accel
     from nrenderer_torch.ops.mesh_cuda import make_mesh_tables
     from nrenderer_torch.ops.pt_core import make_mat_channels, scene_epsilon
@@ -404,10 +422,15 @@ def phase_parity(width, height, spp, depth, seed=0, scene=SCENE,
         kernel_name, make_env_tables, make_tex_tables, pt_accumulate,
         pt_accumulate_plain)
     name = kernel_name(bsdf, env, mesh, tex)
+    dense = not (env or mesh or tex)
     what = " + ".join(os.path.basename(p) for p in (scene, *objs))
     print(f"== phase {phase}: {name} vs plain, {what}, "
-          f"{width}x{height}, {spp} spp, depth {depth}")
-    ss, cam, env_map, arrays = _setup("cuda", scene, env, objs)
+          f"{width}x{height}, {spp} spp"
+          + (f" as {'+'.join(map(str, split))}" if split else "")
+          + f", depth {depth}" + (", thin lens" if lens else ""))
+    ss, cam, env_map, arrays = _setup("cuda", scene, env, objs, lens)
+    calls = [(sum(split[:i]), n) for i, n in enumerate(split)] if split \
+        else [(0, spp)]
     t_min = scene_epsilon(ss)
     n_pix = width * height
     tables = make_env_tables(env_map, "cuda") if env else None
@@ -418,15 +441,19 @@ def phase_parity(width, height, spp, depth, seed=0, scene=SCENE,
 
     def kernel():
         film = torch.zeros((n_pix, 3), dtype=torch.float32, device="cuda")
-        return pt_accumulate(film, ss, cam, width, height, 0, spp, depth,
-                             seed, t_min, bsdf=bsdf, env=tables, mesh=mesh_t,
-                             tex=tex_t)
+        for sp0, n in calls:
+            pt_accumulate(film, ss, cam, width, height, sp0, n, depth, seed,
+                          t_min, bsdf=bsdf, env=tables, mesh=mesh_t,
+                          tex=tex_t)
+        return film
 
     def plain(stats=None):
         film = torch.zeros((n_pix, 3), dtype=torch.float32, device="cuda")
-        return pt_accumulate_plain(film, ss, cam, width, height, 0, spp,
-                                   depth, seed, t_min, bsdf=bsdf, env=tables,
-                                   mesh=mesh_t, tex=tex_t, stats=stats)
+        for sp0, n in calls:
+            pt_accumulate_plain(film, ss, cam, width, height, sp0, n, depth,
+                                seed, t_min, bsdf=bsdf, env=tables,
+                                mesh=mesh_t, tex=tex_t, stats=stats)
+        return film
 
     lin_k = kernel()
     lin_p = plain(work)
@@ -445,15 +472,22 @@ def phase_parity(width, height, spp, depth, seed=0, scene=SCENE,
         "kernel_ms": _time_ms(kernel, 3),
         "plain_ms": _time_ms(plain, 1),
         "bound_ms": b_ms, "bound_by": b_by,
-        "bounces_per_sample": work["bounces"] / work["samples"],
+        "bounces_per_sample": work.get("bounces", 0) / work["samples"],
         **({"slab_tests": work["slab_tests"],
             "tri_tests": work.get("tri_tests", 0),
             "schedule": _pt_schedule(work["schedule"])} if mesh else {}),
+        # the dense forms' loop in lane slots (pt_cuda.loop_slots): the
+        # flat loop at this shape's launches, the nested loop beside it
+        **({"schedule": pt_cuda.loop_slots(
+            work["path_bounces"], max(1, min(
+                spp, pt_cuda.DENSE_PIXEL_SAMPLES_PER_LAUNCH // n_pix)))}
+           if dense and work.get("bounces") else {}),
     }
-    print(json.dumps({"shape": [width, height, spp, depth], **st}))
+    st["shape"] = [width, height, spp, depth]
+    print(json.dumps(st))
     if not st["finite"]:
         raise AssertionError(f"{name} film has non-finite values")
-    if mesh and st["max_abs_err"] != 0.0:
+    if (mesh or dense) and st["max_abs_err"] != 0.0:
         raise AssertionError(f"{name}: the film differs from the plain "
                              f"version's (max |d| {st['max_abs_err']})")
     if st["mean_abs_err"] > MEAN_ABS_MAX:
@@ -1278,7 +1312,7 @@ def check_kept_ptxas() -> dict:
     bad = {k: (v, KEPT_PTXAS[k]) for k, v in got.items()
            if v != KEPT_PTXAS[k]}
     if bad:
-        raise AssertionError(f"-Xptxas -v differs from the parent's: {bad}")
+        raise AssertionError(f"-Xptxas -v differs from KEPT_PTXAS: {bad}")
     return got
 
 
@@ -1637,15 +1671,26 @@ def main() -> int:
     gpu = phase_toolchain()
     phase_build()
     phase_hash()
+    from nrenderer_torch.ops import pt_cuda
     # (kernel name, its main path's parity shape) -> stats
     parity = {}
     for scene, bsdf, env, depth in ((SCENE, False, False, 20),
                                     (GLASS_SCENE, True, False, 20),
                                     (ENV_SCENE, False, True, 8),
                                     (ENV_SCENE, True, True, 8)):
-        phase_parity(64, 64, 16, 4, scene=scene, bsdf=bsdf, env=env)
+        runs = [phase_parity(64, 64, 16, 4, scene=scene, bsdf=bsdf, env=env)]
         st = phase_parity(512, 512, 4, depth, scene=scene, bsdf=bsdf,
                           env=env)
+        if not env:
+            # the dense forms: a ragged split shape, then one launch of the
+            # path's own size (its record)
+            runs += [st] + [phase_parity(61, 37, 33, d, seed=5, scene=scene,
+                                         bsdf=bsdf, split=(20, 13),
+                                         lens=True) for d in (0, 1, 6)]
+            launch_spp = pt_cuda.DENSE_PIXEL_SAMPLES_PER_LAUNCH // (512 * 512)
+            st = phase_parity(512, 512, launch_spp, depth, scene=scene,
+                              bsdf=bsdf)
+            st["max_abs_err"] = max(r["max_abs_err"] for r in runs + [st])
         parity[st["kernel"]] = st
     for scene, objs, bsdf, env, mesh, tex, size, depth in (
             (MESH_SCENE, (BLOB,), True, False, True, False, 500, 20),
@@ -1679,8 +1724,7 @@ def main() -> int:
         for name, n in run["launches"].items():
             if n:
                 launches[name] = launches.get(name, 0) + n
-    from nrenderer_torch.ops import mesh_cuda, mesh_mxu, pt_cuda, \
-        stream_compact
+    from nrenderer_torch.ops import mesh_cuda, mesh_mxu, stream_compact
     for run in paths:
         print(f"{run['path']}: {run['seconds']:.3f} s "
               f"(render {run['render_seconds']:.3f} s), "
@@ -1709,7 +1753,8 @@ def main() -> int:
         "max_abs_err": st["max_abs_err"],
         "ms": st["kernel_ms"], "plain_ms": st["plain_ms"],
         "bound_ms": st["bound_ms"], "bound_by": st["bound_by"],
-        "library_ms": None} for name, st in parity.items()]
+        "library_ms": None, "shape": st["shape"]}
+        for name, st in parity.items()]
     # the standalone sweep runs on the hybrid paths; its device function
     # also runs inline in the mesh forms' launches
     kernels.append({

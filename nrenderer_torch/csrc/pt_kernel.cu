@@ -4,16 +4,17 @@
 // its forms bsdf=False / bsdf=True, each without or with the env-map terms
 // (env_rows / env_exact), the mesh form (mesh=(n_blocks, b): the blocked
 // triangle sweep inline in the bounce loop) and the texture form (n_tex > 0,
-// mesh_uv: binned surface textures).  pt_kernel<kBsdf, kEnv, kTex> is
-// instantiated eight times: pt_diffuse_kernel <false, false, false>
-// (SimplePathTracer's main path), pt_bsdf_kernel <true, false, false>
-// (AccPathTracer), pt_diffuse_env_kernel and pt_bsdf_env_kernel (kEnv), and
-// each of those four with kTex: pt_diffuse_tex_kernel, pt_bsdf_tex_kernel,
-// pt_diffuse_env_tex_kernel and pt_bsdf_env_tex_kernel; pt_mesh_kernel<kTex>
-// twice: pt_bsdf_mesh_kernel (AccPathTracer's megamesh route, 65 to 1024
-// triangles, no env map) and pt_bsdf_mesh_tex_kernel.  The Python wrapper,
-// its plain torch version and the launch counters are in
-// nrenderer_torch/ops/pt_cuda.py.
+// mesh_uv: binned surface textures).  pt_dense_kernel<kBsdf> is
+// instantiated twice, for the dense forms: pt_diffuse_kernel <false>
+// (SimplePathTracer's main path) and pt_bsdf_kernel <true> (AccPathTracer
+// on analytic scenes).  pt_kernel<kBsdf, kEnv, kTex> is instantiated six
+// times: pt_diffuse_env_kernel and pt_bsdf_env_kernel (kEnv), the dense
+// forms with kTex (pt_diffuse_tex_kernel, pt_bsdf_tex_kernel) and the env
+// forms with kTex (pt_diffuse_env_tex_kernel, pt_bsdf_env_tex_kernel);
+// pt_mesh_kernel<kTex> twice: pt_bsdf_mesh_kernel (AccPathTracer's
+// megamesh route, 65 to 1024 triangles, no env map) and
+// pt_bsdf_mesh_tex_kernel.  The Python wrapper, its plain torch version and
+// the launch counters are in nrenderer_torch/ops/pt_cuda.py.
 //
 // What it computes, per pixel and per sample: a jittered camera ray (thin
 // lens when lens_r > 0) from hash_uniform(pid, sample, draw 0..3, seed), then
@@ -66,18 +67,28 @@
 // same device functions there); against the JAX kernel on the CPU the last
 // ulp of the transcendentals differs.
 //
-// Design: one thread per pixel; each thread loops over its samples and their
-// bounces in registers and stops a path as soon as it dies (a dead path
-// changes nothing in the estimator, so stopping early is exact).  In the
-// mesh forms a lane whose path has ended stays in the bounce loop with no
-// ray until the warp's last path ends, so the warp sweep keeps all 32
-// lanes.  Pixel ids
-// follow the JAX kernel's numbering, pid = py * W + px with py = 0 the bottom
-// row, so both draw the same hash values.  The scene is a small packed
-// float32 table in device memory; every thread of a warp reads the same
-// address at the same time, so the reads are broadcasts served from L1.  The
-// env map and its bin table are read per miss (at most two reads per sample).
-// The camera basis and t_min are kernel arguments.
+// Design of the dense forms (pt_dense_kernel): one flat loop per thread
+// whose iteration is one bounce of whichever sample the thread is on; the
+// iteration that ends a path adds the sample into the pixel's sum and
+// starts the next sample (path regeneration), so the lanes of a warp stay
+// in the loop body together instead of idling at a bounce loop's exit
+// until the warp's longest path ends (on the Cornell box 35.7% of the
+// nested loop's lane slots were bounces, 89% of the flat loop's at launches
+// of 256 spp: pt_cuda.loop_slots).  The grid is persistent: as many blocks
+// as fit on the card at once, each thread taking its next pixel from a
+// counter.  The forms that keep the nested loop (pt_kernel, the env and
+// texture forms; pt_mesh_kernel): one thread per pixel, looping over its
+// samples and their bounces and stopping a path as soon as it dies (a dead
+// path changes nothing in the estimator, so stopping early is exact); in
+// the mesh forms a lane whose path has ended stays in the bounce loop with
+// no ray until the warp's last path ends, so the warp sweep keeps all 32
+// lanes.  Pixel ids follow the JAX kernel's numbering, pid = py * W + px
+// with py = 0 the bottom row, so both draw the same hash values.  The
+// scene is a small packed float32 table in device memory; every thread of
+// a warp reads the same address at the same time, so the reads are
+// broadcasts served from L1.  The env map and its bin table are read per
+// miss (at most two reads per sample).  The camera basis and t_min are
+// kernel arguments.
 //
 // The film is a linear (W*H, 3) float32 SUM that each launch adds samples
 // [sp0, sp0 + n_spp) into IN PLACE, one sample after another per pixel: a
@@ -85,16 +96,22 @@
 // wrapper scales by 1/spp and applies the sqrt gamma.
 //
 // What bounds it on the H100: FP32 issue (about 16 primitive tests per
-// bounce for the Cornell box, plus the lobe's math) and warp divergence, as
-// paths die at different bounces and, in the BSDF form, as lanes of a warp
-// take different lobes of the material switch; memory traffic is one film
-// read and write per pixel per launch plus a few env texels per sample.
+// bounce for the Cornell box, plus the lobe's math), with the table's
+// loads beside it, and warp divergence: in the nested loop as paths die at
+// different bounces, in every form as lanes of a warp take different
+// lobes of the material switch or, in the flat loop, start a sample while
+// others scatter; memory traffic is one film read and write per pixel per
+// launch plus a few env texels per sample.
 // The mesh form adds per bounce a slab test per block and ~53 operations
 // per triangle of each entered block (the sweep's bound, mesh_sweep.cuh);
 // the warp sweep tests a block few lanes enter with the whole warp, so
 // lanes that enter different blocks no longer serialise 128 tests each.
-// The texture form adds one or two texel reads per hit.  Not done: per-
-// scene specialisation, sorting of rays by material.
+// The texture form adds one or two texel reads per hit.  Not done: the
+// flat loop in the env and texture forms (short launches, < 0.02 s a
+// render) and in the mesh forms (slower there: the warp sweep needs every
+// lane at each call); per-scene specialisation; sorting of rays by
+// material; FMA contraction (about 11% faster, but not bit for bit with
+// the plain version).
 //
 // Built with nvcc for sm_90a without --use_fast_math (the hit tests and the
 // hash need IEEE division and sqrt) and with -fmad=false (see above; the
@@ -950,6 +967,322 @@ pt_mesh_kernel(float* __restrict__ film, const float* __restrict__ scene,
   film[3 * pid + 2] = fb;
 }
 
+// The dense forms (B1a: pt_diffuse_kernel, B1b: pt_bsdf_kernel):
+// pt_kernel<kBsdf, false, false>'s estimator in one flat loop per thread.
+// An iteration is one bounce of whichever sample the thread is on; the
+// iteration that ends a path (a miss, a light hit, or the depth cap with
+// the ambient term) adds the sample into the pixel's sum and builds the
+// next sample's camera ray, so a lane whose path ended early goes on with
+// its next sample instead of waiting for the warp's longest path.  Each
+// sample's float operations, the hash arguments and the order in which
+// samples are added are pt_kernel's, and the film is read once when a
+// pixel starts and written once when it is done: the same sums bit for
+// bit.
+//
+// Persistent: the grid holds only the blocks that fit on the card at once
+// (kDenseMinBlocks blocks of 128 an SM), and a thread that has done its
+// pixel takes the next from a counter (`next_pixel`, zeroed before each
+// launch), a warp's free lanes together with one atomicAdd.  A thread
+// still owns each pixel it takes whole, for the launch's samples.
+//
+// The diffuse form reads the primitives from `rec`: each primitive's row
+// of the scene table padded to whole float4s (pt_cuda.dense_records:
+// spheres 2, triangles, planes and lights 4), in float4 loads, a quarter
+// of the load instructions.  The BSDF form reads the table itself: with
+// records its lobe math spilled and it ran slower (PERF.md §6).
+constexpr int kDenseMinBlocks = 8;
+constexpr int SPH_REC = 2, TRI_REC = 4, PLN_REC = 4, AL_REC = 4;
+
+// `n` float4 records from `r` into `q`
+__device__ __forceinline__ void load_records(float* q,
+                                             const float4* __restrict__ r,
+                                             const int n) {
+  for (int j = 0; j < n; ++j) {
+    const float4 v = r[j];
+    q[4 * j + 0] = v.x;
+    q[4 * j + 1] = v.y;
+    q[4 * j + 2] = v.z;
+    q[4 * j + 3] = v.w;
+  }
+}
+
+// The next pixel of a thread that has done one: `first` past the counter's
+// value, the lanes of the warp that ask at once taking consecutive ones.
+__device__ __forceinline__ int take_pixel(int* __restrict__ next_pixel,
+                                          const int first) {
+  const unsigned mask = __activemask();
+  const int lane = threadIdx.x & 31;
+  const int leader = __ffs(mask) - 1;
+  int base = 0;
+  if (lane == leader) base = atomicAdd(next_pixel, __popc(mask));
+  base = __shfl_sync(mask, base, leader);
+  return first + base + __popc(mask & ((1u << lane) - 1u));
+}
+
+template <bool kBsdf>
+__global__ void __launch_bounds__(128, kDenseMinBlocks)
+pt_dense_kernel(float* __restrict__ film, const float* __restrict__ scene,
+                const SceneCounts nc, const CamArgs cam, const int width,
+                const int height, const int sp0, const int n_spp,
+                const int depth, const uint32_t seed,
+                int* __restrict__ next_pixel,
+                const float4* __restrict__ rec) {
+  const int n_pix = width * height;
+  const int n_lanes = gridDim.x * blockDim.x;
+  int pid = blockIdx.x * blockDim.x + threadIdx.x;
+  if (pid >= n_pix || n_spp <= 0) return;
+
+  const float* __restrict__ sph = scene;
+  const float* __restrict__ tri = sph + nc.n_sph * SPH_STRIDE;
+  const float* __restrict__ pln = tri + nc.n_tri * TRI_STRIDE;
+  const float* __restrict__ al = pln + nc.n_pln * PLN_STRIDE;
+  const float* __restrict__ mat = al + nc.n_al * AL_STRIDE;
+  const float* __restrict__ amb = mat + nc.n_mat * MAT_STRIDE;
+  const float4* __restrict__ sph_r = rec;
+  const float4* __restrict__ tri_r = sph_r + nc.n_sph * SPH_REC;
+  const float4* __restrict__ pln_r = tri_r + nc.n_tri * TRI_REC;
+  const float4* __restrict__ al_r = pln_r + nc.n_pln * PLN_REC;
+
+  if (depth <= 0) {  // every sample is the ambient term alone
+    for (; pid < n_pix; pid += n_lanes) {
+      float fr = film[3 * pid + 0];
+      float fg = film[3 * pid + 1];
+      float fb = film[3 * pid + 2];
+      for (int k = 0; k < n_spp; ++k) {
+        const float tr = 1.0f, tg = 1.0f, tb = 1.0f;
+        float rr = 0.0f, rg = 0.0f, rb = 0.0f;
+        rr += tr * amb[0];
+        rg += tg * amb[1];
+        rb += tb * amb[2];
+        fr += rr;
+        fg += rg;
+        fb += rb;
+      }
+      film[3 * pid + 0] = fr;
+      film[3 * pid + 1] = fg;
+      film[3 * pid + 2] = fb;
+    }
+    return;
+  }
+
+  int py = pid / width;
+  int px = pid - py * width;
+  float fr = film[3 * pid + 0];
+  float fg = film[3 * pid + 1];
+  float fb = film[3 * pid + 2];
+  int k = 0;  // the sample, from sp0
+  int b = 0;  // its bounce
+  float ox, oy, oz, dx, dy, dz;
+  camera_ray(cam, (uint32_t)pid, (uint32_t)sp0, seed, (float)px, (float)py,
+             ox, oy, oz, dx, dy, dz);
+  float tr = 1.0f, tg = 1.0f, tb = 1.0f;
+  // The loop's one exit is its test: a branch inside the body rejoins at
+  // the body's end, so the lanes that start a sample and those that
+  // scatter run the next bounce together (a `break` in the body would
+  // keep them apart until the loop ends).
+  while (pid < n_pix) {
+    const uint32_t upid = (uint32_t)pid;
+    const uint32_t sp = (uint32_t)(sp0 + k);
+    const uint32_t bseed = seed + (uint32_t)b * 0x9E3779B1u;
+    const float u1 = hash_uniform(upid, sp, 4u, bseed);
+    const float u2 = hash_uniform(upid, sp, 5u, bseed);
+
+    // closest hit: spheres, triangles, planes; first strictly closer wins
+    float t_best = INFINITY, nx = 0.0f, ny = 0.0f, nz = 0.0f;
+    int m_best = 0;
+    for (int i = 0; i < nc.n_sph; ++i) {
+      float q[4 * SPH_REC];
+      const float* p = sph + i * SPH_STRIDE;
+      if constexpr (!kBsdf) {
+        load_records(q, sph_r + i * SPH_REC, SPH_REC);
+        p = q;
+      }
+      const float ocx = ox - p[0], ocy = oy - p[1], ocz = oz - p[2];
+      const float bq = ocx * dx + ocy * dy + ocz * dz;
+      const float c = ocx * ocx + ocy * ocy + ocz * ocz - p[3];
+      const float a = dx * dx + dy * dy + dz * dz;
+      const float disc = bq * bq - a * c;
+      const float sq = sqrtf(fmaxf(disc, 0.0f));
+      const float inv_a = 1.0f / a;
+      const float t1 = (-bq - sq) * inv_a;
+      const float t2 = (-bq + sq) * inv_a;
+      const bool ok = disc > 0.0f;
+      const float th = (ok && t1 >= cam.t_min)
+                           ? t1
+                           : ((ok && t2 >= cam.t_min) ? t2 : INFINITY);
+      if (th < t_best) {
+        t_best = th;
+        nx = (ox + th * dx - p[0]) * p[4];
+        ny = (oy + th * dy - p[1]) * p[4];
+        nz = (oz + th * dz - p[2]) * p[4];
+        m_best = (int)p[5];
+      }
+    }
+    for (int i = 0; i < nc.n_tri; ++i) {
+      float q[4 * TRI_REC];
+      const float* p = tri + i * TRI_STRIDE;
+      if constexpr (!kBsdf) {
+        load_records(q, tri_r + i * TRI_REC, TRI_REC);
+        p = q;
+      }
+      const float e1x = p[3], e1y = p[4], e1z = p[5];
+      const float e2x = p[6], e2y = p[7], e2z = p[8];
+      // P = d x e2; Moller-Trumbore with the det-sign fold
+      const float qpx = e2z * dy - e2y * dz;
+      const float qpy = -e2z * dx + e2x * dz;
+      const float qpz = e2y * dx - e2x * dy;
+      const float det0 = e1x * qpx + e1y * qpy + e1z * qpz;
+      const float sign = det0 > 0.0f ? 1.0f : -1.0f;
+      const float det = det0 * sign;
+      const float tx = (ox - p[0]) * sign;
+      const float ty = (oy - p[1]) * sign;
+      const float tz = (oz - p[2]) * sign;
+      const float u = tx * qpx + ty * qpy + tz * qpz;
+      const float qx = e1z * ty - e1y * tz;
+      const float qy = -e1z * tx + e1x * tz;
+      const float qz = e1y * tx - e1x * ty;
+      const float v = dx * qx + dy * qy + dz * qz;
+      const float w =
+          (e2x * qx + e2y * qy + e2z * qz) / (det == 0.0f ? 1.0f : det);
+      const bool ok = (det >= 1e-6f) && (u >= 0.0f) && (u <= det) &&
+                      (v >= 0.0f) && (u + v <= det) && (w >= cam.t_min);
+      if (ok && w < t_best) {
+        t_best = w;
+        nx = p[9];
+        ny = p[10];
+        nz = p[11];
+        m_best = (int)p[12];
+      }
+    }
+    for (int i = 0; i < nc.n_pln; ++i) {
+      float q[4 * PLN_REC];
+      const float* p = pln + i * PLN_STRIDE;
+      if constexpr (!kBsdf) {
+        load_records(q, pln_r + i * PLN_REC, PLN_REC);
+        p = q;
+      }
+      const float th = patch_t(p, ox, oy, oz, dx, dy, dz, cam.t_min);
+      if (th < t_best) {
+        t_best = th;
+        nx = p[3];
+        ny = p[4];
+        nz = p[5];
+        m_best = (int)p[13];
+      }
+    }
+    float t_l = INFINITY, lr_ = 0.0f, lg_ = 0.0f, lb_ = 0.0f;
+    for (int i = 0; i < nc.n_al; ++i) {
+      float q[4 * AL_REC];
+      const float* p = al + i * AL_STRIDE;
+      if constexpr (!kBsdf) {
+        load_records(q, al_r + i * AL_REC, AL_REC);
+        p = q;
+      }
+      const float th = patch_t(p, ox, oy, oz, dx, dy, dz, cam.t_min);
+      if (th < t_l) {
+        t_l = th;
+        lr_ = p[13];
+        lg_ = p[14];
+        lb_ = p[15];
+      }
+    }
+
+    // the sample's radiance, added into the pixel's sum when its path ends
+    float rr = 0.0f, rg = 0.0f, rb = 0.0f;
+    bool ended = true;
+    if ((t_best < INFINITY) && (t_best < t_l)) {
+      if constexpr (kBsdf) {
+        const float* mt = mat + m_best * MAT_STRIDE;
+        F3 nd, w;
+        bsdf_scatter(mt, mt + M_DIFFUSE, mt + M_ALBEDO, F3{dx, dy, dz},
+                     F3{nx, ny, nz}, u1, u2, upid, sp, bseed, &nd, &w);
+        tr = tr * w.x;
+        tg = tg * w.y;
+        tb = tb * w.z;
+        ox = ox + t_best * dx;
+        oy = oy + t_best * dy;
+        oz = oz + t_best * dz;
+        dx = nd.x;
+        dy = nd.y;
+        dz = nd.z;
+      } else {
+        // Lambertian bounce: uniform hemisphere about the stored normal
+        const float hr = sqrtf(fmaxf(0.0f, 1.0f - u1 * u1));
+        const float phi = TWO_PI * u2;
+        const float lx = cosf(phi) * hr, ly = sinf(phi) * hr, lz = u1;
+        // Onb (Onb.hpp:17-27): a = big_x ? (0,1,0) : (1,0,0)
+        const bool big_x = fabsf(nx) > 0.9f;
+        const float ax_ = big_x ? 0.0f : 1.0f, ay_ = big_x ? 1.0f : 0.0f;
+        float vx = ny * 0.0f - nz * ay_;
+        float vy = nz * ax_ - nx * 0.0f;
+        float vz = nx * ay_ - ny * ax_;
+        const float vinv =
+            rsqrtf(fmaxf(vx * vx + vy * vy + vz * vz, 1.2e-38f));
+        vx *= vinv;
+        vy *= vinv;
+        vz *= vinv;
+        const float ux = ny * vz - nz * vy;
+        const float uy = nz * vx - nx * vz;
+        const float uz = nx * vy - ny * vx;
+        float ndx = lx * ux + ly * vx + lz * nx;
+        float ndy = lx * uy + ly * vy + lz * ny;
+        float ndz = lx * uz + ly * vz + lz * nz;
+        const float dinv =
+            rsqrtf(fmaxf(ndx * ndx + ndy * ndy + ndz * ndz, 1.2e-38f));
+        ndx *= dinv;
+        ndy *= dinv;
+        ndz *= dinv;
+        const float scale = 2.0f * (nx * ndx + ny * ndy + nz * ndz);
+        const float* alb = mat + m_best * MAT_STRIDE + M_DIFFUSE;
+        tr = tr * (alb[0] * scale);
+        tg = tg * (alb[1] * scale);
+        tb = tb * (alb[2] * scale);
+        ox = ox + t_best * dx;
+        oy = oy + t_best * dy;
+        oz = oz + t_best * dz;
+        dx = ndx;
+        dy = ndy;
+        dz = ndz;
+      }
+      ended = ++b == depth;
+      if (ended) {  // depth cap: ambient constant
+        rr += tr * amb[0];
+        rg += tg * amb[1];
+        rb += tb * amb[2];
+      }
+    } else if (t_l < INFINITY) {  // the light comes first
+      rr += tr * lr_;
+      rg += tg * lg_;
+      rb += tb * lb_;
+    }
+    if (ended) {
+      fr += rr;
+      fg += rg;
+      fb += rb;
+      if (++k == n_spp) {  // the pixel is done
+        film[3 * pid + 0] = fr;
+        film[3 * pid + 1] = fg;
+        film[3 * pid + 2] = fb;
+        pid = take_pixel(next_pixel, n_lanes);
+        if (pid < n_pix) {
+          py = pid / width;
+          px = pid - py * width;
+          fr = film[3 * pid + 0];
+          fg = film[3 * pid + 1];
+          fb = film[3 * pid + 2];
+          k = 0;
+        }
+      }
+      b = 0;
+      camera_ray(cam, (uint32_t)pid, (uint32_t)(sp0 + k), seed, (float)px,
+                 (float)py, ox, oy, oz, dx, dy, dz);
+      tr = 1.0f;
+      tg = 1.0f;
+      tb = 1.0f;
+    }
+  }
+}
+
 __global__ void hash_fill_kernel(const int32_t* __restrict__ pid,
                                  const int32_t* __restrict__ sample,
                                  const int32_t* __restrict__ draw,
@@ -973,14 +1306,18 @@ extern "C" {
 // CamArgs; `env_bin` (device): the (3, ENV_ROWS, ENV_LANES) bin table and
 // `env_map` (device): the (env_h, env_w, 3) map; `mesh_tris`, `mesh_uvs`,
 // `mesh_bb` (device): the blocked pool's tables (csrc/mesh_sweep.cuh;
-// `mesh_uvs` with textures); `tex_tab` (device): n_tex binned textures.
+// `mesh_uvs` with textures); `tex_tab` (device): n_tex binned textures;
+// `next_pixel` (device, one int; the dense forms): the pixel counter,
+// zeroed here before the launch; `dense_rec` (device; the diffuse form):
+// the primitive records (pt_cuda.dense_records).
 int nr_pt_render(float* film, const float* scene, const int* counts,
                  const float* cam, int width, int height, int sp0, int n_spp,
                  int depth, int seed, int form, const float* env_bin,
                  const float* env_map, int env_h, int env_w,
                  const float* mesh_tris, const float* mesh_uvs,
                  const float* mesh_bb, int n_blocks, int block,
-                 const float* tex_tab, int n_tex, void* stream) {
+                 const float* tex_tab, int n_tex, int* next_pixel,
+                 const float* dense_rec, void* stream) {
   SceneCounts nc{counts[0], counts[1], counts[2], counts[3], counts[4]};
   CamArgs ca;
   const float* c = cam;
@@ -1014,6 +1351,36 @@ int nr_pt_render(float* film, const float* scene, const int* counts,
   const int threads = 128;
   const int blocks = (n_pix + threads - 1) / threads;
   cudaStream_t st = (cudaStream_t)stream;
+  if (form == 0 || form == 1) {
+    if (next_pixel == nullptr || (form == 0 && dense_rec == nullptr))
+      return (int)cudaErrorInvalidValue;
+    const float4* rec = reinterpret_cast<const float4*>(dense_rec);
+    // the blocks that fit on the card at once, and the counter cleared
+    int dev = 0, sms = 0, per_sm = 0;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e == cudaSuccess)
+      e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e == cudaSuccess)
+      e = form ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                     &per_sm, pt_dense_kernel<true>, threads, 0)
+               : cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                     &per_sm, pt_dense_kernel<false>, threads, 0);
+    if (e == cudaSuccess)
+      e = cudaMemsetAsync(next_pixel, 0, sizeof(int), st);
+    if (e != cudaSuccess) return (int)e;
+    const int grid = (per_sm * sms >= 1 && per_sm * sms < blocks)
+                         ? per_sm * sms
+                         : blocks;
+    if (form)
+      pt_dense_kernel<true><<<grid, threads, 0, st>>>(
+          film, scene, nc, ca, width, height, sp0, n_spp, depth,
+          (uint32_t)seed, next_pixel, rec);
+    else
+      pt_dense_kernel<false><<<grid, threads, 0, st>>>(
+          film, scene, nc, ca, width, height, sp0, n_spp, depth,
+          (uint32_t)seed, next_pixel, rec);
+    return (int)cudaGetLastError();
+  }
 #define NR_LAUNCH(B, E, T)                                                  \
   pt_kernel<B, E, T><<<blocks, threads, 0, st>>>(                           \
       film, scene, nc, ca, width, height, sp0, n_spp, depth, (uint32_t)seed, \
@@ -1023,8 +1390,6 @@ int nr_pt_render(float* film, const float* scene, const int* counts,
       film, scene, nc, ca, width, height, sp0, n_spp, depth, (uint32_t)seed, \
       mesh, tex_tab, n_tex)
   switch (form) {
-    case 0: NR_LAUNCH(false, false, false); break;
-    case 1: NR_LAUNCH(true, false, false); break;
     case 2: NR_LAUNCH(false, true, false); break;
     case 3: NR_LAUNCH(true, true, false); break;
     case 5: NR_LAUNCH_MESH(false); break;

@@ -8,7 +8,11 @@ or with an environment map; the BSDF one with the blocked mesh sweep in its
 bounce loop (`mesh_accel`, AccPathTracer's megamesh route); and each of
 those five with binned surface textures (`textures`).  The kernel,
 `csrc/pt_kernel.cu`, replaces the Pallas `_pt_kernel` in those forms; its
-source header says what it computes and how.
+source header says what it computes and how.  The two dense forms (no env
+map, no mesh, no textures) run one flat bounce loop per pixel with path
+regeneration (`pt_dense_kernel`), in launches of their own size
+(`DENSE_PIXEL_SAMPLES_PER_LAUNCH`); `loop_slots` counts that loop's lane
+slots from the plain version's per-path bounce counts.
 
 `pt_accumulate` is the wrapper: for a film tensor on a CUDA device it
 launches the kernel instantiation the form needs (and raises if the build or
@@ -109,11 +113,17 @@ def reset_launch_counts() -> None:
     HASH_LAUNCHES = 0
 
 
-# One kernel launch covers at most this many pixel-samples (a 512x512 film
-# takes 32 spp per launch); the plain version traces at most this many rays
-# per wavefront.
+# One launch of the env, texture and mesh forms covers at most this many
+# pixel-samples (a 512x512 film takes 32 spp per launch); the plain version
+# traces at most this many rays per wavefront.
 PIXEL_SAMPLES_PER_LAUNCH = 1 << 23
 PLAIN_RAYS_PER_WAVEFRONT = 1 << 20
+# The dense forms' (pt_diffuse_kernel, pt_bsdf_kernel) launch size: 256 spp
+# of a 512x512 film.  Their flat loop sums each pixel's samples in one
+# lane, so more samples a launch even out the warp's lanes (89% of lane
+# slots useful at 256 spp, 77% at 32 on the Cornell box); 512 measured no
+# faster than 256 on an H100 (PERF.md §6).
+DENSE_PIXEL_SAMPLES_PER_LAUNCH = 1 << 26
 
 # The dense pass's size limit: the kernel tests dense triangles one by one,
 # so a scene past this count belongs to the mesh engines.  The JAX
@@ -228,6 +238,30 @@ def pack_scene(ss: StaticScene, mesh: bool = False, with_uv: bool = False):
     return table, counts
 
 
+# The diffuse form's primitive records (csrc/pt_kernel.cu reads them in
+# float4 loads): each primitive's table row padded to whole float4s (4
+# floats each), spheres, triangles, planes, lights.
+SPH_REC, TRI_REC, PLN_REC, AL_REC = 2, 4, 4, 4
+
+
+def dense_records(table: np.ndarray, counts) -> np.ndarray:
+    """The primitive rows of `pack_scene`'s table (without mesh or UV
+    rows), each padded with zeros to SPH_REC / TRI_REC / PLN_REC / AL_REC
+    float4s, as one float32 array (at least one record)."""
+    n_sph, n_tri, n_pln, n_al, _ = counts
+    out, at = [], 0
+    for n, stride, recs in ((n_sph, SPH_STRIDE, SPH_REC),
+                            (n_tri, TRI_STRIDE, TRI_REC),
+                            (n_pln, PLN_STRIDE, PLN_REC),
+                            (n_al, AL_STRIDE, AL_REC)):
+        rows = np.zeros((n, 4 * recs), np.float32)
+        rows[:, :stride] = table[at:at + n * stride].reshape(n, stride)
+        out.append(rows.reshape(-1))
+        at += n * stride
+    out.append(np.zeros(4, np.float32))
+    return np.concatenate(out)
+
+
 def table_size(counts, with_uv: bool = False) -> int:
     n_sph, n_tri, n_pln, n_al, n_mat = counts
     return (n_sph * SPH_STRIDE + n_tri * TRI_STRIDE + n_pln * PLN_STRIDE
@@ -268,7 +302,7 @@ def _kernels() -> ctypes.CDLL:
         lib.nr_pt_render.argtypes = [
             vp, vp, ctypes.POINTER(ci), ctypes.POINTER(ctypes.c_float),
             ci, ci, ci, ci, ci, ci, ci, vp, vp, ci, ci, vp, vp, vp, ci, ci,
-            vp, ci, vp]
+            vp, ci, vp, vp, vp]
         lib.nr_pt_render.restype = ci
         lib.nr_hash_uniform_fill.argtypes = [vp, vp, vp, vp, vp, ci, vp]
         lib.nr_hash_uniform_fill.restype = ci
@@ -399,7 +433,15 @@ def _pt_accumulate_cuda(film, ss, cam, width, height, sp0, n_spp, depth,
     form = (int(bool(bsdf)) | (env is not None) << 1
             | (mesh is not None) << 2 | with_uv << 3)
     n_pix = width * height
-    per_launch = max(1, PIXEL_SAMPLES_PER_LAUNCH // n_pix)
+    dense = form in (0, 1)
+    per_launch = max(1, (DENSE_PIXEL_SAMPLES_PER_LAUNCH if dense
+                         else PIXEL_SAMPLES_PER_LAUNCH) // n_pix)
+    # the dense forms' pixel counter, and the diffuse form's primitive
+    # records
+    next_pixel = torch.zeros(1, dtype=torch.int32, device=film.device) \
+        if dense else None
+    rec = torch.as_tensor(dense_records(table, counts), device=film.device) \
+        if form == 0 else None
     with torch.cuda.device(film.device):
         stream = torch.cuda.current_stream().cuda_stream
         for c0 in range(0, n_spp, per_launch):
@@ -408,7 +450,10 @@ def _pt_accumulate_cuda(film, ss, cam, width, height, sp0, n_spp, depth,
                                    camf, width, height, sp0 + c0, n, depth,
                                    _int32(seed), form, env_bin, env_map,
                                    env_h, env_w, m_tris, m_uvs, m_bb,
-                                   n_blocks, block, tex_ptr, n_tex, stream)
+                                   n_blocks, block, tex_ptr, n_tex,
+                                   next_pixel.data_ptr() if dense else None,
+                                   None if rec is None else rec.data_ptr(),
+                                   stream)
             _check_launch(lib, err, name)
             KERNEL_LAUNCHES[name] += 1
 
@@ -464,7 +509,10 @@ def pt_accumulate_plain(film: torch.Tensor, ss: StaticScene,
     colours through `texture.make_tex_resolver`.
 
     `stats` (a dict, optional) counts the work the kernel does on these
-    inputs: "samples" and "bounces" (bounce iterations of live paths), and
+    inputs: "samples" and "bounces" (bounce iterations of live paths),
+    "path_bounces" (each path's bounce iterations, an (n_pix, samples)
+    int32 tensor in sample order; a later call's columns follow an earlier
+    one's; `loop_slots` reads it), and
     with a mesh the sweep's "slab_tests" and "tri_tests"; with a mesh and a
     list under "enter", "schedule" holds `mesh_cuda.schedule_counts` of
     the sweeps grouped as two loops would run them: "lockstep" (the warp's
@@ -505,9 +553,12 @@ def pt_accumulate_plain(film: torch.Tensor, ss: StaticScene,
         d_m = V3(zeros, zeros, ones)      # direction at that miss
         alive = torch.ones_like(o.x, dtype=torch.bool)
         alive_at = []
+        path_nb = None if stats is None else torch.zeros(
+            c * n_pix, dtype=torch.int32, device=dev)
         for b in range(n_bounces):
             if stats is not None:
                 stats["bounces"] = stats.get("bounces", 0) + int(alive.sum())
+                path_nb += alive
             if sched is not None:
                 alive_at.append(alive)
             bseed = bounce_seed(seed, b)
@@ -551,6 +602,10 @@ def pt_accumulate_plain(film: torch.Tensor, ss: StaticScene,
                                 n_spp, n_bounces)
         if stats is not None:
             stats["samples"] = stats.get("samples", 0) + c * n_pix
+            cols = path_nb.reshape(c, n_pix).T
+            prev = stats.get("path_bounces")
+            stats["path_bounces"] = (cols.contiguous() if prev is None
+                                     else torch.cat([prev, cols], dim=1))
         samples = torch.stack([rad.x, rad.y, rad.z], dim=-1).reshape(
             c, n_pix, 3)
         for k in range(c):  # one sample after another, as the kernel adds
@@ -583,6 +638,64 @@ def _sweep_groups(sched: list, enters: list, alive_at: list,
         flat = (p // WARP) * (n_spp * n_bounces) + start[k, p] + b
         sched.append((enter[rows], lockstep, flat))
     return it0 + nb.sum(dim=0)
+
+
+def loop_slots(path_bounces: torch.Tensor, launch_spp: int,
+               resident: Optional[int] = None) -> dict:
+    """Lane slots (one lane for one bounce iteration) of the dense forms'
+    bounce loops, from each path's bounce count (`path_bounces`, the
+    (n_pix, n_spp) tensor of `pt_accumulate_plain`'s stats), with pixel p
+    in lane p % 32 of warp p // 32; a ragged last warp's missing lanes
+    count as idle slots:
+
+    - "useful": the bounces themselves, the sum of the counts;
+    - "nested": a loop over samples around a loop over bounces, the warp's
+      lanes at one sample (the kernel before the flat loop): per warp and
+      sample, 32 x the warp's longest path;
+    - "flat": one loop whose iteration is a bounce of whichever sample a
+      lane is on, `launch_spp` samples a launch: per warp and launch, 32 x
+      the largest total over the warp's lanes;
+    - "persistent", with `resident` lanes (a multiple of 32): the flat loop
+      with each lane taking its next pixel from a counter when it has done
+      one, in the order lanes become free (ties by lane); per warp and
+      launch, 32 x the largest total over its lanes.
+
+    "<loop>_share" is useful / slots."""
+    n_pix, n_spp = path_bounces.shape
+    n_warps = -(-n_pix // WARP)
+    pb = torch.zeros((n_warps * WARP, n_spp), dtype=torch.int64)
+    pb[:n_pix] = path_bounces.cpu()
+    per_warp = pb.reshape(n_warps, WARP, n_spp)
+    out = {"useful": int(pb.sum()),
+           "nested": WARP * int(per_warp.amax(dim=1).sum()), "flat": 0}
+    if resident is not None:
+        out["persistent"] = 0
+    for s0 in range(0, n_spp, launch_spp):
+        tot = pb[:, s0:s0 + launch_spp].sum(dim=1)
+        out["flat"] += WARP * int(tot.reshape(n_warps, WARP).amax(dim=1)
+                                  .sum())
+        if resident is not None:
+            out["persistent"] += _persistent_slots(tot[:n_pix].tolist(),
+                                                   resident)
+    for loop in ("nested", "flat", "persistent"):
+        if loop in out:
+            out[f"{loop}_share"] = out["useful"] / max(out[loop], 1)
+    return out
+
+
+def _persistent_slots(work: list, resident: int) -> int:
+    """Lane slots of one launch of the persistent schedule: `resident`
+    lanes, each taking the next pixel (its `work` in bounces) whenever it
+    is free."""
+    import heapq
+    ends = work[:resident] + [0] * max(0, resident - len(work))
+    heap = [(t, lane) for lane, t in enumerate(ends)]
+    heapq.heapify(heap)
+    for w in work[resident:]:
+        t, lane = heap[0]
+        ends[lane] = t + w
+        heapq.heapreplace(heap, (t + w, lane))
+    return WARP * sum(max(ends[i:i + WARP]) for i in range(0, resident, WARP))
 
 
 def render_pt_linear(ss: StaticScene, cam: CameraParams, width: int,

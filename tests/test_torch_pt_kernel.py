@@ -232,6 +232,32 @@ def test_pack_scene_layout(port_scene):
                                   np.float32(ss.ambient_constant))
 
 
+@pytest.mark.parametrize("scene_name", ["cornell_box.scn",
+                                        "pt_glass_box.scn"])
+def test_dense_records_hold_the_table(scene_name):
+    """The dense forms' float4 records: each primitive's row of
+    `pack_scene`'s table, in its order, padded with zeros to whole float4s
+    (spheres 2, triangles, planes and lights 4)."""
+    scene = load_scn(str(SCENE.parent / scene_name))
+    ss = make_static_scene(build_scene_arrays(scene))
+    table, counts = pt_cuda.pack_scene(ss)
+    rec = pt_cuda.dense_records(table, counts)
+    assert rec.dtype == np.float32 and rec.size % 4 == 0
+    at_t, at_r = 0, 0
+    for n, stride, recs in zip(counts[:4], (6, 13, 14, 16),
+                               (pt_cuda.SPH_REC, pt_cuda.TRI_REC,
+                                pt_cuda.PLN_REC, pt_cuda.AL_REC)):
+        for _ in range(n):
+            row = rec[at_r:at_r + 4 * recs]
+            np.testing.assert_array_equal(row[:stride],
+                                          table[at_t:at_t + stride])
+            assert not row[stride:].any()
+            at_t, at_r = at_t + stride, at_r + 4 * recs
+    # the material rows and the ambient follow the primitives in the table
+    assert at_t == table.size - counts[4] * pt_cuda.MAT_STRIDE - 3
+    assert rec.size == at_r + 4
+
+
 def test_unported_forms_refuse(port_scene):
     """What the kernel refuses: dense triangle pools past the dense
     kernel's limit and env-map mesh scenes (AccPathTracer's mesh routes take
@@ -352,6 +378,35 @@ def test_cuda_kernel_chunks_and_errors(port_scene, gpu):
     with pytest.raises(ValueError, match="film"):
         pt_cuda.pt_accumulate(torch.zeros((10, 3), device=gpu), ss, cam, 32,
                               24, 0, 1, 1, 0, t_min)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("depth", [0, 1, 6])
+@pytest.mark.parametrize("bsdf", [False, True])
+def test_cuda_dense_forms_bit_exact_ragged(gpu, bsdf, depth):
+    """The dense forms (pt_diffuse_kernel on the Cornell box, pt_bsdf_kernel
+    on pt_glass_box.scn) against the plain version bit for bit at a ragged
+    shape: 61x37 pixels (no multiple of 32), 33 spp split 20 + 13 (the
+    second call from sp0 = 20), a thin lens and a nonzero ambient term."""
+    scene = load_scn(str(SCENE.parent / ("pt_glass_box.scn" if bsdf
+                                         else "cornell_box.scn")))
+    scene.camera.aperture, scene.camera.focus_distance = 20.0, 1000.0
+    ss = make_static_scene(build_scene_arrays(scene))._replace(
+        ambient_constant=(0.3, 0.4, 0.5))
+    cam = make_camera(scene.camera, device=gpu)
+    t_min = scene_epsilon(ss)
+    name = pt_cuda.kernel_name(bsdf, False)
+    before = pt_cuda.KERNEL_LAUNCHES[name]
+    film_k = torch.zeros((61 * 37, 3), device=gpu)
+    film_p = torch.zeros((61 * 37, 3), device=gpu)
+    for sp0, n in ((0, 20), (20, 13)):
+        pt_cuda.pt_accumulate(film_k, ss, cam, 61, 37, sp0, n, depth, 5,
+                              t_min, bsdf=bsdf)
+        pt_cuda.pt_accumulate_plain(film_p, ss, cam, 61, 37, sp0, n, depth,
+                                    5, t_min, bsdf=bsdf)
+    assert pt_cuda.KERNEL_LAUNCHES[name] >= before + 2
+    assert torch.isfinite(film_k).all() and float(film_k.mean()) > 0.0
+    assert torch.equal(film_k, film_p)
 
 
 @pytest.mark.cuda

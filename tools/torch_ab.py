@@ -3,6 +3,8 @@
 
     git archive <parent> | tar -x -C build/parent     # a second checkout
     python3 tools/torch_ab.py build/parent              # the analytic paths
+    python3 tools/torch_ab.py --launch-spp 64,256 --pt-min-blocks 8,10 \
+        build/parent
     python3 tools/torch_ab.py --hybrid build/parent     # the hybrid paths
     python3 tools/torch_ab.py --mesh build/parent       # the mesh sweep
     python3 tools/torch_ab.py --mesh --dense-min 8,16,32 build/parent
@@ -19,10 +21,18 @@ AccPathTracer and SimplePathTracer on `env_spheres.scn` under
 `env_sky.png` (512x512, 1024 spp, depth 8).  Each path gets a warm-up
 render and then three renders whose render phases it reads from the
 renderer's timer.  Then it times each path's kernel form alone: one
-`pt_accumulate` call of 256 spp at 512x512 at the path's depth (eight
-launches of 32 spp, so the wrapper's host work is a small share even for
-the short env launches), five calls between CUDA events, in ms per 32-spp
-launch.
+`pt_accumulate` call of the path's spp at 512x512 at its depth (so the
+wrapper's host work is a small share even for the short env launches),
+three calls between CUDA events, in ms per 32 spp and per launch, with the
+launches a call makes; and it prints the `-Xptxas -v` lines of every
+path-tracing form (the dense forms' `pt_dense_kernel` among them).  The
+dense forms' tuning constants each get a run per value, in a copy of this
+checkout (`build/<name>_K/`, ~1 min a run), after the four:
+`--launch-spp K,...` sets their launch size to K spp of a 512x512 film
+(`DENSE_PIXEL_SAMPLES_PER_LAUNCH` in `ops/pt_cuda.py`), `--pt-min-blocks
+K,...` their launch bound's blocks an SM (`kDenseMinBlocks` in
+`csrc/pt_kernel.cu`).  `--set NAME=K,NAME=K` (NAME a flag's name with
+`_` for `-`) adds one run with several constants set at once.
 
 With `--hybrid` it renders instead the two hybrid-route paths of
 phases 14-15 (`ico_5120.obj` on `mesh_box.scn`, 500x500, 256 spp, depth
@@ -112,8 +122,8 @@ out["ptxas"] = {ln.split("'")[1]: " / ".join(
     x.strip() for x in lines[i + 1:i + 5]
     if "stack" in x or "registers" in x)
     for i, ln in enumerate(lines)
-    if "Compiling entry function" in ln and ("pt_kernel" in ln
-                                              or "mesh_sweep" in ln)}
+    if "Compiling entry function" in ln and any(
+        k in ln for k in ("pt_kernel", "pt_dense_kernel", "mesh_sweep"))}
 '''
 
 HYBRID = COMMON + r'''
@@ -165,7 +175,13 @@ for label, scene, objs, bsdf, env, size, depth in forms:
               tex=(pt_cuda.make_tex_tables(arrays.textures, "cuda")
                    if "tex" in label else None))
     film = torch.zeros((size * size, 3), device="cuda")
-    per_launch = max(1, pt_cuda.PIXEL_SAMPLES_PER_LAUNCH // (size * size))
+    # the dense forms launch in sizes of their own (a parent may not have
+    # them)
+    per_pix = (getattr(pt_cuda, "DENSE_PIXEL_SAMPLES_PER_LAUNCH",
+                       pt_cuda.PIXEL_SAMPLES_PER_LAUNCH)
+               if label in ("diffuse", "bsdf")
+               else pt_cuda.PIXEL_SAMPLES_PER_LAUNCH)
+    per_launch = max(1, per_pix // (size * size))
     call = lambda: pt_cuda.pt_accumulate(film, ss, cam, size, size, 0,
                                          8 * per_launch, depth, 0,
                                          scene_epsilon(ss), **kw)
@@ -264,7 +280,7 @@ renders("hybrid_b4", c.MESH_SCENE, "AccPathTracer", 500, 256, 20, False,
 print("RESULT", json.dumps(out))
 '''
 
-CODE = COMMON + r'''
+CODE = COMMON + PTXAS + r'''
 paths = (("main", c.SCENE, "SimplePathTracer", 2048, 20, False),
          ("acc", c.GLASS_SCENE, "AccPathTracer", 2048, 20, False),
          ("env_acc", c.ENV_SCENE, "AccPathTracer", 1024, 8, True),
@@ -278,11 +294,15 @@ for label, scene, renderer, spp, depth, env in paths:
     tables = pt_cuda.make_env_tables(emap, "cuda") if env else None
     film = torch.zeros((512 * 512, 3), device="cuda")
     call = lambda: pt_cuda.pt_accumulate(
-        film, ss, cam, 512, 512, 0, 256, depth, 0, scene_epsilon(ss),
+        film, ss, cam, 512, 512, 0, spp, depth, 0, scene_epsilon(ss),
         bsdf=renderer == "AccPathTracer", env=tables)
+    n0 = sum(pt_cuda.KERNEL_LAUNCHES.values())
     call()
     torch.cuda.synchronize()
-    out[label]["kernel_ms_32spp"] = c._time_ms(call, 5) / 8
+    launches = sum(pt_cuda.KERNEL_LAUNCHES.values()) - n0
+    ms = c._time_ms(call, 3)
+    out[label].update(kernel_ms_32spp=ms / (spp / 32), launches=launches,
+                      kernel_ms_launch=ms / launches)
 print("RESULT", json.dumps(out))
 '''
 
@@ -297,17 +317,29 @@ def _run(cwd: str, code: str) -> dict:
     return json.loads(line[0][len("RESULT "):])
 
 
-# The thresholds a copy can set: (source, its constant, the Python module
-# and constant that repeat it, or None) by flag
+# The constants a copy can set, by flag: the lines that hold them (file
+# in the package, the line with {} for the value) and the mode they tune
 THRESHOLDS = {
-    "dense_min": ("mesh_sweep.cuh", "kDenseMin", None, None),
-    "min_blocks": ("mesh_sweep_mxu.cu", "kMinBlocks", None, None),
-    "ray_batch": ("mesh_sweep_mxu.cu", "kRayBatch", "mesh_mxu.py",
-                  "RAY_BATCH")}
+    "dense_min": ("mesh", [("csrc/mesh_sweep.cuh",
+                            "constexpr int kDenseMin = {};")]),
+    "min_blocks": ("mxu", [("csrc/mesh_sweep_mxu.cu",
+                            "constexpr int kMinBlocks = {};")]),
+    "ray_batch": ("mxu", [("csrc/mesh_sweep_mxu.cu",
+                           "constexpr int kRayBatch = {};"),
+                          ("ops/mesh_mxu.py", "RAY_BATCH = {}")]),
+    "pt_min_blocks": ("analytic", [("csrc/pt_kernel.cu",
+                                    "constexpr int kDenseMinBlocks = {};")]),
+    "launch_spp": ("analytic", [
+        ("ops/pt_cuda.py", "DENSE_PIXEL_SAMPLES_PER_LAUNCH = {} * 512 * 512")]),
+}
 
 
-def _set_line(path: str, pattern: str, line: str) -> None:
-    text, n = re.subn(pattern, line, open(path).read(), flags=re.M)
+def _set_line(path: str, line: str, value: int) -> None:
+    """Replace the one line of `path` that starts as `line` does before its
+    {}, with `line` holding `value`."""
+    pattern = "^" + re.escape(line.split("{}")[0]) + ".*$"
+    text, n = re.subn(pattern, line.format(value), open(path).read(),
+                      flags=re.M)
     if n != 1:
         raise SystemExit(f"no single {pattern!r} line in {path}")
     open(path, "w").write(text)
@@ -328,13 +360,8 @@ def _threshold_copy(change: str, values: dict) -> str:
                os.path.join(dst, "resource"))
     pkg = os.path.join(dst, "nrenderer_torch")
     for which, k in values.items():
-        src, const, py, py_const = THRESHOLDS[which]
-        _set_line(os.path.join(pkg, "csrc", src),
-                  rf"^constexpr int {const} = \d+;",
-                  f"constexpr int {const} = {k};")
-        if py is not None:
-            _set_line(os.path.join(pkg, "ops", py), rf"^{py_const} = \d+$",
-                      f"{py_const} = {k}")
+        for path, line in THRESHOLDS[which][1]:
+            _set_line(os.path.join(pkg, path), line, k)
     return dst
 
 
@@ -345,13 +372,18 @@ def main(argv) -> int:
         flag = args.pop(0)
         if flag in ("--hybrid", "--mesh", "--mxu"):
             mode = flag[2:]
-        elif flag in ("--dense-min", "--min-blocks", "--ray-batch") and args:
+        elif flag[2:].replace("-", "_") in THRESHOLDS and args:
             which = flag[2:].replace("-", "_")
             sweeps += [{which: int(k)} for k in args.pop(0).split(",")]
+        elif flag == "--set" and args:   # one run with several constants
+            pairs = [kv.split("=") for kv in args.pop(0).split(",")]
+            if any(len(kv) != 2 or kv[0] not in THRESHOLDS for kv in pairs):
+                args = []
+                break
+            sweeps.append({k: int(v) for k, v in pairs})
         else:
             args = []
-    bad = any(mode != {"dense_min": "mesh", "min_blocks": "mxu",
-                       "ray_batch": "mxu"}[which]
+    bad = any(mode != THRESHOLDS[which][0]
               for sw in sweeps for which in sw)
     if len(args) != 1 or bad or not os.path.isfile(
             os.path.join(args[0], "chip_smoke.py")):
