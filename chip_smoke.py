@@ -110,12 +110,39 @@ exits non-zero without a result line:
      and B4 also on its own run's):
      the two images' linear means within 5% and
      their 8x8-block correlation >= 0.9, and the ratio of their linear
-     radiance to AccPathTracer's on the same scene.
+     radiance to AccPathTracer's on the same scene;
+ 21. SimplePathTracer's progressive route: `cli.main(["render",
+     "--progressive", ...])` on the Cornell box at 512x512, 2048 spp,
+     depth 20 (256 passes of `pick_chunk`'s 8 spp, each at seed
+     seed * 100003 + pass): B1a launched once a pass, the image in phase
+     5's bars and against phase 5's image (an independent estimate:
+     linear means within 5%, 8x8-block correlation >= 0.9), the passes'
+     and the host previews' seconds; its last pass, kernel against plain
+     version bit for bit and timed; the env form (env_spheres.scn, 512x512,
+     1024 spp, depth 8) and the dense textured form (tex_quad.obj,
+     256x256, 512 spp, depth 6) under --progressive; a scene without
+     primitives through one pass (the ambient at depth 0, black past it);
+ 22. resume on the card: a `--checkpoint` render (512x512, 64 spp, depth
+     20) that dies in its third pass, run again, ends bit for bit on the
+     uninterrupted render;
+ 23. the camera flags: `--aperture 0.01 --fov 42 --camera-position 0 0
+     12` at 128x128, 64 spp, depth 20 through the CLI;
+ 24. RayCast (the Cornell box with a point light, 512x512) and
+     GeometryPreview (mesh_box.scn + ico_5120.obj, decimated to 1024
+     faces and capped at 256 a side, and whole: 5120 triangles through the
+     chunked SoA intersect): torch ops on the card against the same
+     module on the CPU, >= 99.9% of pixels within 1e-5, with times and
+     peak device memory;
+ 25. an editor round: `SceneEditor` on the Cornell box applies one
+     document edit (the red wall's diffuse colour, the camera position),
+     a snapshot gets a GeometryPreview and a SimplePathTracer render on the
+     card (128x128, 64 spp, depth 20); the wall must turn from red to blue.
 
-Each of phases 5-7, 10, 11, 14, 15 and 18-20 sets every launch count to 0
-just before its run and reads the counts just after; a kernel its path
-runs must have launched.  The last two lines are the kernels' JSON record and
-`{"ok": true, "device": {...}}`.  Imports nothing of JAX.
+Each of phases 5-7, 10, 11, 14, 15, 18-21 and 23 sets every launch count
+to 0 just before its run and reads the counts just after (phases 22 and
+25 reset and read B1a's); a kernel its path runs must have launched.  The
+last two lines are the kernels' JSON record and `{"ok": true, "device":
+{...}}`.  Imports nothing of JAX.
 """
 from __future__ import annotations
 
@@ -527,10 +554,11 @@ def _cli_argv(scene, renderer, width, height, spp, depth, out, env=False,
 
 
 def phase_cli(phase, label, argv, kernels, width, height, spp, depth,
-              band, check, warm_argv=None) -> dict:
+              band, check, warm_argv=None, timers=()) -> dict:
     """One path through `cli.main`: a warm-up run (`warm_argv`, or the same
     argv), then a timed run with every launch count set to 0 just before
-    it and read just after."""
+    it and read just after; `timers`: `GLOBAL_TIMER` phases whose seconds
+    in the timed run are returned under "timers"."""
     print(f"== phase {phase}: {label}, cli render {width}x{height}, "
           f"{spp} spp, depth {depth}")
     from nrenderer_torch import cli
@@ -556,11 +584,13 @@ def phase_cli(phase, label, argv, kernels, width, height, spp, depth,
     torch.cuda.reset_peak_memory_stats()
     timer = f"{argv[argv.index('--renderer') + 1]}.render"
     render0 = GLOBAL_TIMER.get(timer).total_s
+    timers0 = {k: GLOBAL_TIMER.get(k).total_s for k in timers}
     t0 = time.perf_counter()
     rc = cli.main(argv)
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     render_s = GLOBAL_TIMER.get(timer).total_s - render0
+    timer_s = {k: GLOBAL_TIMER.get(k).total_s - t for k, t in timers0.items()}
     launches = {**pt_cuda.KERNEL_LAUNCHES, **mesh_cuda.KERNEL_LAUNCHES,
                 **mesh_mxu.KERNEL_LAUNCHES, **stream_compact.KERNEL_LAUNCHES}
     routes = {**mesh_cuda.ROUTE_COUNTS, **mesh_cuda.ENGINE_COUNTS,
@@ -587,6 +617,7 @@ def phase_cli(phase, label, argv, kernels, width, height, spp, depth,
           "warmup_seconds": warm_s,
           "launches": launches, "peak_memory_bytes": peak,
           **({"routes": routes} if any(routes.values()) else {}),
+          **({"timers": timer_s} if timers else {}),
           "spp_per_s": spp / secs,
           "mbounce_rays_per_s": width * height * spp * depth / secs / 1e6,
           "image_mean": mean, "check_region_mean": region,
@@ -1666,6 +1697,315 @@ def phase_mlt_mesh(width=128, height=128, chains=1024, mutations=256,
     return tuple(runs)
 
 
+PROGRESSIVE_TIMERS = ("SimplePathTracer.first-pass",
+                      "SimplePathTracer.render-pass",
+                      "SimplePathTracer.host-preview")
+
+
+def _lin_stats(a, b) -> dict:
+    """Two gamma'd images as independent estimates of one image: the
+    relative difference of their linear means and the correlation of their
+    8x8-block means (phase 20's bars: within 5%, >= 0.9)."""
+    la, lb = (x.astype(np.float64) ** 2 for x in (a, b))
+    return {"linear_mean_rel_diff": float(abs(la.mean() / lb.mean() - 1.0)),
+            "block_corr": float(np.corrcoef(_blocks8(a), _blocks8(b))[0, 1])}
+
+
+def _empty_scene_pass() -> dict:
+    """A scene without primitives through one progressive pass, kernel
+    against plain version: the ambient at depth 0, black past it (the JAX
+    route's image)."""
+    from nrenderer_torch import Scene, build_scene_arrays
+    from nrenderer_torch.ops.camera import make_camera
+    from nrenderer_torch.ops.intersect import make_static_scene
+    from nrenderer_torch.ops.pt_cuda import pt_accumulate, \
+        pt_accumulate_plain
+    scene = Scene()
+    scene.ambient.constant = (0.2, 0.3, 0.4)
+    ss = make_static_scene(build_scene_arrays(scene))
+    cam = make_camera(scene.camera, device="cuda")
+    out = {}
+    for depth in (0, 3):
+        films = []
+        for fn in (pt_accumulate, pt_accumulate_plain):
+            film = torch.zeros((64 * 48, 3), dtype=torch.float32,
+                               device="cuda")
+            films.append(fn(film, ss, cam, 64, 48, 0, 8, depth, 7, 1e-6))
+        want = torch.tensor([0.2, 0.3, 0.4], device="cuda") * 8 \
+            if depth == 0 else torch.zeros(3, device="cuda")
+        if not (torch.equal(films[0], films[1])
+                and torch.allclose(films[0][0], want, rtol=1e-6, atol=0)):
+            raise AssertionError(f"empty scene, depth {depth}: kernel "
+                                 f"{films[0][0].tolist()}, plain "
+                                 f"{films[1][0].tolist()}")
+        out[f"depth_{depth}"] = films[0][0].tolist()
+    return out
+
+
+def phase_progressive(main_px, width=512, height=512, spp=2048,
+                      depth=20) -> tuple:
+    """Phase 21: the progressive main path through `cli.main(["render",
+    "--progressive", ...])`, B1a launched spp // pick_chunk times; its
+    image against phase 5's; one of its passes, kernel against plain
+    version bit for bit and timed; the env and textured forms under
+    --progressive; an empty scene's pass."""
+    from nrenderer_torch.ops.pt_cuda import _int32
+    from nrenderer_torch.renderers.simple_pt import pick_chunk
+    chunk = pick_chunk(width, height, spp)
+    out = os.path.join(ROOT, "build", "smoke_progressive.png")
+    argv = _cli_argv(SCENE, "SimplePathTracer", width, height, spp, depth,
+                     out) + ["--progressive"]
+    st = phase_cli(21, "progressive main path (SimplePathTracer)", argv,
+                   ["pt_diffuse_kernel"], width, height, spp, depth,
+                   MEAN_BAND, _light_brighter, timers=PROGRESSIVE_TIMERS)
+    from nrenderer_torch.server.registry import get_server
+    px = get_server().screen.get_pixels()[:, :, :3].copy()
+    n = st["launches"]["pt_diffuse_kernel"]
+    t = {k.split(".")[1]: v for k, v in st["timers"].items()}
+    st.update(passes=spp // chunk, pass_spp=chunk, pass_seconds=t,
+              vs_one_shot=_lin_stats(px, main_px))
+    print(f"progressive main path: {n} launches of {chunk} spp; wall "
+          f"{st['seconds']:.3f} s: first-pass {t['first-pass']:.3f} s, "
+          f"render-pass {t['render-pass']:.3f} s, host-preview "
+          f"{t['host-preview']:.3f} s; vs phase 5: "
+          f"{json.dumps(st['vs_one_shot'])}")
+    if n != spp // chunk:
+        raise AssertionError(f"progressive path: {n} launches of "
+                             f"pt_diffuse_kernel, not {spp // chunk}")
+    vs = st["vs_one_shot"]
+    if vs["linear_mean_rel_diff"] > 0.05 or vs["block_corr"] < 0.9:
+        raise AssertionError(f"progressive image vs phase 5's: {vs}")
+    # the last pass (at the CLI's seed 0: seed 0 * 100003 + pass), held bit
+    # for bit and timed at its own size
+    st["pass_vs_plain"] = phase_parity(
+        width, height, chunk, depth, seed=_int32(0 * 100003 + n - 1),
+        phase=21)
+    st["empty_scene"] = _empty_scene_pass()
+    runs = [st]
+    for label, scene, kernel, objs, env, size, spp_, depth_, band, \
+            check in (
+            ("env map, progressive", ENV_SCENE, "pt_diffuse_env_kernel", (),
+             True, 512, 1024, 8, ENV_MEAN_BAND, _sky_bright),
+            ("textured quad, progressive", TEX_SCENE, "pt_diffuse_tex_kernel",
+             (TEX_QUAD,), False, 256, 512, 6, GRID_MEAN_BAND, _red_left)):
+        out = os.path.join(ROOT, "build", f"smoke_progressive_{kernel}.png")
+        argv = _cli_argv(scene, "SimplePathTracer", size, size, spp_, depth_,
+                         out, env=env, objs=objs) + ["--progressive"]
+        r = phase_cli(21, label, argv, [kernel], size, size, spp_, depth_,
+                      band, check, timers=PROGRESSIVE_TIMERS)
+        want = spp_ // pick_chunk(size, size, spp_)
+        if r["launches"][kernel] != want:
+            raise AssertionError(f"{label}: {r['launches'][kernel]} "
+                                 f"launches of {kernel}, not {want}")
+        runs.append(r)
+    return tuple(runs)
+
+
+def phase_resume(width=512, height=512, spp=64, depth=20) -> dict:
+    """Phase 22: a --checkpoint render that dies after two passes, run
+    again, ends bit for bit on the uninterrupted render."""
+    print(f"== phase 22: resume on the card, {width}x{height}, {spp} spp, "
+          f"depth {depth}")
+    from nrenderer_torch import cli
+    from nrenderer_torch.renderers import simple_pt
+    from nrenderer_torch.server.registry import get_server
+    ckpt = os.path.join(ROOT, "build", "smoke_resume.npz")
+    if os.path.exists(ckpt):
+        os.remove(ckpt)
+    out = os.path.join(ROOT, "build", "smoke_resume.png")
+    argv = _cli_argv(SCENE, "SimplePathTracer", width, height, spp, depth,
+                     out)
+    if cli.main(argv + ["--progressive"]) != 0:
+        raise AssertionError("uninterrupted progressive render failed")
+    whole = get_server().screen.get_pixels().copy()
+    real = simple_pt.pt_accumulate
+    calls = []
+
+    def dies_on_third(*args, **kw):
+        calls.append(args[8])
+        if len(calls) == 3:
+            raise KeyboardInterrupt("interrupted")
+        return real(*args, **kw)
+
+    simple_pt.pt_accumulate = dies_on_third
+    try:
+        rc = cli.main(argv + ["--checkpoint", ckpt])
+    except KeyboardInterrupt:
+        rc = None
+    finally:
+        simple_pt.pt_accumulate = real
+    spp_done = int(np.load(ckpt)["spp_done"])
+    chunk = simple_pt.pick_chunk(width, height, spp)
+    if rc is not None or spp_done != 2 * chunk:
+        raise AssertionError(f"interrupted render: rc {rc}, checkpoint at "
+                             f"{spp_done} spp, not {2 * chunk}")
+    from nrenderer_torch.ops import pt_cuda
+    pt_cuda.reset_launch_counts()
+    if cli.main(argv + ["--checkpoint", ckpt]) != 0:
+        raise AssertionError("resumed render failed")
+    resumed = get_server().screen.get_pixels().copy()
+    n = pt_cuda.KERNEL_LAUNCHES["pt_diffuse_kernel"]
+    st = {"path": "resume", "passes": spp // chunk, "resumed_at": spp_done,
+          "launches_after_resume": n,
+          "max_abs_err": float(np.abs(resumed - whole).max())}
+    print(json.dumps(st))
+    if n != spp // chunk - 2 or not np.array_equal(resumed, whole):
+        raise AssertionError(f"resumed render differs: {st}")
+    return st
+
+
+def phase_camera_flags(width=128, height=128, spp=64, depth=20) -> dict:
+    """Phase 23: the camera flags through the CLI: a thin lens
+    (`--aperture`; the lens focuses at the camera's focus distance, 0.1 by
+    default, so 0.01 blurs the box by ~0.05 rad) with `--fov` and
+    `--camera-position`."""
+    out = os.path.join(ROOT, "build", "smoke_aperture.png")
+    argv = _cli_argv(SCENE, "SimplePathTracer", width, height, spp, depth,
+                     out) + ["--aperture", "0.01", "--fov", "42",
+                             "--camera-position", "0", "0", "12"]
+    return phase_cli(23, "camera flags (--aperture 0.01, --fov, "
+                     "--camera-position)", argv, ["pt_diffuse_kernel"],
+                     width, height, spp, depth, MEAN_BAND, _light_brighter)
+
+
+# RayCast and GeometryPreview are torch ops on the card and on the CPU;
+# the two devices round rsqrt, pow and cos differently (within a few
+# ulps), which can move a pixel whose ray grazes an edge: >= 99.9% of
+# pixels within 1e-5.
+RAY_WITHIN_SHARE_MIN = 0.999
+
+
+def _device_pair(label, render, scene) -> dict:
+    """`render(scene, device)` on the card (warm, then timed with its peak
+    memory above what earlier phases left allocated) and on the CPU; their
+    difference, barred."""
+    render(scene, "cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    gpu = render(scene, "cuda")
+    secs = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - resident
+    t0 = time.perf_counter()
+    cpu = render(scene, "cpu")
+    cpu_s = time.perf_counter() - t0
+    d = np.abs(gpu - cpu)
+    st = {"path": label, "shape": list(gpu.shape), "seconds": secs,
+          "cpu_seconds": cpu_s, "peak_memory_bytes": peak,
+          "max_abs_err": float(d.max()),
+          "share_within_1e-5": float((d.max(axis=-1) <= 1e-5).mean()),
+          "image_mean": float(gpu.mean())}
+    print(json.dumps(st))
+    if not np.isfinite(gpu).all() or gpu.mean() <= 0.01:
+        raise AssertionError(f"{label}: image not finite or dark")
+    if st["share_within_1e-5"] < RAY_WITHIN_SHARE_MIN:
+        raise AssertionError(f"{label}: card vs CPU past the bar: {st}")
+    return st
+
+
+def _cornell_point_light():
+    """cornell_box.scn with a point light just under the area light (the
+    repository has no point-light scene)."""
+    from nrenderer_torch import Light, LightType, PointLight, load_scn
+    scene = load_scn(SCENE)
+    scene.point_light_buffer.append(PointLight(
+        position=(0.0, 250.0, 1028.0), intensity=(1.2, 1.1, 1.0)))
+    scene.lights.append(Light(name="Point", type=LightType.POINT, entity=0))
+    return scene
+
+
+def phase_raycast_preview(size=512) -> tuple:
+    """Phase 24: RayCast (the Cornell box with a point light, 512x512) and
+    GeometryPreview (mesh_box.scn + ico_5120.obj, decimated to 1024 faces
+    and capped at 256 a side, and whole, 5120 triangles through the
+    chunked SoA intersect), each on the card against the CPU."""
+    print("== phase 24: RayCast and GeometryPreview, card vs CPU")
+    from nrenderer_torch import load_obj, load_scn
+    from nrenderer_torch.renderers.preview import GeometryPreviewRenderer
+    from nrenderer_torch.renderers.raycast import RayCastRenderer
+    rc = _cornell_point_light()
+    rc.render_option.width = rc.render_option.height = size
+    runs = [_device_pair(
+        "RayCast (cornell_box + point light)",
+        lambda s, dev: RayCastRenderer(device=dev).render(s).pixels[..., :3],
+        rc)]
+    mesh = load_scn(MESH_SCENE)
+    load_obj(ICO, mesh, material=0)
+    mesh.render_option.width = mesh.render_option.height = size
+    preview = lambda s, dev: GeometryPreviewRenderer(device=dev).render(
+        s).pixels[..., :3]
+    for faces in ("1024", "100000"):
+        os.environ["NR_PREVIEW_MAX_FACES"] = faces
+        try:
+            runs.append(_device_pair(
+                f"GeometryPreview (ico_5120, NR_PREVIEW_MAX_FACES={faces})",
+                preview, mesh))
+        finally:
+            del os.environ["NR_PREVIEW_MAX_FACES"]
+    return tuple(runs)
+
+
+def phase_editor(width=128, height=128, spp=64, depth=20) -> dict:
+    """Phase 25: an editor round on the card: one document edit posted to
+    the editor's /scene route (the left wall's diffuse colour and the
+    camera position), a snapshot, a GeometryPreview, and SimplePathTracer
+    on the snapshots before and after; the left wall must change
+    colour."""
+    print(f"== phase 25: editor round, {width}x{height}, {spp} spp, "
+          f"depth {depth}")
+    from nrenderer_torch import load_scn
+    from nrenderer_torch.ops import pt_cuda
+    from nrenderer_torch.renderers.preview import GeometryPreviewRenderer
+    from nrenderer_torch.renderers.simple_pt import SimplePathTracerRenderer
+    from nrenderer_torch.server.editor import SceneEditor, scene_doc
+    scene = load_scn(SCENE)
+    ro = scene.render_option
+    ro.width, ro.height, ro.samples_per_pixel, ro.depth = (width, height,
+                                                           spp, depth)
+    editor = SceneEditor(scene)
+    before, _ = editor.snapshot()
+    doc = scene_doc(scene)
+    red = next(i for i, m in enumerate(doc["materials"])
+               if m["name"] == "Red")
+    doc["materials"][red]["properties"]["diffuseColor"] = [0.1, 0.2, 0.8]
+    doc["camera"]["position"] = [0.0, 0.0, 30.0]
+    code, _, body = editor.routes["/scene"]("POST", json.dumps(doc).encode())
+    changed = json.loads(body).get("changed") if code == 200 else body
+    after, version = editor.snapshot()
+    t0 = time.perf_counter()
+    pv = GeometryPreviewRenderer(device="cuda").render(after)
+    preview_s = time.perf_counter() - t0
+    imgs = []
+    pt_cuda.reset_launch_counts()
+    t0 = time.perf_counter()
+    for snap in (before, after):
+        imgs.append(SimplePathTracerRenderer(device="cuda").render(
+            snap).pixels[..., :3])
+    render_s = time.perf_counter() - t0
+    launches = pt_cuda.KERNEL_LAUNCHES["pt_diffuse_kernel"]
+    wall = lambda px: px[int(0.3 * height):int(0.7 * height),
+                         int(0.05 * width):int(0.15 * width)].mean((0, 1))
+    w0, w1 = wall(imgs[0]), wall(imgs[1])
+    st = {"path": "editor round", "changed": changed, "version": version,
+          "preview_shape": [pv.height, pv.width],
+          "preview_seconds": preview_s, "render_seconds": render_s,
+          "launches": launches, "left_wall_before": w0.tolist(),
+          "left_wall_after": w1.tolist()}
+    print(json.dumps(st))
+    if version != 1 or sorted(changed) != [
+            "camera.position", f"materials[{red}].properties.diffuseColor"]:
+        raise AssertionError(f"editor applied {changed} (version "
+                             f"{version})")
+    if launches <= 0 or not np.isfinite(pv.pixels).all():
+        raise AssertionError("editor round launched no pt_diffuse_kernel "
+                             "or previewed non-finite pixels")
+    if not (w0[0] > w0[2] and w1[2] > w1[0]):
+        raise AssertionError(f"left wall did not turn from red to blue: "
+                             f"{w0} -> {w1}")
+    return st
+
+
 def main() -> int:
     t_start = time.perf_counter()
     gpu = phase_toolchain()
@@ -1710,7 +2050,9 @@ def main() -> int:
     phase_hybrid_parity()
     pipe, prefix = phase_pipe_main_shape()
     from nrenderer_torch.server.registry import get_server
-    paths = [phase_main_path(), phase_acc_path(), *phase_env_paths(),
+    main_path = phase_main_path()
+    main_px = get_server().screen.get_pixels()[:, :, :3].copy()
+    paths = [main_path, phase_acc_path(), *phase_env_paths(),
              phase_mesh_path(), *phase_tex_paths(), phase_hybrid_path()]
     b2_pixels = get_server().screen.get_pixels()[:, :, :3].copy()
     paths.append(phase_env_mesh_path())
@@ -1718,6 +2060,11 @@ def main() -> int:
     paths += [mxu_path, phase_mlt_cornell()]
     mlt_runs = phase_mlt_mesh()
     paths += mlt_runs
+    progressive = phase_progressive(main_px)
+    paths += [*progressive, phase_camera_flags()]
+    resume = phase_resume()
+    ray_runs = phase_raycast_preview()
+    editor = phase_editor()
     breakdown = phase_breakdown()
     launches = {}
     for run in paths:
@@ -1732,6 +2079,25 @@ def main() -> int:
               f"{run['mbounce_rays_per_s']:.1f} Mbounce-rays/s, peak "
               f"{run['peak_memory_bytes'] / 2**30:.2f} GiB on {gpu}")
     print(f"hybrid chunk: {breakdown['chunk_seconds']:.3f} s on {gpu}")
+    for run in progressive:
+        t = {k.split(".")[1]: v for k, v in run["timers"].items()}
+        print(f"{run['path']}: passes "
+              f"{t['first-pass'] + t['render-pass']:.3f} s, host-preview "
+              f"{t['host-preview']:.3f} s of {run['seconds']:.3f} s on "
+              f"{gpu}")
+    held = progressive[0]["pass_vs_plain"]
+    print(f"progressive pass ({held['shape']}): kernel {held['kernel_ms']:.3f}"
+          f" ms, plain {held['plain_ms']:.1f} ms, bound {held['bound_ms']:.4f}"
+          f" ms on {gpu}")
+    for run in ray_runs:
+        print(f"{run['path']}: {run['seconds']:.3f} s, peak "
+              f"{run['peak_memory_bytes'] / 2**20:.1f} MiB above the "
+              f"resident (CPU "
+              f"{run['cpu_seconds']:.3f} s) on {gpu}")
+    print(f"resume: {resume['resumed_at']} spp reloaded, "
+          f"{resume['launches_after_resume']} passes after it; editor "
+          f"round: preview {editor['preview_seconds']:.3f} s, renders "
+          f"{editor['render_seconds']:.3f} s on {gpu}")
     # each sweep engine at its paths' own shapes: the hybrid chunk's sorted
     # prefix (phases 13 and 18) and MLT's path and shadow batches (phase 20)
     shape = lambda st: {"rays": st["rays"], "ms": st["kernel_ms"],
@@ -1753,7 +2119,11 @@ def main() -> int:
         "max_abs_err": st["max_abs_err"],
         "ms": st["kernel_ms"], "plain_ms": st["plain_ms"],
         "bound_ms": st["bound_ms"], "bound_by": st["bound_by"],
-        "library_ms": None, "shape": st["shape"]}
+        "library_ms": None, "shape": st["shape"],
+        **({"progressive_pass": {
+            k: held[k] for k in ("kernel_ms", "plain_ms", "bound_ms",
+                                 "bound_by", "max_abs_err", "shape")}}
+           if name == "pt_diffuse_kernel" else {})}
         for name, st in parity.items()]
     # the standalone sweep runs on the hybrid paths; its device function
     # also runs inline in the mesh forms' launches

@@ -14,6 +14,8 @@ from .scene.model import (  # noqa: F401
     Property, PropertyType, RenderOption, Scene, Sphere, SpotLight, Texture,
 )
 from .scene.arrays import SceneArrays, build_scene_arrays  # noqa: F401
+from .scene.builder import SceneBuildError, build_scene, validate_scene  # noqa: F401
+from .scene.templates import make_material, template_names  # noqa: F401
 from .io.scn import load_scn, parse_scn, ScnParseError  # noqa: F401
 from .io.obj import load_obj, ObjParseError  # noqa: F401
 
@@ -22,4 +24,5 @@ def _register_builtin_renderers() -> None:
     """Import renderer modules for their registration side effects (the
     analogue of the reference's DLL scan + static-initializer registration,
     `ComponentManager.cpp:15-30`)."""
-    from .renderers import acc_pt, mlt, simple_pt  # noqa: F401
+    from .renderers import (example, raycast, simple_pt, acc_pt, mlt,  # noqa: F401
+                            preview)  # noqa: F401

@@ -17,7 +17,17 @@ each primitive's constants as Python floats and zero terms dropped before
 any tensor op (`_lin3`, `_dota`), in the same order as the JAX module: the
 float32 results are the ones the JAX functions compute.  This is the plain
 torch form; the CUDA kernel (`ops/pt_cuda.py`) evaluates the same tests per
-thread from a packed table."""
+thread from a packed table.
+
+The SoA form (`SceneSoA`, `make_scene_soa`, `intersect_scene`,
+`intersect_area_lights`) is the JAX module's other path, which RayCast and
+GeometryPreview run: every primitive of a type against every ray as one
+(P, N) matrix, then the first minimum along P.  XLA fuses those matrices
+away; eager torch materialises each one, so both functions split the ray
+batch into chunks whose (P, chunk) float32 planes stay under
+`SOA_PLANE_BYTES` (rays are independent: chunking changes no result).
+The winner's attributes are read by its index instead of the JAX module's
+one-hot products, which select the same values."""
 from __future__ import annotations
 
 from typing import NamedTuple
@@ -30,9 +40,13 @@ from ..scene.arrays import (
     MAT_IOR, MAT_METALNESS, MAT_ROUGHNESS, MAT_SPECULAR, MAT_SPECULAR_EX,
     MAT_SPECULAR_MAP, SceneArrays,
 )
-from .soa import V3, dot3
+from .soa import V3, cross3, dot3, splat, where3
 
 T_MIN_PT = 1e-6       # PT epsilon (`SimplePathTracer.cpp:108`)
+T_MIN_RAYCAST = 0.01  # ray_cast epsilon (`RayCastRenderer.cpp:70`)
+# The SoA intersect's ray chunk: one (P, chunk) float32 plane of at most
+# this many bytes (the triangle test holds about a dozen such planes).
+SOA_PLANE_BYTES = 1 << 27
 
 
 class StaticScene(NamedTuple):
@@ -306,3 +320,303 @@ def np_dot(a, b) -> float:
     """Dot product in the arrays' own precision (float32 for scene
     arrays), as the JAX module computes the plane offset."""
     return float(a[0] * b[0] + a[1] * b[1] + a[2] * b[2])
+
+
+# ---------------------------------------------------------------------------
+# SoA form: every primitive of a type against every ray as a (P, N) matrix
+# ---------------------------------------------------------------------------
+
+class MatTable(NamedTuple):
+    """Material parameter table in SoA columns ((M,) each)."""
+    type: torch.Tensor
+    diffuse: V3
+    specular: V3
+    specular_ex: torch.Tensor
+    ior: torch.Tensor
+    absorbed: V3
+    eta_r: V3
+    eta_i: V3
+    albedo: V3
+    roughness: torch.Tensor
+    f0: torch.Tensor
+    metalness: torch.Tensor
+
+
+class SceneSoA(NamedTuple):
+    """The scene as float32 tensors on one device."""
+    # spheres
+    sph_pos: V3
+    sph_radius: torch.Tensor
+    sph_valid: torch.Tensor
+    # triangles
+    tri_v1: V3
+    tri_e1: V3
+    tri_e2: V3
+    tri_valid: torch.Tensor
+    # planes
+    pln_pos: V3
+    pln_normal: V3
+    pln_inv0: V3       # row 0 of inv([u v uxv]) -> u coordinate
+    pln_inv1: V3       # row 1 -> v coordinate
+    pln_valid: torch.Tensor
+    # combined per-prim tables, order [spheres | triangles | planes]
+    prim_normal: V3    # zeros for sphere rows (computed from hit point)
+    prim_is_sphere: torch.Tensor
+    prim_sph_pos: V3   # sphere center per row (zeros elsewhere)
+    prim_sph_inv_r: torch.Tensor
+    prim_mat: torch.Tensor     # (P_total,) int64 material index
+    # area lights
+    al_pos: V3
+    al_normal: V3
+    al_inv0: V3
+    al_inv1: V3
+    al_radiance: V3
+    al_valid: torch.Tensor
+    # materials / ambient
+    mat: MatTable
+    ambient_type: int
+    ambient_constant: V3
+    env_map: np.ndarray
+
+
+class HitSoA(NamedTuple):
+    t: torch.Tensor        # (N,), +inf on miss
+    valid: torch.Tensor    # (N,) bool
+    point: V3              # (N,)
+    normal: V3             # (N,) raw, NOT renormalized (PT convention)
+    mat_oh: torch.Tensor   # (M, N) float one-hot of the hit material
+
+
+def make_scene_soa(scene: SceneArrays, *, device) -> SceneSoA:
+    """The scene arrays as float32 (masks bool) tensors on `device`."""
+    f = lambda x: torch.as_tensor(np.asarray(x, np.float32), device=device)
+    b = lambda x: torch.as_tensor(np.asarray(x, bool), device=device)
+    i = lambda x: torch.as_tensor(np.asarray(x, np.int64), device=device)
+    tri_n = splat(f(scene.tri_normal))
+    pln_n = splat(f(scene.pln_normal))
+    sph_pos = splat(f(scene.sph_pos))
+    s = scene.sph_valid.shape[0]
+    t, p = scene.tri_valid.shape[0], scene.pln_valid.shape[0]
+    zs = torch.zeros((s,), dtype=torch.float32, device=device)
+    zt = torch.zeros((t + p,), dtype=torch.float32, device=device)
+    cat = torch.cat
+    radius = f(scene.sph_radius)
+    mp = f(scene.mat_params)
+    mat = MatTable(
+        type=i(scene.mat_type),
+        diffuse=splat(mp[:, MAT_DIFFUSE]),
+        specular=splat(mp[:, MAT_SPECULAR]),
+        specular_ex=mp[:, MAT_SPECULAR_EX],
+        ior=mp[:, MAT_IOR],
+        absorbed=splat(mp[:, MAT_ABSORBED]),
+        eta_r=splat(mp[:, MAT_ETA_R]),
+        eta_i=splat(mp[:, MAT_ETA_I]),
+        albedo=splat(mp[:, MAT_ALBEDO]),
+        roughness=mp[:, MAT_ROUGHNESS],
+        f0=mp[:, MAT_F0],
+        metalness=mp[:, MAT_METALNESS],
+    )
+    return SceneSoA(
+        sph_pos=sph_pos, sph_radius=radius, sph_valid=b(scene.sph_valid),
+        tri_v1=splat(f(scene.tri_v1)), tri_e1=splat(f(scene.tri_e1)),
+        tri_e2=splat(f(scene.tri_e2)), tri_valid=b(scene.tri_valid),
+        pln_pos=splat(f(scene.pln_pos)), pln_normal=pln_n,
+        pln_inv0=splat(f(scene.pln_inv)[:, 0, :]),
+        pln_inv1=splat(f(scene.pln_inv)[:, 1, :]),
+        pln_valid=b(scene.pln_valid),
+        prim_normal=V3(cat([zs, tri_n.x, pln_n.x]),
+                       cat([zs, tri_n.y, pln_n.y]),
+                       cat([zs, tri_n.z, pln_n.z])),
+        prim_is_sphere=cat([torch.ones_like(zs), zt]),
+        prim_sph_pos=V3(cat([sph_pos.x, zt]), cat([sph_pos.y, zt]),
+                        cat([sph_pos.z, zt])),
+        prim_sph_inv_r=cat([1.0 / torch.clamp(radius, min=1e-20), zt]),
+        prim_mat=i(np.concatenate([np.asarray(scene.sph_mat),
+                                   np.asarray(scene.tri_mat),
+                                   np.asarray(scene.pln_mat)])),
+        al_pos=splat(f(scene.al_pos)), al_normal=splat(f(scene.al_normal)),
+        al_inv0=splat(f(scene.al_inv)[:, 0, :]),
+        al_inv1=splat(f(scene.al_inv)[:, 1, :]),
+        al_radiance=splat(f(scene.al_radiance)), al_valid=b(scene.al_valid),
+        mat=mat,
+        ambient_type=int(np.asarray(scene.ambient_type).reshape(())),
+        ambient_constant=splat(f(scene.ambient_constant)),
+        env_map=scene.env_map,
+    )
+
+
+def _col(v: V3) -> V3:
+    """Lift per-prim (P,) components to (P, 1) for broadcasting against
+    (N,)."""
+    return V3(v.x[:, None], v.y[:, None], v.z[:, None])
+
+
+def _row(v: V3) -> V3:
+    return V3(v.x[None, :], v.y[None, :], v.z[None, :])
+
+
+def _sphere_ts(s: SceneSoA, o: V3, d: V3, t_min: float) -> torch.Tensor:
+    """(S, N) hit distances, +inf on miss (`intersections.cpp:31-55`)."""
+    pos = _col(s.sph_pos)
+    on, dn = _row(o), _row(d)
+    oc = V3(on.x - pos.x, on.y - pos.y, on.z - pos.z)
+    a = dot3(d, d)[None, :]
+    b = oc.x * dn.x + oc.y * dn.y + oc.z * dn.z
+    c = dot3(oc, oc) - (s.sph_radius ** 2)[:, None]
+    disc = b * b - a * c
+    sq = torch.sqrt(torch.clamp(disc, min=0.0))
+    inv_a = 1.0 / a
+    t1 = (-b - sq) * inv_a
+    t2 = (-b + sq) * inv_a
+    ok = (disc > 0) & s.sph_valid[:, None]
+    inf = float("inf")
+    return torch.where(ok & (t1 >= t_min), t1,
+                       torch.where(ok & (t2 >= t_min), t2, inf))
+
+
+def _triangle_ts(s: SceneSoA, o: V3, d: V3, t_min: float) -> torch.Tensor:
+    """(T, N) distances (Möller-Trumbore with det-sign fold,
+    `intersections.cpp:5-30`)."""
+    e1 = _col(s.tri_e1)
+    e2 = _col(s.tri_e2)
+    dn = _row(d)
+    p = cross3(dn, e2)                       # (T, N)
+    det0 = dot3(e1, p)
+    sign = torch.where(det0 > 0, 1.0, -1.0)
+    det = det0 * sign
+    v1 = _col(s.tri_v1)
+    on = _row(o)
+    tvec = V3((on.x - v1.x) * sign, (on.y - v1.y) * sign,
+              (on.z - v1.z) * sign)
+    u = dot3(tvec, p)
+    q = cross3(tvec, e1)
+    v = dot3(dn, q)
+    w = dot3(e2, q) / torch.where(det == 0, 1.0, det)
+    ok = ((det >= 1e-6) & (u >= 0) & (u <= det) & (v >= 0) & (u + v <= det)
+          & (w >= t_min) & s.tri_valid[:, None])
+    return torch.where(ok, w, float("inf"))
+
+
+def _patch_ts(pos: V3, normal: V3, inv0: V3, inv1: V3, valid: torch.Tensor,
+              o: V3, d: V3, t_min: float) -> torch.Tensor:
+    """(P, N) distances for parallelogram patches (planes & area lights,
+    `intersections.cpp:56-92`)."""
+    pc = _col(pos)
+    nc = _col(normal)
+    on, dn = _row(o), _row(d)
+    nd = nc.x * dn.x + nc.y * dn.y + nc.z * dn.z
+    parallel = (nd < 1e-7) & (nd > -1e-8)
+    num = dot3(pos, normal)[:, None] - (nc.x * on.x + nc.y * on.y
+                                        + nc.z * on.z)
+    t = num / torch.where(parallel, 1.0, nd)
+    rel = V3(on.x + t * dn.x - pc.x, on.y + t * dn.y - pc.y,
+             on.z + t * dn.z - pc.z)
+    i0 = _col(inv0)
+    i1 = _col(inv1)
+    u = i0.x * rel.x + i0.y * rel.y + i0.z * rel.z
+    v = i1.x * rel.x + i1.y * rel.y + i1.z * rel.z
+    ok = (~parallel & (t >= t_min) & (u >= 0) & (u <= 1) & (v >= 0)
+          & (v <= 1) & valid[:, None])
+    return torch.where(ok, t, float("inf"))
+
+
+def soa_chunk(n_prims: int) -> int:
+    """Rays per chunk: one (n_prims, chunk) float32 plane within
+    SOA_PLANE_BYTES."""
+    return max(1, SOA_PLANE_BYTES // (4 * max(n_prims, 1)))
+
+
+def _chunked(fn, n_prims: int, o: V3, d: V3, chunk):
+    """`fn(o, d)` over slices of the ray batch; each output (a tensor, a
+    V3, or a tuple of those) concatenated along its last axis."""
+    n = o.x.shape[0]
+    chunk = soa_chunk(n_prims) if chunk is None else chunk
+    if n <= chunk:
+        return fn(o, d)
+    sl = lambda v, a, b: V3(v.x[a:b], v.y[a:b], v.z[a:b])
+    parts = [fn(sl(o, a, a + chunk), sl(d, a, a + chunk))
+             for a in range(0, n, chunk)]
+
+    def join(xs):
+        if isinstance(xs[0], torch.Tensor):
+            return torch.cat(xs, dim=-1)
+        parts = [join(list(c)) for c in zip(*xs)]
+        kind = type(xs[0])
+        return kind(*parts) if hasattr(kind, "_fields") else tuple(parts)
+
+    return join(parts)
+
+
+def _first_min(t_all: torch.Tensor):
+    """(min over axis 0, its first index): `torch.argmin` documents that
+    the first of tied minima wins, as `soa.one_hot_argmin` needs."""
+    idx = torch.argmin(t_all, dim=0)
+    return t_all.gather(0, idx[None, :])[0], idx
+
+
+def intersect_scene(s: SceneSoA, o: V3, d: V3, t_min: float = T_MIN_PT,
+                    chunk: int = None) -> HitSoA:
+    """Closest hit against spheres + triangles + planes for a ray batch;
+    `chunk` rays at a time (default `soa_chunk` of the primitive count)."""
+    n_prims = s.prim_is_sphere.shape[0]
+    return _chunked(lambda o, d: _intersect_scene(s, o, d, t_min), n_prims,
+                    o, d, chunk)
+
+
+def _intersect_scene(s: SceneSoA, o: V3, d: V3, t_min: float) -> HitSoA:
+    ts = _sphere_ts(s, o, d, t_min)
+    tt = _triangle_ts(s, o, d, t_min)
+    tp = _patch_ts(s.pln_pos, s.pln_normal, s.pln_inv0, s.pln_inv1,
+                   s.pln_valid, o, d, t_min)
+    t, idx = _first_min(torch.cat([ts, tt, tp], dim=0))  # (P_total, N)
+    valid = torch.isfinite(t)
+    # miss rays carry t=inf; fold them to the origin so downstream
+    # masked shading never computes 0 * inf = NaN
+    t_pt = torch.where(valid, t, 0.0)
+    point = V3(o.x + t_pt * d.x, o.y + t_pt * d.y, o.z + t_pt * d.z)
+
+    zero = torch.zeros((), dtype=torch.float32, device=t.device)
+    pick = lambda col: torch.where(valid, col[idx], zero)
+    n_static = V3(pick(s.prim_normal.x), pick(s.prim_normal.y),
+                  pick(s.prim_normal.z))
+    w_sph = pick(s.prim_is_sphere)
+    c_sel = V3(pick(s.prim_sph_pos.x), pick(s.prim_sph_pos.y),
+               pick(s.prim_sph_pos.z))
+    inv_r = pick(s.prim_sph_inv_r)
+    n_sph = V3((point.x - c_sel.x) * inv_r, (point.y - c_sel.y) * inv_r,
+               (point.z - c_sel.z) * inv_r)
+    normal = where3(w_sph > 0.5, n_sph, n_static)
+
+    m = s.mat.type.shape[0]
+    mid = s.prim_mat[idx]
+    iota = torch.arange(m, dtype=mid.dtype, device=t.device)
+    mat_oh = ((iota[:, None] == mid[None, :]) & valid[None, :]).to(
+        torch.float32)                                # (M, N)
+    return HitSoA(t=t, valid=valid, point=point, normal=normal,
+                  mat_oh=mat_oh)
+
+
+def intersect_area_lights(s: SceneSoA, o: V3, d: V3,
+                          t_min: float = T_MIN_PT, chunk: int = None):
+    """`closestHitLight` (`SimplePathTracer.cpp:131-142`): nearest
+    area-light crossing.  Returns (t, radiance V3); t = +inf if none."""
+    def one(o, d):
+        ta = _patch_ts(s.al_pos, s.al_normal, s.al_inv0, s.al_inv1,
+                       s.al_valid, o, d, t_min)
+        t, idx = _first_min(ta)
+        ok = torch.isfinite(t)
+        zero = torch.zeros((), dtype=torch.float32, device=t.device)
+        rad = V3(*(torch.where(ok, c[idx], zero) for c in s.al_radiance))
+        return t, rad
+
+    return _chunked(one, s.al_valid.shape[0], o, d, chunk)
+
+
+def select_mat(mat_oh: torch.Tensor, col: torch.Tensor) -> torch.Tensor:
+    """(M, N) one-hot x (M,) material column -> (N,) values."""
+    return torch.sum(mat_oh * col[:, None], dim=0)
+
+
+def select_mat3(mat_oh: torch.Tensor, col: V3) -> V3:
+    return V3(select_mat(mat_oh, col.x), select_mat(mat_oh, col.y),
+              select_mat(mat_oh, col.z))

@@ -121,12 +121,13 @@ def megamesh_pass_spp(spp: int) -> int:
 
 
 def progressive_loop(checkpoint_path, seed, timer, w, h, spp, pcall,
-                     render_step, fp_parts, fp_arrays):
+                     render_step, fp_parts, fp_arrays, preview_every=1):
     """Passes of `pcall` samples with Screen previews and checkpoint/resume
     (the JAX renderer's `_progressive_loop`).  `render_step(step)` returns
     the (n_pix, 3) linear film SUM of pass `step`; passes use disjoint seeds,
-    so a resume reproduces the remaining passes exactly.  Returns
-    (image row 0 = top, first pass run, number of passes)."""
+    so a resume reproduces the remaining passes exactly.  A preview is
+    posted to the Screen every `preview_every` passes and after the last.
+    Returns (image row 0 = top, first pass run, number of passes)."""
     from ..server.checkpoint import (
         load_checkpoint, render_fingerprint, save_checkpoint)
     film = np.zeros((w * h, 3), np.float32)
@@ -144,16 +145,17 @@ def progressive_loop(checkpoint_path, seed, timer, w, h, spp, pcall,
     for step in range(start, n_steps):
         with timer.phase("first-pass" if step == start else "render-pass"):
             film += render_step(step).cpu().numpy()
-        with timer.phase("host-preview"):
-            done = (step + 1) * pcall
-            img = np.sqrt(np.maximum(film / done, 0.0))
-            img = img.reshape(h, w, 3)[::-1]
-            get_server().screen.set(
-                np.concatenate([img, np.ones((h, w, 1), np.float32)],
-                               axis=2), w, h)
+        done = (step + 1) * pcall
+        if (step + 1) % preview_every == 0 or step == n_steps - 1:
+            with timer.phase("host-preview"):
+                img = np.sqrt(np.maximum(film / done, 0.0))
+                img = img.reshape(h, w, 3)[::-1]
+                get_server().screen.set(
+                    np.concatenate([img, np.ones((h, w, 1), np.float32)],
+                                   axis=2), w, h)
         if checkpoint_path:
-            save_checkpoint(checkpoint_path, film, (step + 1) * pcall,
-                            w, h, seed, fingerprint)
+            save_checkpoint(checkpoint_path, film, done, w, h, seed,
+                            fingerprint)
     img = np.sqrt(np.maximum(film / spp, 0.0)).reshape(h, w, 3)
     return np.clip(img[::-1], 0.0, 1.0), start, n_steps
 

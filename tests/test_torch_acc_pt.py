@@ -309,7 +309,7 @@ def test_refusals_name_the_roadmap_item():
 @pytest.mark.parametrize("args", [
     ["--device", "cuda"],
     ["--env-map", "does/not/exist.png"],
-    ["--renderer", "SimplePathTracer", "--checkpoint", "x.npz"],
+    ["--obj", "does/not/exist.obj"],
 ])
 def test_cli_errors_exit_2(tmp_path, args):
     if "cuda" in args and torch.cuda.is_available():
