@@ -2,6 +2,7 @@
 """Smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py        # from the repository root; needs one GPU
+    python3 chip_smoke.py --multi-gpu   # only the runs across every GPU
 
 Phases, each printed on its own lines; any failure raises and the script
 exits non-zero without a result line:
@@ -136,13 +137,44 @@ exits non-zero without a result line:
  25. an editor round: `SceneEditor` on the Cornell box applies one
      document edit (the red wall's diffuse colour, the camera position),
      a snapshot gets a GeometryPreview and a SimplePathTracer render on the
-     card (128x128, 64 spp, depth 20); the wall must turn from red to blue.
+     card (128x128, 64 spp, depth 20); the wall must turn from red to blue;
+ 26. every kernel form over pixel ranges (a band of rows, a ragged range,
+     the last pixel) at 61x37, 6 spp, depth 4: each range's film the full
+     film's rows bit for bit;
+ 27. the main path split across ranks through `parallel.mesh`
+     (SimplePathTracer, Cornell box, 512x512, 2048 spp, depth 20): on an
+     NCCL world of one ([cuda:0]) by samples and by pixels, its film and
+     image bit for bit with the one-device `render_pt_linear` film and its
+     gamma on the card, on two gloo ranks sharing cuda:0 by samples
+     (within `shard_rtol`) and by pixel bands (bit for bit), and, where
+     there are N >= 2 GPUs, on N NCCL ranks the same two ways; each with
+     its render and collective times beside the one-device render's;
+ 28. the same for AccPathTracer on pt_glass_box.scn (512x512, 2048 spp,
+     depth 20);
+ 29. the mesh routes on two ranks sharing cuda:0 against their one-device
+     renders: the megamesh route (blob_960.obj, 256x256, 256 spp) by
+     samples, the hybrid route (ico_5120.obj, 256x256, 64 spp, depth 20)
+     by samples and by pixels, and MLT on blob_960.obj (128x128, 1024
+     chains x 64 mutations, depth 8; also on N NCCL ranks where there are
+     N >= 2 GPUs), their B1e/B2/B3 launches counted on the ranks (at most
+     twice one device's), the MLT image within rounding of one device's;
+ 30. a sharded checkpointed render (two ranks, 4 passes) stopped after two
+     passes and run again: bit for bit with the straight run;
+ 31. `cli.main(["render", "--devices", "2", ...])` on a one-GPU machine
+     exits 2 with its message (with N >= 2 GPUs it renders on N NCCL
+     ranks and must write the one-device PNG).
 
 Each of phases 5-7, 10, 11, 14, 15, 18-21 and 23 sets every launch count
 to 0 just before its run and reads the counts just after (phases 22 and
-25 reset and read B1a's); a kernel its path runs must have launched.  The
+25 reset and read B1a's); a kernel its path runs must have launched.  In
+phases 27-30 each rank sets its counts to 0 before it renders and rank 0
+sums them over the ranks ("sharded_launches" in the kernels' record).  The
 last two lines are the kernels' JSON record and `{"ok": true, "device":
 {...}}`.  Imports nothing of JAX.
+
+`--multi-gpu` runs only what needs more than one GPU, on every GPU of the
+machine: the N-rank NCCL runs of phases 27-29 with their one-device
+references, and phase 31's `--devices N`; it ends with the same last line.
 """
 from __future__ import annotations
 
@@ -275,10 +307,14 @@ FLOPS_MXU_TRI = 90
 # records, 64 registers at 8 blocks an SM), pt_kernel<kBsdf, kEnv, kTex>
 # (the six env and texture forms), pt_mesh_kernel<kTex> (B1e, B1d's mesh
 # form) and mesh_sweep_kernel<kUv> (B2).  A change to one kernel must
-# leave the others' figures as they are.
+# leave the others' figures as they are.  The dense forms have a
+# whole-film instantiation (kRange false: the main path's, as before the
+# pixel range) and a range one (the BSDF form's with one register more).
 KEPT_PTXAS = {
-    "15pt_dense_kernelILb0EE": (24, 44, 24, 64),
-    "15pt_dense_kernelILb1EE": (0, 0, 0, 61),
+    "15pt_dense_kernelILb0ELb0EE": (24, 44, 24, 64),
+    "15pt_dense_kernelILb1ELb0EE": (0, 0, 0, 61),
+    "15pt_dense_kernelILb0ELb1EE": (24, 44, 24, 64),
+    "15pt_dense_kernelILb1ELb1EE": (0, 0, 0, 62),
     "9pt_kernelILb0ELb1ELb0EE": (32, 0, 0, 48),
     "9pt_kernelILb1ELb1ELb0EE": (56, 20, 20, 48),
     "9pt_kernelILb0ELb0ELb1EE": (32, 0, 0, 56),
@@ -672,6 +708,9 @@ def phase_env_paths(width=512, height=512, spp=1024, depth=8) -> tuple:
     return tuple(runs)
 
 
+FACE_PLANE_RAYS = 16
+
+
 def tie_pool():
     """A triangle pool and rays built for exact ties, as numpy arrays
     (verts (V, 3), faces (F, 3) int32, origins and directions (N, 3)
@@ -679,12 +718,14 @@ def tie_pool():
     triangles (axis-aligned faces, each lying on its block's box face),
     with the top face's first triangle repeated 20 times (copies inside
     one block and across two adjacent blocks), and rays in one direction
-    octant (every component below 0) that hit it on edges and vertices:
+    octant (no component above 0) that hit it on edges and vertices:
     onto the top face, onto the +x face, along the diagonal onto the top
-    face's edges and corners, and from inside the cube.  Every coordinate
-    is a small dyadic number and every det a power of two, so each t is
-    exact in float32 and tied hits are equal bit for bit in any float
-    order."""
+    face's edges and corners, from inside the cube, and, last,
+    FACE_PLANE_RAYS rays that run inside a block box's face plane (a zero
+    component, the origin on the top face's plane z = 4 or on the plane
+    y = 4) onto the +x face's edge there.  Every coordinate is a small
+    dyadic number and every det a power of two, so each t is exact in
+    float32 and tied hits are equal bit for bit in any float order."""
     verts, faces = [], []
     g = np.arange(-4.0, 4.5, 2.0)
     for axis in range(3):
@@ -702,9 +743,7 @@ def tie_pool():
                     faces += [(v00, v00 + 5, v00 + 6), (v00, v00 + 6, v00 + 1)]
     faces += [faces[160]] * 20   # the top face's first triangle
     # hit points on a dyadic grid; each ray starts 8 of its directions
-    # back from its point (t = 8), with no zero component (a ray lying in
-    # a block box's face plane is culled by its own slab test, not by
-    # Pallas's per-tile test)
+    # back from its point (t = 8)
     xy = np.arange(-5.0, 5.25, 0.5)
     gx, gy = [a.reshape(-1) for a in np.meshgrid(xy, xy)]
     four = np.full(gx.size, 4.0)
@@ -718,6 +757,12 @@ def tie_pool():
         dirs.append(np.tile(d, (pts.shape[0], 1)))
     origins.append(np.stack([ix, iy, iz], 1))   # from inside, down
     dirs.append(np.tile((-0.25, -0.5, -1.0), (ix.size, 1)))
+    edge = np.arange(-3.5, 4.0, 1.0)   # the +x face's top and y = 4 edges
+    on = np.full(edge.size, 4.0)
+    for pts, d in ((np.stack([on, edge, on], 1), (-1.0, -0.5, 0.0)),
+                   (np.stack([on, on, edge], 1), (-1.0, 0.0, -0.5))):
+        origins.append(pts - 8.0 * np.asarray(d))
+        dirs.append(np.tile(d, (pts.shape[0], 1)))
     origins, dirs = np.concatenate(origins), np.concatenate(dirs)
     return (np.asarray(verts, np.float32), np.asarray(faces, np.int32),
             origins.astype(np.float32), dirs.astype(np.float32))
@@ -2006,7 +2051,371 @@ def phase_editor(width=128, height=128, spp=64, depth=20) -> dict:
     return st
 
 
-def main() -> int:
+def phase_bands(width=61, height=37, spp=6, depth=4) -> dict:
+    """Phase 26: every kernel form over pixel ranges (a band of rows and a
+    ragged range): each range's film the full film's rows bit for bit
+    (the hash and the camera keep the global pixel id)."""
+    print(f"== phase 26: pixel ranges of every form, {width}x{height}, "
+          f"{spp} spp, depth {depth}")
+    from nrenderer_torch.ops.bvh import build_mesh_accel
+    from nrenderer_torch.ops.mesh_cuda import make_mesh_tables
+    from nrenderer_torch.ops.pt_core import make_mat_channels, scene_epsilon
+    from nrenderer_torch.ops.pt_cuda import (
+        KERNEL_LAUNCHES, kernel_name, make_env_tables, make_tex_tables,
+        pt_accumulate)
+    n_pix = width * height
+    out = {}
+    for scene, objs, bsdf, env, mesh, tex in (
+            (SCENE, (), False, False, False, False),
+            (GLASS_SCENE, (), True, False, False, False),
+            (ENV_SCENE, (), False, True, False, False),
+            (ENV_SCENE, (), True, True, False, False),
+            (MESH_SCENE, (BLOB,), True, False, True, False),
+            (TEX_SCENE, (TEX_QUAD,), False, False, False, True),
+            (TEX_SCENE, (TEX_QUAD,), True, False, False, True),
+            (TEX_SCENE, (TEX_QUAD,), False, True, False, True),
+            (TEX_SCENE, (TEX_QUAD,), True, True, False, True),
+            (TEX_SCENE, (TEX_GRID,), True, False, True, True)):
+        name = kernel_name(bsdf, env, mesh, tex)
+        ss, cam, env_map, arrays = _setup("cuda", scene, env, objs)
+        kw = dict(bsdf=bsdf,
+                  env=make_env_tables(env_map, "cuda") if env else None,
+                  mesh=(make_mesh_tables(build_mesh_accel(
+                      arrays, make_mat_channels(ss)).bt, "cuda")
+                      if mesh else None),
+                  tex=make_tex_tables(arrays.textures, "cuda") if tex
+                  else None)
+        t_min = scene_epsilon(ss)
+        full = pt_accumulate(
+            torch.zeros((n_pix, 3), device="cuda"), ss, cam, width, height,
+            2, spp, depth, 5, t_min, **kw)
+        before = KERNEL_LAUNCHES[name]
+        for pix0, n in ((10 * width, 7 * width), (5, 1000),
+                        (n_pix - 1, 1)):
+            band = pt_accumulate(
+                torch.zeros((n, 3), device="cuda"), ss, cam, width, height,
+                2, spp, depth, 5, t_min, pix0=pix0, n_pix=n, **kw)
+            if not torch.equal(band, full[pix0:pix0 + n]):
+                err = float((band - full[pix0:pix0 + n]).abs().max())
+                raise AssertionError(f"phase 26: {name} pixels [{pix0}, "
+                                     f"{pix0 + n}) differ from the full "
+                                     f"film's rows (max |d| {err})")
+        if KERNEL_LAUNCHES[name] - before < 3:
+            raise AssertionError(f"phase 26: {name} launched no kernel")
+        out[name] = float(full.abs().sum())
+    print(json.dumps({"bands_bit_for_bit": sorted(out)}))
+    return out
+
+
+# Sample sharding's bar: two ranks sum their halves of the samples and the
+# halves are added, where one device sums them in one run; each order
+# rounds a float32 sum of spp positive terms, within spp x 2^-24 of it.
+def shard_rtol(spp: int) -> float:
+    return spp * 2.0 ** -24
+
+
+def _scene_of(path, width, height, spp, depth, objs=()):
+    from nrenderer_torch import load_obj, load_scn
+    scene = load_scn(path)
+    for obj in objs:
+        load_obj(obj, scene, material=0 if scene.materials else None)
+    ro = scene.render_option
+    ro.width, ro.height, ro.samples_per_pixel, ro.depth = (width, height,
+                                                           spp, depth)
+    return scene
+
+
+def _sharded(label, fn, *args, kernels=(), **kw):
+    """One sharded render with its ranks' launches of `kernels` checked
+    (each rank zeroes its counts before it renders and they are summed
+    over the ranks)."""
+    t0 = time.perf_counter()
+    out = fn(*args, **kw)
+    wall = time.perf_counter() - t0
+    for name in kernels:
+        if out.launches.get(name, 0) <= 0:
+            raise AssertionError(f"{label} launched no {name}")
+    if out.image is not None and not np.isfinite(out.image).all():
+        raise AssertionError(f"{label}: image not finite")
+    st = {"path": label, "backend": out.backend, "route": out.route,
+          "wall_seconds": wall, "seconds": out.seconds,
+          "launches": {k: v for k, v in out.launches.items() if v}}
+    print(json.dumps(st))
+    return out, st
+
+
+def _held_to(label, got, want, exact, rtol=0.0):
+    """`got` against `want` (films or images): bit for bit, or within
+    rtol of |want| (plus 1e-6)."""
+    err = float(np.abs(got - want).max())
+    ok = (np.array_equal(got, want) if exact else
+          bool(np.all(np.abs(got - want) <= rtol * np.abs(want) + 1e-6)))
+    print(f"{label}: max |d| {err:.3g} "
+          f"({'bit for bit' if exact else f'rtol {rtol:.3g}'})")
+    if not ok:
+        raise AssertionError(f"{label}: differs from its one-device render "
+                             f"(max |d| {err})")
+    return err
+
+
+def _gpus() -> list:
+    """Every GPU of the machine, one rank each (an NCCL world)."""
+    return [f"cuda:{i}" for i in range(torch.cuda.device_count())]
+
+
+def phase_sharded_dense(phase, scene_path, renderer, kernel,
+                        main_render_s=None, multi_only=False, width=512,
+                        height=512, spp=2048, depth=20) -> dict:
+    """Phases 27 and 28: a dense route through `parallel.mesh` on an NCCL
+    world of one ([cuda:0], by samples and by pixels; its film and image
+    bit for bit with the one-device ones), on two gloo ranks sharing
+    cuda:0 (samples: within shard_rtol(spp); pixels: bit for bit) and,
+    where there are N >= 2 GPUs, on N NCCL ranks the same two ways.
+    `multi_only`: the N-GPU runs alone."""
+    print(f"== phase {phase}: {renderer} sharded, {width}x{height}, {spp} "
+          f"spp, depth {depth}")
+    from nrenderer_torch.ops.pt_cuda import gamma_image, render_pt_linear
+    from nrenderer_torch.parallel.mesh import render_sharded
+    scene = _scene_of(scene_path, width, height, spp, depth)
+    ss, cam, _, _ = _setup("cuda", scene_path)
+
+    def one_device():
+        return render_pt_linear(ss, cam, width, height, spp, depth, seed=0,
+                                bsdf=renderer == "AccPathTracer",
+                                device="cuda")
+
+    one_device()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    one = one_device()
+    torch.cuda.synchronize()
+    one_s = time.perf_counter() - t0
+    # the renderer's image: gamma on the card, row 0 = top, clipped
+    one_img = np.clip(gamma_image(one, spp, width, height).cpu().numpy()
+                      [::-1], 0.0, 1.0)
+    one = one.cpu().numpy()
+    gpus = _gpus()
+    worlds = [] if multi_only else [
+        ("nccl_1", ["cuda:0"], "samples"),
+        ("nccl_1_pixels", ["cuda:0"], "pixels"),
+        ("gloo_2_samples", ["cuda:0"] * 2, "samples"),
+        ("gloo_2_pixels", ["cuda:0"] * 2, "pixels")]
+    if len(gpus) >= 2:
+        worlds += [(f"nccl_{len(gpus)}_{shard}", gpus, shard)
+                   for shard in ("samples", "pixels")]
+    runs = {}
+    for key, devices, shard in worlds:
+        out, st = _sharded(f"phase {phase}: {renderer} {key}",
+                           render_sharded, scene, devices, renderer, shard,
+                           kernels=(kernel,))
+        want = "gloo" if key.startswith("gloo") else "nccl"
+        if out.backend != want:
+            raise AssertionError(f"phase {phase}: {key} on {out.backend}")
+        # a sample split sums in another order; bands and a world of one
+        # are the one-device render
+        exact = shard == "pixels" or len(devices) == 1
+        st["max_abs_err"] = _held_to(f"phase {phase}: {key} film", out.film,
+                                     one, exact, shard_rtol(spp))
+        if exact:
+            _held_to(f"phase {phase}: {key} image", out.image, one_img, True)
+        runs[key] = st
+    times = ", ".join(
+        f"{key} {st['seconds']['render']:.4f} s + "
+        f"{'all-reduce' if 'pixels' not in key else 'gather'} "
+        f"{st['seconds']['collective'] * 1e3:.3f} ms"
+        for key, st in runs.items())
+    main = ("" if main_render_s is None
+            else f" (phase {phase - 22}'s CLI render {main_render_s:.4f} s)")
+    print(f"phase {phase}: rank 0's render and collective: {times}; one "
+          f"device {one_s:.4f} s{main}, on {gpu_name_power()}")
+    return runs
+
+
+def phase_sharded_mesh(width=256, height=256) -> dict:
+    """Phase 29: the mesh routes on two gloo ranks sharing cuda:0, each
+    against its one-device render: the megamesh route on blob_960.obj
+    (256 spp, passes of 32) by samples, the hybrid route on ico_5120.obj
+    (64 spp, depth 20, staged) by samples and by pixels, and MLT on
+    blob_960.obj at 128x128 (1024 chains x 64 mutations, depth 8)."""
+    print(f"== phase 29: mesh routes on two ranks, {width}x{height}")
+    from nrenderer_torch.parallel.mesh import (
+        _launch_counts, render_sharded, reset_launch_counts)
+    from nrenderer_torch.renderers.acc_pt import AccPathTracerRenderer
+    runs = {}
+    # the megamesh route's bands are phase 26's pt_bsdf_mesh_kernel ranges
+    for route, obj, spp, kernels, shards in (
+            ("megamesh", BLOB, 256, ["pt_bsdf_mesh_kernel"], ("samples",)),
+            ("hybrid", ICO, 64, HYBRID_KERNELS, ("samples", "pixels"))):
+        scene = _scene_of(MESH_SCENE, width, height, spp, 20, objs=(obj,))
+        reset_launch_counts()
+        one = AccPathTracerRenderer(device="cuda").render(scene)
+        one = one.pixels[..., :3]
+        one_launches = _launch_counts()
+        for shard in shards:
+            out, st = _sharded(f"phase 29: {route} {shard}", render_sharded,
+                               scene, ["cuda:0"] * 2, "AccPathTracer", shard,
+                               kernels=kernels)
+            if out.route != route:
+                raise AssertionError(f"phase 29: took {out.route}, not "
+                                     f"{route}")
+            # each rank runs the one-device route's launches on its share
+            more = {k: (n, one_launches[k]) for k, n in out.launches.items()
+                    if n > 2 * one_launches[k]}
+            if more:
+                raise AssertionError(f"phase 29: {route} {shard} launched "
+                                     f"more than twice one device: {more}")
+            st["max_abs_err"] = _held_to(
+                f"phase 29: {route} {shard} image", out.image, one,
+                shard == "pixels", shard_rtol(spp))
+            runs[f"{route}_{shard}"] = st
+    runs.update(phase_sharded_mlt())
+    return runs
+
+
+# a chain split draws what one device draws for the same chains; the
+# splats' index_add_ sums in no fixed order on the card, and b is summed
+# over the ranks, so the images differ by rounding alone (max |d| 7.8e-7
+# read on an H100)
+MLT_SHARD_RTOL = 1e-4
+MLT_SHARD_ATOL = 1e-5
+
+
+def phase_sharded_mlt(multi_only=False) -> dict:
+    """Phase 29's MLT: blob_960.obj at 128x128 (1024 chains x 64
+    mutations, depth 8) split by chains on two gloo ranks sharing cuda:0
+    and, where there are N >= 2 GPUs, on N NCCL ranks; each image within
+    MLT_SHARD_RTOL/ATOL of the one-device image.  `multi_only`: the N-GPU
+    run alone."""
+    from nrenderer_torch.parallel.mlt import render_mlt_sharded
+    from nrenderer_torch.renderers.mlt import render_mlt
+    kw = dict(chains=1024, mutations=64, seed=0)
+    scene = _scene_of(MESH_SCENE, 128, 128, 1, 8, objs=(BLOB,))
+    t0 = time.perf_counter()
+    one = render_mlt(scene, device="cuda", **kw)[..., :3]
+    one_s = time.perf_counter() - t0
+    gpus = _gpus()
+    worlds = [] if multi_only else [("mlt", ["cuda:0"] * 2)]
+    if len(gpus) >= 2:
+        worlds.append((f"mlt_nccl_{len(gpus)}", gpus))
+    runs = {}
+    for key, devices in worlds:
+        out, st = _sharded(f"phase 29: MLT blob_960 {key}",
+                           render_mlt_sharded, scene, devices,
+                           kernels=["mesh_sweep_kernel"], **kw)
+        got = out.image[..., :3]
+        st.update(max_abs_err=float(np.abs(got - one).max()),
+                  one_device_seconds=one_s)
+        print(json.dumps(st))
+        if not np.allclose(got, one, rtol=MLT_SHARD_RTOL,
+                           atol=MLT_SHARD_ATOL):
+            raise AssertionError(f"phase 29: sharded MLT {key} differs from "
+                                 f"one device: {st}")
+        runs[key] = st
+    return runs
+
+
+def phase_sharded_resume(width=256, height=256, spp=64, depth=20) -> dict:
+    """Phase 30: a sharded checkpointed render (AccPathTracer on
+    pt_glass_box.scn, two ranks on cuda:0 by samples: 4 passes of 16 spp)
+    stopped after two passes and run again ends bit for bit on the
+    straight run."""
+    print(f"== phase 30: sharded kill and resume, {width}x{height}, {spp} "
+          f"spp, depth {depth}")
+    from nrenderer_torch.parallel.mesh import render_multichip_resumable
+    scene = _scene_of(GLASS_SCENE, width, height, spp, depth)
+    ckpt = os.path.join(ROOT, "build", "smoke_sharded_resume.npz")
+    if os.path.exists(ckpt):
+        os.remove(ckpt)
+    kw = dict(renderer="AccPathTracer", shard="samples", seed=7)
+    devices = ["cuda:0"] * 2
+    straight, _ = _sharded("phase 30: straight", render_multichip_resumable,
+                           scene, devices, kernels=["pt_bsdf_kernel"], **kw)
+    part, _ = _sharded("phase 30: stopped", render_multichip_resumable,
+                       scene, devices, checkpoint_path=ckpt, pass_limit=2,
+                       **kw)
+    previews = []
+    resumed, _ = _sharded("phase 30: resumed", render_multichip_resumable,
+                          scene, devices, checkpoint_path=ckpt,
+                          on_preview=lambda n, img: previews.append(n),
+                          kernels=["pt_bsdf_kernel"], **kw)
+    st = {"stopped_at": part.spp_done, "previews_after": previews,
+          "max_abs_err": float(np.abs(resumed.film - straight.film).max())}
+    print(json.dumps(st))
+    if part.image is not None or part.spp_done != spp // 2 \
+            or previews != [3 * spp // 4, spp] \
+            or not np.array_equal(resumed.film, straight.film) \
+            or not np.array_equal(resumed.image, straight.image):
+        raise AssertionError(f"phase 30: resumed render differs: {st}")
+    return st
+
+
+def phase_sharded_cli(width=512, height=512, spp=2048, depth=20) -> dict:
+    """Phase 31: `render --devices N` through `cli.main`: with one GPU,
+    `--devices 2` exits 2 with its message; with N >= 2 GPUs it renders
+    on N NCCL ranks and writes the one-device PNG (pixel bands)."""
+    print("== phase 31: cli --devices")
+    import io
+    from nrenderer_torch import cli
+    from nrenderer_torch.io.image import load_image
+    n = torch.cuda.device_count()
+    out = os.path.join(ROOT, "build", "smoke_devices.png")
+    argv = _cli_argv(SCENE, "SimplePathTracer", width, height, spp, depth,
+                     out)
+    if os.path.exists(out):
+        os.remove(out)
+    if n < 2:
+        err = io.StringIO()
+        with contextlib.redirect_stderr(err):
+            rc = cli.main(argv + ["--devices", "2"])
+        st = {"devices": n, "rc": rc, "stderr": err.getvalue().strip()}
+        print(json.dumps(st))
+        if rc != 2 or "2 cuda devices requested, 1 available" not in \
+                st["stderr"] or os.path.exists(out):
+            raise AssertionError(f"phase 31: --devices 2 on one GPU: {st}")
+        return st
+    one = out.replace(".png", "_one.png")
+    if cli.main(argv[:-1] + [one]) != 0 or cli.main(
+            argv + ["--devices", str(n), "--shard", "pixels"]) != 0:
+        raise AssertionError(f"phase 31: --devices {n} failed")
+    st = {"devices": n, "equal": bool(np.array_equal(load_image(one),
+                                                     load_image(out)))}
+    print(json.dumps(st))
+    if not st["equal"]:
+        raise AssertionError(f"phase 31: --devices {n} PNG differs")
+    return st
+
+
+def main_multi_gpu() -> int:
+    """`--multi-gpu`: the runs that need N >= 2 GPUs, one NCCL rank each,
+    with their one-device references (phases 27-29 and 31)."""
+    t_start = time.perf_counter()
+    gpu = phase_toolchain()
+    n = torch.cuda.device_count()
+    if n < 2:
+        raise RuntimeError(f"--multi-gpu needs at least 2 GPUs, {n} here")
+    phase_build()
+    runs = {
+        "spt": phase_sharded_dense(27, SCENE, "SimplePathTracer",
+                                   "pt_diffuse_kernel", multi_only=True),
+        "acc": phase_sharded_dense(28, GLASS_SCENE, "AccPathTracer",
+                                   "pt_bsdf_kernel", multi_only=True),
+        **phase_sharded_mlt(multi_only=True)}
+    phase_sharded_cli()
+    print(f"{n} GPUs, every run passed: {', '.join(runs)}")
+    print(f"whole script: {time.perf_counter() - t_start:.1f} s")
+    print(gpu)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": n}}))
+    return 0
+
+
+def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else argv
+    if argv == ["--multi-gpu"]:
+        return main_multi_gpu()
+    if argv:
+        raise SystemExit(f"usage: chip_smoke.py [--multi-gpu] (got {argv})")
     t_start = time.perf_counter()
     gpu = phase_toolchain()
     phase_build()
@@ -2044,6 +2453,7 @@ def main() -> int:
         phase_parity(64, 64, 16, 4, **kw)
         st = phase_parity(size, size, 4, depth, **kw)
         parity[st["kernel"]] = st
+    phase_bands()
     sweep = phase_sweep()
     mxu = phase_mxu_sweep()
     compactor = phase_compactor()
@@ -2066,11 +2476,28 @@ def main() -> int:
     ray_runs = phase_raycast_preview()
     editor = phase_editor()
     breakdown = phase_breakdown()
+    sharded = {
+        "spt": phase_sharded_dense(27, SCENE, "SimplePathTracer",
+                                   "pt_diffuse_kernel",
+                                   main_path["render_seconds"]),
+        "acc": phase_sharded_dense(28, GLASS_SCENE, "AccPathTracer",
+                                   "pt_bsdf_kernel",
+                                   paths[1]["render_seconds"]),
+        **phase_sharded_mesh()}
+    sharded_resume = phase_sharded_resume()
+    phase_sharded_cli()
     launches = {}
     for run in paths:
         for name, n in run["launches"].items():
             if n:
                 launches[name] = launches.get(name, 0) + n
+    # the sharded phases' launches, summed over their ranks
+    sharded_runs = [*sharded.pop("spt").values(),
+                    *sharded.pop("acc").values(), *sharded.values()]
+    sharded_launches = {}
+    for run in sharded_runs:
+        for name, n in run["launches"].items():
+            sharded_launches[name] = sharded_launches.get(name, 0) + n
     from nrenderer_torch.ops import mesh_cuda, mesh_mxu, stream_compact
     for run in paths:
         print(f"{run['path']}: {run['seconds']:.3f} s "
@@ -2094,6 +2521,8 @@ def main() -> int:
               f"{run['peak_memory_bytes'] / 2**20:.1f} MiB above the "
               f"resident (CPU "
               f"{run['cpu_seconds']:.3f} s) on {gpu}")
+    print(f"sharded resume: stopped at {sharded_resume['stopped_at']} spp, "
+          f"resumed bit for bit on {gpu}")
     print(f"resume: {resume['resumed_at']} spp reloaded, "
           f"{resume['launches_after_resume']} passes after it; editor "
           f"round: preview {editor['preview_seconds']:.3f} s, renders "
@@ -2120,6 +2549,7 @@ def main() -> int:
         "ms": st["kernel_ms"], "plain_ms": st["plain_ms"],
         "bound_ms": st["bound_ms"], "bound_by": st["bound_by"],
         "library_ms": None, "shape": st["shape"],
+        "sharded_launches": sharded_launches.get(name, 0),
         **({"progressive_pass": {
             k: held[k] for k in ("kernel_ms", "plain_ms", "bound_ms",
                                  "bound_by", "max_abs_err", "shape")}}
@@ -2135,6 +2565,7 @@ def main() -> int:
         "plain_ms": sweep["plain_ms"], "bound_ms": sweep["bound_ms"],
         "bound_by": sweep["bound_by"], "library_ms": None,
         "path_shapes": b2_shapes,
+        "sharded_launches": sharded_launches.get(mesh_cuda.KERNEL_NAME, 0),
         "inlined_in": ["pt_bsdf_mesh_kernel", "pt_bsdf_mesh_tex_kernel"],
         "inlined_launches": launches.get("pt_bsdf_mesh_kernel", 0)
         + launches.get("pt_bsdf_mesh_tex_kernel", 0)})
@@ -2159,7 +2590,8 @@ def main() -> int:
             "ms": st[f"{key}_ms"], "plain_ms": st[f"{key}_plain_ms"],
             "bound_ms": st[f"{key}_bound_ms"], "bound_by": "bytes",
             "library_ms": st.get(f"{key}_library_ms"),
-            "shape": st["case"]})
+            "shape": st["case"],
+            "sharded_launches": sharded_launches.get(name, 0)})
     print(f"whole script: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

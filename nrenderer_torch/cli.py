@@ -15,6 +15,8 @@
     python -m nrenderer_torch render --scene resource/cornell_box.scn \
         --progressive [--checkpoint film.npz] [--serve [PORT]] ...
     python -m nrenderer_torch render --renderer RayCast ...
+    python -m nrenderer_torch render --scene resource/cornell_box.scn \
+        --devices 2 --shard samples|pixels [--checkpoint film.npz] ...
     python -m nrenderer_torch edit --scene resource/cornell_box.scn \
         --renderer SimplePathTracer --width 128 --height 128 --spp 64 ...
 
@@ -23,8 +25,11 @@ Render settings defaults mirror the UI's `RenderSettingsManager.hpp:20-24`
 and `--camera-position`, `--camera-look-at`, `--fov`, `--aperture` and
 `--ambient` override the scene's.  `--device` defaults to `cuda`: without a
 GPU the render fails instead of running on the CPU; pass `--device cpu`
-for the plain torch version.  The JAX package's `--devices`/`--shard`
-(multi-device rendering) are not ported.
+for the plain torch version.  `--devices N` (N > 1) splits
+SimplePathTracer and AccPathTracer by samples or pixel bands (`--shard`)
+and MetropolisLightTransport by chains over N ranks (`parallel/`): NCCL
+over N GPUs with `--device cuda`, N CPU ranks over gloo with `--device
+cpu`.
 """
 from __future__ import annotations
 
@@ -152,6 +157,9 @@ def _cmd_render(args) -> int:
     device, scene = _prepare(args)
     if device is None:
         return scene
+    if args.devices > 1 and args.renderer in (
+            "SimplePathTracer", "AccPathTracer", "MetropolisLightTransport"):
+        return _render_multichip(args, scene, device)
     # SimplePathTracer renders in passes with Screen previews under
     # --progressive, --checkpoint or --serve (`nrenderer_tpu/cli.py:100-106`)
     component = _component(args, device, progressive=bool(
@@ -199,6 +207,82 @@ def _cmd_render(args) -> int:
           f"spp={args.spp} depth={args.depth} in {wall:.2f}s "
           f"({n_rays / wall / 1e6:.1f} Mpaths/s) -> {args.out}")
     return _serve_tail(viewer, result.pixels)
+
+
+def _render_multichip(args, scene, device) -> int:
+    """Render split over `--devices` ranks (`nrenderer_tpu/cli.py:152-310`):
+    SimplePathTracer and AccPathTracer by samples or pixel bands,
+    MetropolisLightTransport by chains; `--checkpoint`, `--progressive`
+    and `--serve` take the resumable route, in passes with previews."""
+    from .io.image import write_png
+    from .parallel.group import RankError, make_devices
+    from .parallel.mesh import render_multichip_resumable, render_sharded
+    from .parallel.mlt import render_mlt_sharded
+    from .server.registry import get_server
+
+    n = args.devices
+    try:
+        devices = make_devices(n, device.type)
+    except ValueError as exc:
+        print(f"error: {exc}", file=sys.stderr)
+        return 2
+    if args.shard == "pixels" and args.renderer == "MetropolisLightTransport":
+        # a pixel band needs a per-pixel estimator; MLT splats across the
+        # whole film, so the asked-for split is refused, not substituted
+        print(f"error: --shard pixels supports SimplePathTracer / "
+              f"AccPathTracer only (got {args.renderer}); use --shard "
+              "samples", file=sys.stderr)
+        return 2
+    if args.shard == "pixels" and args.height % n:
+        print(f"error: --shard pixels needs height divisible by --devices "
+              f"({args.height} % {n} != 0)", file=sys.stderr)
+        return 2
+    viewer = None
+    if args.serve is not None:
+        os.environ.setdefault("NR_MLT_PREVIEW_BLOCKS", "1")
+        from .server.viewer import ScreenViewer
+        viewer = ScreenViewer(get_server().screen, port=args.serve).start()
+        print(f"live view: {viewer.url}", file=sys.stderr)
+    screen = get_server().screen
+    t0 = time.perf_counter()
+    try:
+        if args.renderer == "MetropolisLightTransport":
+            chains = args.chains or 1024
+            mutations = args.mutations or 256
+            out = render_mlt_sharded(scene, devices, chains=chains,
+                                     mutations=mutations, seed=args.seed,
+                                     checkpoint_path=args.checkpoint,
+                                     screen=screen)
+            what = f"{chains}x{mutations} mutations"
+        elif args.checkpoint or args.progressive or args.serve is not None:
+            out = render_multichip_resumable(
+                scene, devices, args.renderer, args.shard, seed=args.seed,
+                checkpoint_path=args.checkpoint, screen=screen)
+            what = f"spp={args.spp}, {args.shard}, resumable"
+        else:
+            out = render_sharded(scene, devices, args.renderer, args.shard,
+                                 seed=args.seed)
+            what = f"spp={args.spp}, {args.shard}"
+    except (ValueError, NotImplementedError) as exc:
+        print(f"error: {exc}", file=sys.stderr)
+        if viewer is not None:
+            viewer.stop()
+        return 2
+    except RankError as exc:
+        print(f"render failed: {exc}", file=sys.stderr)
+        if viewer is not None:
+            viewer.stop()
+        return 1
+    wall = time.perf_counter() - t0
+    img = out.image
+    if img.shape[2] == 3:
+        img = np.concatenate(
+            [img, np.ones(img.shape[:2] + (1,), np.float32)], axis=2)
+    write_png(args.out, img)
+    print(f"{args.renderer}[{n} x {device.type}, {out.route}]: "
+          f"{args.width}x{args.height} {what} depth={args.depth} in "
+          f"{wall:.2f}s -> {args.out}")
+    return _serve_tail(viewer, img)
 
 
 def _serve_tail(viewer, final_img) -> int:
@@ -362,6 +446,14 @@ def main(argv=None) -> int:
                     help="MLT: parallel Markov chains (default 1024)")
     pr.add_argument("--mutations", type=int,
                     help="MLT: mutations per chain (default 256)")
+    pr.add_argument("--devices", type=int, default=1,
+                    help="split the render over N ranks: N GPUs (NCCL) "
+                         "with --device cuda, N processes (gloo) with "
+                         "--device cpu")
+    pr.add_argument("--shard", choices=("samples", "pixels"),
+                    default="samples",
+                    help="with --devices: split the sample budget (MLT: "
+                         "the chains), or the film into bands of rows")
     pr.set_defaults(fn=_cmd_render)
 
     pe = sub.add_parser(

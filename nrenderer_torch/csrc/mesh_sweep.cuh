@@ -21,8 +21,12 @@
 // Pallas culls a block for a whole 32x128 ray tile; here each ray culls
 // for itself, so only the blocks a ray's own slab test enters are tested
 // for it (results differ from the tile cull only where a hit lies on a
-// block's AABB face within rounding, or on a box face that the ray runs
-// inside, where its slab test finds t_far = 0).  A lane that tests its entered
+// block's AABB face within rounding).  A ray parallel to an axis (|d| <
+// 1e-20) whose origin lies on the box's far face along it gets t_far = 0
+// from the slab, which would drop the block; the tile cull tests it when
+// another ray of the tile enters, and here enters_block rechecks such rays
+// with that axis bounding nothing while the origin lies within the box's
+// extent, faces included (enters_parallel).  A lane that tests its entered
 // block alone makes the whole warp wait for its 128 serial tests while
 // the lanes that did not enter idle (0.5 to 4 entered blocks a ray against
 // up to 40 blocks on the paths), and in front-to-back order the lanes'
@@ -69,9 +73,52 @@ __device__ __forceinline__ float inv_axis(const float x) {
   return 1.0f / (fabsf(x) < 1e-20f ? 1e-20f : x);
 }
 
+// |1 / d| of an axis the ray runs parallel to (inv_axis of |d| <= 1e-20).
+constexpr float kInvParallel = 1.0f / 1e-20f;
+
+// Whether the ray runs parallel to an axis: the rare rays enters_block
+// rechecks.
+__device__ __forceinline__ bool ray_parallel(const float inv_dx,
+                                             const float inv_dy,
+                                             const float inv_dz) {
+  return fabsf(inv_dx) == kInvParallel || fabsf(inv_dy) == kInvParallel ||
+         fabsf(inv_dz) == kInvParallel;
+}
+
+// One axis of enters_parallel: a parallel axis bounds nothing while the
+// origin lies within [lo, hi] and culls otherwise; another axis narrows
+// [t_near, t_far] as the slab test does.
+__device__ __forceinline__ bool parallel_axis(const float lo, const float hi,
+                                              const float o, const float inv,
+                                              float& t_near, float& t_far) {
+  if (fabsf(inv) == kInvParallel) return lo <= o && o <= hi;
+  const float t0 = (lo - o) * inv;
+  const float t1 = (hi - o) * inv;
+  t_near = fmaxf(t_near, fminf(t0, t1));
+  t_far = fminf(t_far, fmaxf(t0, t1));
+  return true;
+}
+
+// The slab test of a ray parallel to an axis (mesh_cuda._enters_parallel
+// repeats it).
+__device__ __forceinline__ bool enters_parallel(
+    const float4 lo, const float4 hi, const float ox, const float oy,
+    const float oz, const float inv_dx, const float inv_dy,
+    const float inv_dz, const float t_min, const float t_best) {
+  float t_near = -INFINITY, t_far = INFINITY;
+  const bool inside = parallel_axis(lo.x, hi.x, ox, inv_dx, t_near, t_far) &
+                      parallel_axis(lo.y, hi.y, oy, inv_dy, t_near, t_far) &
+                      parallel_axis(lo.z, hi.z, oz, inv_dz, t_near, t_far);
+  return inside && (t_near <= t_far) && (t_far >= t_min) &&
+         (fmaxf(t_near, t_min) < t_best);
+}
+
 // The block slab test of both sweeps: the ray (o, 1/d) enters the AABB of
 // block `blk` (rows 2 blk and 2 blk + 1 of `bb`) at or past t_min and before
-// its best hit so far.
+// its best hit so far.  A ray parallel to an axis that fails it is
+// rechecked by enters_parallel (tested here, a block at a time, so that no
+// flag stays live across the sweep: a per-ray flag cost the mesh kernel
+// 8 B of spill on an H100).
 __device__ __forceinline__ bool enters_block(
     const float4* bb, const int blk, const float ox, const float oy,
     const float oz, const float inv_dx, const float inv_dy,
@@ -88,8 +135,11 @@ __device__ __forceinline__ bool enters_block(
                              fminf(t0z, t1z));
   const float t_far = fminf(fminf(fmaxf(t0x, t1x), fmaxf(t0y, t1y)),
                             fmaxf(t0z, t1z));
-  return (t_near <= t_far) && (t_far >= t_min) &&
-         (fmaxf(t_near, t_min) < t_best);
+  const bool enters = (t_near <= t_far) && (t_far >= t_min) &&
+                      (fmaxf(t_near, t_min) < t_best);
+  if (enters || !ray_parallel(inv_dx, inv_dy, inv_dz)) return enters;
+  return enters_parallel(lo, hi, ox, oy, oz, inv_dx, inv_dy, inv_dz, t_min,
+                         t_best);
 }
 
 // One Moller-Trumbore test of the ray against the triangle row `r` (four

@@ -4,10 +4,11 @@
 // its forms bsdf=False / bsdf=True, each without or with the env-map terms
 // (env_rows / env_exact), the mesh form (mesh=(n_blocks, b): the blocked
 // triangle sweep inline in the bounce loop) and the texture form (n_tex > 0,
-// mesh_uv: binned surface textures).  pt_dense_kernel<kBsdf> is
-// instantiated twice, for the dense forms: pt_diffuse_kernel <false>
-// (SimplePathTracer's main path) and pt_bsdf_kernel <true> (AccPathTracer
-// on analytic scenes).  pt_kernel<kBsdf, kEnv, kTex> is instantiated six
+// mesh_uv: binned surface textures).  pt_dense_kernel<kBsdf, kRange> is
+// instantiated for the dense forms: pt_diffuse_kernel <false, ..>
+// (SimplePathTracer's main path) and pt_bsdf_kernel <true, ..>
+// (AccPathTracer on analytic scenes), each for the whole film and for a
+// range of pixels.  pt_kernel<kBsdf, kEnv, kTex> is instantiated six
 // times: pt_diffuse_env_kernel and pt_bsdf_env_kernel (kEnv), the dense
 // forms with kTex (pt_diffuse_tex_kernel, pt_bsdf_tex_kernel) and the env
 // forms with kTex (pt_diffuse_env_tex_kernel, pt_bsdf_env_tex_kernel);
@@ -92,8 +93,12 @@
 //
 // The film is a linear (W*H, 3) float32 SUM that each launch adds samples
 // [sp0, sp0 + n_spp) into IN PLACE, one sample after another per pixel: a
-// render split over several launches gives the same sums as one launch.  The
-// wrapper scales by 1/spp and applies the sqrt gamma.
+// render split over several launches gives the same sums as one launch.  A
+// launch may cover a range of pixels [pix0, pix0 + n_pix) only (a band of
+// rows, for a render split across devices): its film holds those rows,
+// while the hash and the camera ray keep the global pixel id, so the band
+// is the full film's rows bit for bit.  The wrapper scales by 1/spp and
+// applies the sqrt gamma.
 //
 // What bounds it on the H100: FP32 issue (about 16 primitive tests per
 // bounce for the Cornell box, plus the lobe's math), with the table's
@@ -463,13 +468,14 @@ template <bool kBsdf, bool kEnv, bool kTex>
 __global__ void __launch_bounds__(128)
 pt_kernel(float* __restrict__ film, const float* __restrict__ scene,
           const SceneCounts nc, const CamArgs cam, const int width,
-          const int height, const int sp0, const int n_spp, const int depth,
+          const int pix0, const int pix_end, const int sp0, const int n_spp,
+          const int depth,
           const uint32_t seed, const float* __restrict__ env_bin,
           const float* __restrict__ env_map, const int env_h,
           const int env_w, const nr_mesh::MeshArgs mesh,
           const float* __restrict__ tex_tab, const int n_tex) {
-  const int pid = blockIdx.x * blockDim.x + threadIdx.x;
-  if (pid >= width * height) return;
+  const int pid = pix0 + blockIdx.x * blockDim.x + threadIdx.x;
+  if (pid >= pix_end) return;
   const int py = pid / width;
   const int px = pid - py * width;
   const float pxf = (float)px;
@@ -849,12 +855,12 @@ template <bool kTex>
 __global__ void __launch_bounds__(128)
 pt_mesh_kernel(float* __restrict__ film, const float* __restrict__ scene,
                const SceneCounts nc, const CamArgs cam, const int width,
-               const int height, const int sp0, const int n_spp,
-               const int depth, const uint32_t seed,
+               const int pix0, const int pix_end, const int sp0,
+               const int n_spp, const int depth, const uint32_t seed,
                const nr_mesh::MeshArgs mesh,
                const float* __restrict__ tex_tab, const int n_tex) {
-  const int pid = blockIdx.x * blockDim.x + threadIdx.x;
-  const bool in_image = pid < width * height;
+  const int pid = pix0 + blockIdx.x * blockDim.x + threadIdx.x;
+  const bool in_image = pid < pix_end;
   const int py = pid / width;
   const int px = pid - py * width;
   const float pxf = (float)px;
@@ -1019,16 +1025,25 @@ __device__ __forceinline__ int take_pixel(int* __restrict__ next_pixel,
   return first + base + __popc(mask & ((1u << lane) - 1u));
 }
 
-template <bool kBsdf>
+// kRange: the launch covers pixels [pix0, pix_end) only.  `film` is then
+// indexed by the global pixel id, as in the nested forms, while the loop
+// counts the range's pixels (pid, rows of `band`) and adds pix0 for the
+// hash and the camera (a global loop index cost 4 B more spill loads on an
+// H100).  A whole-film launch takes the loop without the range, which is
+// the main path's code as it was (the range's arithmetic cost the BSDF
+// form a register and 1-2% of its launch time on an H100, PERF.md).
+template <bool kBsdf, bool kRange>
 __global__ void __launch_bounds__(128, kDenseMinBlocks)
 pt_dense_kernel(float* __restrict__ film, const float* __restrict__ scene,
                 const SceneCounts nc, const CamArgs cam, const int width,
-                const int height, const int sp0, const int n_spp,
-                const int depth, const uint32_t seed,
-                int* __restrict__ next_pixel,
+                const int height, const int pix0, const int pix_end,
+                const int sp0, const int n_spp, const int depth,
+                const uint32_t seed, int* __restrict__ next_pixel,
                 const float4* __restrict__ rec) {
-  const int n_pix = width * height;
+  const int p0 = kRange ? pix0 : 0;
   const int n_lanes = gridDim.x * blockDim.x;
+  const int n_pix = kRange ? pix_end - pix0 : width * height;
+  float* __restrict__ band = kRange ? film + 3 * pix0 : film;
   int pid = blockIdx.x * blockDim.x + threadIdx.x;
   if (pid >= n_pix || n_spp <= 0) return;
 
@@ -1045,9 +1060,9 @@ pt_dense_kernel(float* __restrict__ film, const float* __restrict__ scene,
 
   if (depth <= 0) {  // every sample is the ambient term alone
     for (; pid < n_pix; pid += n_lanes) {
-      float fr = film[3 * pid + 0];
-      float fg = film[3 * pid + 1];
-      float fb = film[3 * pid + 2];
+      float fr = band[3 * pid + 0];
+      float fg = band[3 * pid + 1];
+      float fb = band[3 * pid + 2];
       for (int k = 0; k < n_spp; ++k) {
         const float tr = 1.0f, tg = 1.0f, tb = 1.0f;
         float rr = 0.0f, rg = 0.0f, rb = 0.0f;
@@ -1058,30 +1073,30 @@ pt_dense_kernel(float* __restrict__ film, const float* __restrict__ scene,
         fg += rg;
         fb += rb;
       }
-      film[3 * pid + 0] = fr;
-      film[3 * pid + 1] = fg;
-      film[3 * pid + 2] = fb;
+      band[3 * pid + 0] = fr;
+      band[3 * pid + 1] = fg;
+      band[3 * pid + 2] = fb;
     }
     return;
   }
 
-  int py = pid / width;
-  int px = pid - py * width;
-  float fr = film[3 * pid + 0];
-  float fg = film[3 * pid + 1];
-  float fb = film[3 * pid + 2];
+  int py = (pid + p0) / width;
+  int px = (pid + p0) - py * width;
+  float fr = band[3 * pid + 0];
+  float fg = band[3 * pid + 1];
+  float fb = band[3 * pid + 2];
   int k = 0;  // the sample, from sp0
   int b = 0;  // its bounce
   float ox, oy, oz, dx, dy, dz;
-  camera_ray(cam, (uint32_t)pid, (uint32_t)sp0, seed, (float)px, (float)py,
-             ox, oy, oz, dx, dy, dz);
+  camera_ray(cam, (uint32_t)(pid + p0), (uint32_t)sp0, seed, (float)px,
+             (float)py, ox, oy, oz, dx, dy, dz);
   float tr = 1.0f, tg = 1.0f, tb = 1.0f;
   // The loop's one exit is its test: a branch inside the body rejoins at
   // the body's end, so the lanes that start a sample and those that
   // scatter run the next bounce together (a `break` in the body would
   // keep them apart until the loop ends).
   while (pid < n_pix) {
-    const uint32_t upid = (uint32_t)pid;
+    const uint32_t upid = (uint32_t)(pid + p0);
     const uint32_t sp = (uint32_t)(sp0 + k);
     const uint32_t bseed = seed + (uint32_t)b * 0x9E3779B1u;
     const float u1 = hash_uniform(upid, sp, 4u, bseed);
@@ -1260,27 +1275,53 @@ pt_dense_kernel(float* __restrict__ film, const float* __restrict__ scene,
       fg += rg;
       fb += rb;
       if (++k == n_spp) {  // the pixel is done
-        film[3 * pid + 0] = fr;
-        film[3 * pid + 1] = fg;
-        film[3 * pid + 2] = fb;
+        band[3 * pid + 0] = fr;
+        band[3 * pid + 1] = fg;
+        band[3 * pid + 2] = fb;
         pid = take_pixel(next_pixel, n_lanes);
         if (pid < n_pix) {
-          py = pid / width;
-          px = pid - py * width;
-          fr = film[3 * pid + 0];
-          fg = film[3 * pid + 1];
-          fb = film[3 * pid + 2];
+          py = (pid + p0) / width;
+          px = (pid + p0) - py * width;
+          fr = band[3 * pid + 0];
+          fg = band[3 * pid + 1];
+          fb = band[3 * pid + 2];
           k = 0;
         }
       }
       b = 0;
-      camera_ray(cam, (uint32_t)pid, (uint32_t)(sp0 + k), seed, (float)px,
-                 (float)py, ox, oy, oz, dx, dy, dz);
+      camera_ray(cam, (uint32_t)(pid + p0), (uint32_t)(sp0 + k), seed,
+                 (float)px, (float)py, ox, oy, oz, dx, dy, dz);
       tr = 1.0f;
       tg = 1.0f;
       tb = 1.0f;
     }
   }
+}
+
+// One launch of a dense form: a persistent grid of the blocks that fit on
+// the card at once, and the pixel counter cleared first.
+template <bool kBsdf, bool kRange>
+int launch_dense(float* film, const float* scene, const SceneCounts nc,
+                 const CamArgs ca, const int width, const int height,
+                 const int pix0, const int pix_end, const int sp0,
+                 const int n_spp, const int depth, const uint32_t seed,
+                 int* next_pixel, const float4* rec, const int blocks,
+                 const int threads, cudaStream_t st) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, pt_dense_kernel<kBsdf, kRange>, threads, 0);
+  if (e == cudaSuccess) e = cudaMemsetAsync(next_pixel, 0, sizeof(int), st);
+  if (e != cudaSuccess) return (int)e;
+  const int grid =
+      (per_sm * sms >= 1 && per_sm * sms < blocks) ? per_sm * sms : blocks;
+  pt_dense_kernel<kBsdf, kRange><<<grid, threads, 0, st>>>(
+      film, scene, nc, ca, width, height, pix0, pix_end, sp0, n_spp, depth,
+      seed, next_pixel, rec);
+  return (int)cudaGetLastError();
 }
 
 __global__ void hash_fill_kernel(const int32_t* __restrict__ pid,
@@ -1298,10 +1339,11 @@ __global__ void hash_fill_kernel(const int32_t* __restrict__ pid,
 
 extern "C" {
 
-// Adds samples [sp0, sp0 + n_spp) of every pixel into `film` ((W*H, 3)
-// float32, device) in place, with the instantiation `form` selects: bit 0
-// BSDF, bit 1 env map, bit 2 mesh, bit 3 textures (the ten combinations
-// pt_cuda.KERNELS lists; others return cudaErrorInvalidValue).  `counts`
+// Adds samples [sp0, sp0 + n_spp) of pixels [pix0, pix0 + n_pix) into
+// `film` ((n_pix, 3) float32, device; row i is pixel pix0 + i) in place,
+// with the instantiation `form` selects: bit 0 BSDF, bit 1 env map, bit 2
+// mesh, bit 3 textures (the ten combinations pt_cuda.KERNELS lists; others
+// return cudaErrorInvalidValue).  `counts`
 // (host): n_sph n_tri n_pln n_al n_mat; `cam` (host): the 22 floats of
 // CamArgs; `env_bin` (device): the (3, ENV_ROWS, ENV_LANES) bin table and
 // `env_map` (device): the (env_h, env_w, 3) map; `mesh_tris`, `mesh_uvs`,
@@ -1311,7 +1353,8 @@ extern "C" {
 // zeroed here before the launch; `dense_rec` (device; the diffuse form):
 // the primitive records (pt_cuda.dense_records).
 int nr_pt_render(float* film, const float* scene, const int* counts,
-                 const float* cam, int width, int height, int sp0, int n_spp,
+                 const float* cam, int width, int height, int pix0,
+                 int n_pix, int sp0, int n_spp,
                  int depth, int seed, int form, const float* env_bin,
                  const float* env_map, int env_h, int env_w,
                  const float* mesh_tris, const float* mesh_uvs,
@@ -1347,7 +1390,14 @@ int nr_pt_render(float* film, const float* scene, const int* counts,
     return (int)cudaErrorInvalidValue;
   // the mesh forms' dense pass has no triangles (pt_cuda.pack_scene)
   if ((form & 4) && nc.n_tri != 0) return (int)cudaErrorInvalidValue;
-  const int n_pix = width * height;
+  if (pix0 < 0 || n_pix < 1 || pix0 > width * height - n_pix)
+    return (int)cudaErrorInvalidValue;
+  // The kernels index the film by the global pixel id, which also keys
+  // the hash and the camera ray: shifted by the range's first pixel, the
+  // film pointer makes row pid - pix0 pixel pid's (host pointer
+  // arithmetic only; no row outside the range is read or written).
+  film -= 3 * (ptrdiff_t)pix0;
+  const int pix_end = pix0 + n_pix;
   const int threads = 128;
   const int blocks = (n_pix + threads - 1) / threads;
   cudaStream_t st = (cudaStream_t)stream;
@@ -1355,40 +1405,23 @@ int nr_pt_render(float* film, const float* scene, const int* counts,
     if (next_pixel == nullptr || (form == 0 && dense_rec == nullptr))
       return (int)cudaErrorInvalidValue;
     const float4* rec = reinterpret_cast<const float4*>(dense_rec);
-    // the blocks that fit on the card at once, and the counter cleared
-    int dev = 0, sms = 0, per_sm = 0;
-    cudaError_t e = cudaGetDevice(&dev);
-    if (e == cudaSuccess)
-      e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (e == cudaSuccess)
-      e = form ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-                     &per_sm, pt_dense_kernel<true>, threads, 0)
-               : cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-                     &per_sm, pt_dense_kernel<false>, threads, 0);
-    if (e == cudaSuccess)
-      e = cudaMemsetAsync(next_pixel, 0, sizeof(int), st);
-    if (e != cudaSuccess) return (int)e;
-    const int grid = (per_sm * sms >= 1 && per_sm * sms < blocks)
-                         ? per_sm * sms
-                         : blocks;
-    if (form)
-      pt_dense_kernel<true><<<grid, threads, 0, st>>>(
-          film, scene, nc, ca, width, height, sp0, n_spp, depth,
-          (uint32_t)seed, next_pixel, rec);
-    else
-      pt_dense_kernel<false><<<grid, threads, 0, st>>>(
-          film, scene, nc, ca, width, height, sp0, n_spp, depth,
-          (uint32_t)seed, next_pixel, rec);
-    return (int)cudaGetLastError();
+    const bool whole = pix0 == 0 && n_pix == width * height;
+    const auto launch =
+        form ? (whole ? launch_dense<true, false> : launch_dense<true, true>)
+             : (whole ? launch_dense<false, false>
+                      : launch_dense<false, true>);
+    return launch(film, scene, nc, ca, width, height, pix0, pix_end, sp0,
+                  n_spp, depth, (uint32_t)seed, next_pixel, rec, blocks,
+                  threads, st);
   }
 #define NR_LAUNCH(B, E, T)                                                  \
   pt_kernel<B, E, T><<<blocks, threads, 0, st>>>(                           \
-      film, scene, nc, ca, width, height, sp0, n_spp, depth, (uint32_t)seed, \
-      env_bin, env_map, env_h, env_w, mesh, tex_tab, n_tex)
+      film, scene, nc, ca, width, pix0, pix_end, sp0, n_spp, depth,         \
+      (uint32_t)seed, env_bin, env_map, env_h, env_w, mesh, tex_tab, n_tex)
 #define NR_LAUNCH_MESH(T)                                                   \
   pt_mesh_kernel<T><<<blocks, threads, 0, st>>>(                            \
-      film, scene, nc, ca, width, height, sp0, n_spp, depth, (uint32_t)seed, \
-      mesh, tex_tab, n_tex)
+      film, scene, nc, ca, width, pix0, pix_end, sp0, n_spp, depth,         \
+      (uint32_t)seed, mesh, tex_tab, n_tex)
   switch (form) {
     case 2: NR_LAUNCH(false, true, false); break;
     case 3: NR_LAUNCH(true, true, false); break;

@@ -21,9 +21,13 @@ visited in natural order, or near to far along the ray's own direction
 octant (`f2b_ord`).  The Pallas kernel culls a block for a whole 32x128
 ray tile (it sweeps when any ray of the tile enters); here each ray culls
 for itself.  The two differ only where a hit lies on a block's AABB face
-within rounding, or on a box face that the ray runs inside (a zero
-direction component: its slab test finds t_far = 0 and skips the
-block)."""
+within rounding.  A ray parallel to an axis (|d| < 1e-20) whose origin
+lies on the box's far face along it gets t_far = 0 from the slab, which
+drops the block; the Pallas tile cull still tests it when another ray of
+the tile enters the block.  Here such rays are rechecked with that axis
+bounding nothing while the origin lies within the box's extent, faces
+included (`_enters_parallel`), in the sweep and in the mesh pipe's
+top-level test alike."""
 from __future__ import annotations
 
 import ctypes
@@ -132,6 +136,39 @@ def channels_from_mat(mat: torch.Tensor, miss: torch.Tensor,
 
 def _inv(x: torch.Tensor) -> torch.Tensor:
     return 1.0 / torch.where(torch.abs(x) < 1e-20, 1e-20, x)
+
+
+INV_PARALLEL = float(np.float32(1.0) / np.float32(1e-20))
+
+
+def _parallel(inv: tuple) -> torch.Tensor:
+    """Which rays run parallel to an axis (`_inv` of |d| <= 1e-20)."""
+    return ((torch.abs(inv[0]) == INV_PARALLEL)
+            | (torch.abs(inv[1]) == INV_PARALLEL)
+            | (torch.abs(inv[2]) == INV_PARALLEL))
+
+
+def _enters_parallel(lo, hi, o: tuple, inv: tuple, t_min: float,
+                     t_best: torch.Tensor) -> torch.Tensor:
+    """The slab test of rays parallel to an axis (`csrc/mesh_sweep.cuh`
+    `enters_parallel`): along such an axis the box bounds nothing while
+    the origin lies within [lo, hi], faces included, and culls the ray
+    otherwise; the other axes narrow [t_near, t_far] as the slab test
+    does."""
+    t_near = torch.full_like(o[0], -float("inf"))
+    t_far = torch.full_like(o[0], float("inf"))
+    inside = torch.ones_like(o[0], dtype=torch.bool)
+    for k in range(3):
+        par = torch.abs(inv[k]) == INV_PARALLEL
+        t0 = (lo[k] - o[k]) * inv[k]
+        t1 = (hi[k] - o[k]) * inv[k]
+        t_near = torch.where(par, t_near,
+                             torch.maximum(t_near, torch.minimum(t0, t1)))
+        t_far = torch.where(par, t_far,
+                            torch.minimum(t_far, torch.maximum(t0, t1)))
+        inside &= ~par | ((lo[k] <= o[k]) & (o[k] <= hi[k]))
+    return (inside & (t_near <= t_far) & (t_far >= t_min)
+            & (torch.clamp(t_near, min=t_min) < t_best))
 
 
 def _octant(d: V3) -> torch.Tensor:
@@ -300,6 +337,7 @@ def _sweep_rays(tris, bb, order, real, o, d, t_min, r, out, stats,
     marking `enter[ray, step]`)."""
     ox, oy, oz = o.x[r], o.y[r], o.z[r]
     inv_dx, inv_dy, inv_dz = _inv(d.x[r]), _inv(d.y[r]), _inv(d.z[r])
+    parallel = torch.nonzero(_parallel((inv_dx, inv_dy, inv_dz))).flatten()
     t_best = out[0][r]
     res = [a[r] for a in out[1:]]
     for step, blk in enumerate(order):
@@ -318,6 +356,11 @@ def _sweep_rays(tris, bb, order, real, o, d, t_min, r, out, stats,
                               torch.maximum(t0z, t1z))
         ent = ((t_near <= t_far) & (t_far >= t_min)
                & (torch.clamp(t_near, min=t_min) < t_best))
+        if parallel.numel():
+            p = parallel
+            ent[p] |= _enters_parallel(
+                lo, hi, (ox[p], oy[p], oz[p]),
+                (inv_dx[p], inv_dy[p], inv_dz[p]), t_min, t_best[p])
         s = torch.nonzero(ent).flatten()
         if s.numel() == 0:
             continue
@@ -506,6 +549,12 @@ def top_aabb_reach(mt: MeshTables, o: V3, d: V3, t_min: float,
     t_near, t_far = _slab(lo, hi, o, d)
     reach = ((t_near <= t_far) & (t_far >= t_min)
              & (torch.clamp(t_near, min=t_min) < t_cap))
+    inv = (_inv(d.x), _inv(d.y), _inv(d.z))
+    p = torch.nonzero(_parallel(inv) & ~reach).flatten()
+    if p.numel():
+        reach[p] = _enters_parallel(lo, hi, (o.x[p], o.y[p], o.z[p]),
+                                    tuple(i[p] for i in inv), t_min,
+                                    t_cap[p])
     return lo, hi, reach
 
 

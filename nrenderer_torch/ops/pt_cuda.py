@@ -301,8 +301,8 @@ def _kernels() -> ctypes.CDLL:
         vp, ci = ctypes.c_void_p, ctypes.c_int
         lib.nr_pt_render.argtypes = [
             vp, vp, ctypes.POINTER(ci), ctypes.POINTER(ctypes.c_float),
-            ci, ci, ci, ci, ci, ci, ci, vp, vp, ci, ci, vp, vp, vp, ci, ci,
-            vp, ci, vp, vp, vp]
+            ci, ci, ci, ci, ci, ci, ci, ci, ci, vp, vp, ci, ci, vp, vp, vp,
+            ci, ci, vp, ci, vp, vp, vp]
         lib.nr_pt_render.restype = ci
         lib.nr_hash_uniform_fill.argtypes = [vp, vp, vp, vp, vp, ci, vp]
         lib.nr_hash_uniform_fill.restype = ci
@@ -332,6 +332,18 @@ def _check_sizes(width, height, sp0, n_spp, depth) -> None:
     if sp0 < 0 or n_spp < 0 or depth < 0 or sp0 + n_spp >= 1 << 31:
         raise ValueError(f"unsupported sample range [{sp0}, {sp0 + n_spp}) "
                          f"or depth {depth}")
+
+
+def pixel_range(width: int, height: int, pix0: int,
+                n_pix: Optional[int]) -> int:
+    """The pixel count of the range [pix0, pix0 + n_pix) of a W x H film
+    (all of it from pix0 when `n_pix` is None); raises if it leaves the
+    film or is empty."""
+    n = width * height - pix0 if n_pix is None else n_pix
+    if pix0 < 0 or n < 1 or pix0 + n > width * height:
+        raise ValueError(f"pixel range [{pix0}, {pix0 + n}) is not inside "
+                         f"a {width}x{height} film")
+    return n
 
 
 def _check_film(film: torch.Tensor, n_pix: int) -> None:
@@ -370,11 +382,15 @@ def pt_accumulate(film: torch.Tensor, ss: StaticScene, cam: CameraParams,
                   seed: int, t_min: float, bsdf: bool = False,
                   env: Optional[EnvTables] = None,
                   mesh: Optional[MeshTables] = None,
-                  tex: Optional[torch.Tensor] = None) -> torch.Tensor:
+                  tex: Optional[torch.Tensor] = None, *, pix0: int = 0,
+                  n_pix: Optional[int] = None) -> torch.Tensor:
     """Add samples [sp0, sp0 + n_spp) of every pixel into the linear film
-    ((W*H, 3) float32) IN PLACE; returns `film`.  `bsdf`: AccPathTracer's
-    five-lobe estimator instead of the diffuse one; `env`: env-map misses;
-    `mesh`: the triangle pool goes through the blocked sweep (`ss`'s
+    ((W*H, 3) float32) IN PLACE; returns `film`.  With `pix0`/`n_pix` only
+    pixels [pix0, pix0 + n_pix) are traced and `film` is (n_pix, 3), row i
+    pixel pix0 + i: the hash and the camera keep the global pixel id, so a
+    range equals those rows of the full film bit for bit.  `bsdf`:
+    AccPathTracer's five-lobe estimator instead of the diffuse one; `env`:
+    env-map misses; `mesh`: the triangle pool goes through the blocked sweep (`ss`'s
     triangles are that pool and the dense pass skips them); `tex`: binned
     texture tables (`make_tex_tables`).  With a mesh, textures need its UV
     tables.  A CUDA film goes through the kernel, a CPU film through the
@@ -383,7 +399,8 @@ def pt_accumulate(film: torch.Tensor, ss: StaticScene, cam: CameraParams,
                        tex is not None)
     check_supported(ss, mesh=mesh is not None)
     _check_sizes(width, height, sp0, n_spp, depth)
-    _check_film(film, width * height)
+    n_pix = pixel_range(width, height, pix0, n_pix)
+    _check_film(film, n_pix)
     if env is not None:
         _check_env(env, film.device)
     if mesh is not None:
@@ -394,18 +411,20 @@ def pt_accumulate(film: torch.Tensor, ss: StaticScene, cam: CameraParams,
         _check_tex(tex, film.device)
     if film.device.type == "cuda":
         _pt_accumulate_cuda(film, ss, cam, width, height, sp0, n_spp, depth,
-                            seed, t_min, name, bsdf, env, mesh, tex)
+                            seed, t_min, name, bsdf, env, mesh, tex, pix0,
+                            n_pix)
     elif film.device.type == "cpu":
         pt_accumulate_plain(film, ss, cam, width, height, sp0, n_spp, depth,
                             seed, t_min, bsdf=bsdf, env=env, mesh=mesh,
-                            tex=tex)
+                            tex=tex, pix0=pix0, n_pix=n_pix)
     else:
         raise ValueError(f"unsupported film device {film.device}")
     return film
 
 
 def _pt_accumulate_cuda(film, ss, cam, width, height, sp0, n_spp, depth,
-                        seed, t_min, name, bsdf, env, mesh, tex) -> None:
+                        seed, t_min, name, bsdf, env, mesh, tex, pix0,
+                        n_pix) -> None:
     lib = _kernels()
     with_uv = tex is not None
     table, counts = pack_scene(ss, mesh=mesh is not None, with_uv=with_uv)
@@ -432,7 +451,6 @@ def _pt_accumulate_cuda(film, ss, cam, width, height, sp0, n_spp, depth,
                                                     tex.shape[0])
     form = (int(bool(bsdf)) | (env is not None) << 1
             | (mesh is not None) << 2 | with_uv << 3)
-    n_pix = width * height
     dense = form in (0, 1)
     per_launch = max(1, (DENSE_PIXEL_SAMPLES_PER_LAUNCH if dense
                          else PIXEL_SAMPLES_PER_LAUNCH) // n_pix)
@@ -447,7 +465,8 @@ def _pt_accumulate_cuda(film, ss, cam, width, height, sp0, n_spp, depth,
         for c0 in range(0, n_spp, per_launch):
             n = min(per_launch, n_spp - c0)
             err = lib.nr_pt_render(film.data_ptr(), tab.data_ptr(), cnt,
-                                   camf, width, height, sp0 + c0, n, depth,
+                                   camf, width, height, pix0, n_pix,
+                                   sp0 + c0, n, depth,
                                    _int32(seed), form, env_bin, env_map,
                                    env_h, env_w, m_tris, m_uvs, m_bb,
                                    n_blocks, block, tex_ptr, n_tex,
@@ -493,9 +512,11 @@ def pt_accumulate_plain(film: torch.Tensor, ss: StaticScene,
                         bsdf: bool = False, env: Optional[EnvTables] = None,
                         mesh: Optional[MeshTables] = None,
                         tex: Optional[torch.Tensor] = None,
-                        stats: Optional[dict] = None) -> torch.Tensor:
+                        stats: Optional[dict] = None, *, pix0: int = 0,
+                        n_pix: Optional[int] = None) -> torch.Tensor:
     """The kernel's plain torch version, on any device: adds samples
-    [sp0, sp0 + n_spp) into `film` in place, in sample order.
+    [sp0, sp0 + n_spp) into `film` in place, in sample order, for pixels
+    [pix0, pix0 + n_pix) (all by default; `film` holds that range's rows).
 
     With `env`, bounce 0 runs first on its own and its misses add
     throughput * the native texel; later misses record throughput and
@@ -521,7 +542,7 @@ def pt_accumulate_plain(film: torch.Tensor, ss: StaticScene,
     bounce count, starting its next sample as soon as a path ends)."""
     dev = film.device
     cam = CameraParams(*(x.to(dev) for x in cam))
-    n_pix = width * height
+    n_pix = pixel_range(width, height, pix0, n_pix)
     if bsdf:
         mat_ch = make_mat_channels(ss)
     else:
@@ -535,7 +556,7 @@ def pt_accumulate_plain(film: torch.Tensor, ss: StaticScene,
                                     stats=stats)
     n_bounces = max(depth, 1) if env is not None else depth
     chunk = max(1, min(n_spp, PLAIN_RAYS_PER_WAVEFRONT // n_pix))
-    pid1 = torch.arange(n_pix, dtype=torch.int64, device=dev)
+    pid1 = torch.arange(pix0, pix0 + n_pix, dtype=torch.int64, device=dev)
     sched = [] if mesh is not None and stats is not None \
         and "enter" in stats else None
     it0 = torch.zeros(n_pix, dtype=torch.int64, device=dev)

@@ -31,7 +31,11 @@ host.
 The functions return the linear film SUM ((n_pix, 3) float32) over the
 samples asked for.  The staged film adds each ray's stage radiances lane
 by lane and then the samples in order, so it equals the plain film up to
-the rounding of those per-stage sums."""
+the rounding of those per-stage sums.  Built with `pix0`/`n_pix`, they
+trace pixels [pix0, pix0 + n_pix) only (a band of rows, for a render
+split across devices): lanes number the range's pixels, while the draws
+and the camera ray keep the global pixel id, so the band is the full
+film's rows."""
 from __future__ import annotations
 
 from typing import Callable
@@ -68,10 +72,11 @@ def stage_plan(depth: int):
     return [(0, 1)] + [(b, k) for b, k in STAGE_BOUNDARIES if b < depth]
 
 
-def lane_samples(lane: torch.Tensor, n_pix: int, sp0: int):
-    """(pixel id, sample index) int64 of chunk lanes."""
+def lane_samples(lane: torch.Tensor, n_pix: int, sp0: int, pix0: int = 0):
+    """(global pixel id, sample index) int64 of chunk lanes over pixels
+    [pix0, pix0 + n_pix)."""
     lane = lane.to(torch.int64)
-    return lane % n_pix, sp0 + lane // n_pix
+    return pix0 + lane % n_pix, sp0 + lane // n_pix
 
 
 def bounce_uniforms(pid: torch.Tensor, sp: torch.Tensor, seed: int, b: int):
@@ -90,22 +95,22 @@ def _film_add(film: torch.Tensor, rad: torch.Tensor, c: int,
 
 
 def _camera_chunk(cam: CameraParams, width: int, height: int, seed: int,
-                  sp0: int, c: int):
-    n_pix = width * height
+                  sp0: int, c: int, pix0: int, n_pix: int):
     lane = torch.arange(c * n_pix, dtype=torch.int32,
                         device=cam.position.device)
-    pid, sp = lane_samples(lane, n_pix, sp0)
+    pid, sp = lane_samples(lane, n_pix, sp0, pix0)
     o, d = camera_rays(cam, pid, sp, seed, width, height)
     return lane, pid, sp, o, d
 
 
 def build_wavefront_fn(cam: CameraParams, width: int, height: int,
-                       chunk: int, trace_fn: Callable) -> Callable:
+                       chunk: int, trace_fn: Callable, pix0: int = 0,
+                       n_pix: int = None) -> Callable:
     """The plain film loop (`_wavefront.py:251-305`):
     `trace_fn(o, d, pid, sp, seed) -> V3` radiance of each camera ray.
     Returns `render(seed, sp0, n_spp)`, the film SUM of samples
-    [sp0, sp0 + n_spp)."""
-    n_pix = width * height
+    [sp0, sp0 + n_spp) of pixels [pix0, pix0 + n_pix) (all by default)."""
+    n_pix = width * height - pix0 if n_pix is None else n_pix
 
     def render(seed: int, sp0: int, n_spp: int) -> torch.Tensor:
         film = torch.zeros((n_pix, 3), dtype=torch.float32,
@@ -113,7 +118,7 @@ def build_wavefront_fn(cam: CameraParams, width: int, height: int,
         for c0 in range(0, n_spp, chunk):
             c = min(chunk, n_spp - c0)
             _, pid, sp, o, d = _camera_chunk(cam, width, height, seed,
-                                             sp0 + c0, c)
+                                             sp0 + c0, c, pix0, n_pix)
             rad = trace_fn(o, d, pid, sp, seed)
             _film_add(film, torch.stack(rad), c, n_pix)
         return film
@@ -124,7 +129,8 @@ def build_wavefront_fn(cam: CameraParams, width: int, height: int,
 def build_staged_wavefront_fn(cam: CameraParams, width: int, height: int,
                               chunk: int, bounce_fn: Callable,
                               finish_fn: Callable, depth: int,
-                              peel_first: bool = False) -> Callable:
+                              peel_first: bool = False, pix0: int = 0,
+                              n_pix: int = None) -> Callable:
     """The staged film loop (`_wavefront.py:39-248`, stream mode).
 
     `bounce_fn(o, d, thr, rad, alive, u1, u2, u3, coherent=False) -> (o, d,
@@ -133,8 +139,9 @@ def build_staged_wavefront_fn(cam: CameraParams, width: int, height: int,
     `peel_first`: bounce 0 runs on its own as the coherent variant (the
     mesh pipe skips its sort for pixel-ordered camera rays; the draws, and
     so the film, are unchanged).  Returns `render(seed, sp0, n_spp)`, the
-    film SUM of samples [sp0, sp0 + n_spp)."""
-    n_pix = width * height
+    film SUM of samples [sp0, sp0 + n_spp) of pixels [pix0, pix0 + n_pix)
+    (all by default)."""
+    n_pix = width * height - pix0 if n_pix is None else n_pix
     plan = stage_plan(depth)
     peel = peel_first and depth > 1
 
@@ -160,7 +167,7 @@ def build_staged_wavefront_fn(cam: CameraParams, width: int, height: int,
         """Launch-aligned (3, c * n_pix) radiance of one chunk."""
         n_rays = c * n_pix
         lane, pid, sp, o, d = _camera_chunk(cam, width, height, seed, sp0,
-                                            c)
+                                            c, pix0, n_pix)
         ones = torch.ones_like(o.x)
         zeros = torch.zeros_like(o.x)
         thr = V3(ones, ones, ones)
@@ -191,7 +198,7 @@ def build_staged_wavefront_fn(cam: CameraParams, width: int, height: int,
                     p[6] * inv_q, p[7] * inv_q, p[8] * inv_q)
                 alive = p[9] > 0.0   # slots past the count read 0: dead
                 lane = p[10].view(torch.int32)
-                pid, sp = lane_samples(lane, n_pix, sp0)
+                pid, sp = lane_samples(lane, n_pix, sp0, pix0)
                 zc = torch.zeros_like(p[9])
                 rad = V3(zc, zc, zc)
                 chain.append((keep_f, sp_k))

@@ -215,11 +215,13 @@ def trace_bsdf_wavefront(ss: StaticScene, o: V3, d: V3, pid: torch.Tensor,
 
 def build_render_fn(ss: StaticScene, cam, width: int, height: int,
                     depth: int, chunk: int, tri_bvh=None, env_map=None,
-                    textures=None, staged: bool = False):
+                    textures=None, staged: bool = False, pix0: int = 0,
+                    n_pix: int = None):
     """`render(seed, sp0, n_spp)`: the linear film SUM ((W*H, 3)) of
-    samples [sp0, sp0 + n_spp), by the staged wavefront (`staged`; the
-    camera bounce peeled off as the coherent variant when there is a mesh
-    pipe) or the plain one (`acc_pt.py:102-161`).  `tri_bvh`: the mesh
+    samples [sp0, sp0 + n_spp) (of pixels [pix0, pix0 + n_pix) only, the
+    film (n_pix, 3), when they are given), by the staged wavefront
+    (`staged`; the camera bounce peeled off as the coherent variant when
+    there is a mesh pipe) or the plain one (`acc_pt.py:102-161`).  `tri_bvh`: the mesh
     tables (`mesh_cuda.MeshTables`) whose pool runs the mesh pipe;
     `env_map`: an (He, We, 3) tensor; `textures`: (H, W, 3) tensors."""
     t_min = scene_epsilon(ss)
@@ -228,12 +230,13 @@ def build_render_fn(ss: StaticScene, cam, width: int, height: int,
             cam, width, height, chunk,
             make_bsdf_bounce(ss, t_min, tri_bvh, env_map, textures),
             lambda thr, rad, alive: finish_ambient(ss, thr, rad, alive),
-            depth, peel_first=tri_bvh is not None)
+            depth, peel_first=tri_bvh is not None, pix0=pix0, n_pix=n_pix)
     return build_wavefront_fn(
         cam, width, height, chunk,
         lambda o, d, pid, sp, seed: trace_bsdf_wavefront(
             ss, o, d, pid, sp, seed, depth, env_map=env_map,
-            tri_bvh=tri_bvh, t_min=t_min, textures=textures))
+            tri_bvh=tri_bvh, t_min=t_min, textures=textures),
+        pix0=pix0, n_pix=n_pix)
 
 
 @register_renderer("AccPathTracer", description=(

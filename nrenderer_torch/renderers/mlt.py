@@ -736,9 +736,11 @@ def film_bucket(n_pix: int) -> int:
 
 
 def state_uniforms(n_draws: int, chains: int, step: int, draw0: int,
-                   seed: int, device) -> torch.Tensor:
-    """(n_draws, chains) uniforms hash(chain, step, draw0 + k, seed)."""
-    chain = torch.arange(chains, dtype=torch.int64, device=device)[None, :]
+                   seed: int, device, chain0: int = 0) -> torch.Tensor:
+    """(n_draws, chains) uniforms hash(chain, step, draw0 + k, seed) of
+    the chains [chain0, chain0 + chains)."""
+    chain = torch.arange(chain0, chain0 + chains, dtype=torch.int64,
+                         device=device)[None, :]
     draw = torch.arange(draw0, draw0 + n_draws, dtype=torch.int64,
                         device=device)[:, None]
     return hash_uniform(chain, step, draw, seed)
@@ -769,14 +771,16 @@ class _Chains(NamedTuple):
 
 
 def mutation_step(kern: MLTKernel, ch: _Chains, step: int, b: float,
-                  seed: int) -> _Chains:
+                  seed: int, chain0: int = 0) -> _Chains:
     """One Kelemen step of every chain (`mlt.py:1017-1056`): propose (a
     large step with probability 0.3, else a perturbation), weight the
     proposal and the current state, accept with probability a, and splat
-    the state that leaves the chain with its accumulated weight."""
+    the state that leaves the chain with its accumulated weight.  `ch`
+    holds the chains [chain0, chain0 + C) of the render."""
     ns, c = kern.n_states, ch.u.shape[1]
     wh = (float(kern.width), float(kern.height))
-    draws = state_uniforms(2 * ns + 2, c, step, 0, seed, ch.u.device)
+    draws = state_uniforms(2 * ns + 2, c, step, 0, seed, ch.u.device,
+                           chain0)
     is_large = draws[2 * ns] <= LARGE_STEP_PROB
     u_mut = kern.mutate(ch.u, draws[ns:2 * ns], wh)
     u_prop = torch.where(is_large[None, :], draws[:ns], u_mut)

@@ -4,7 +4,8 @@ winner reduction can get wrong, and the sweep's schedule counts.
 The pool is `chip_smoke.tie_pool()`: the cube [-4, 4]^3 with every face a
 grid of 2x2 quads (axis-aligned faces, each on its block's box face), one
 top-face triangle repeated 20 times, and rays in one direction octant that
-hit it on edges and vertices.  Every t is exact in float32, so tied hits
+hit it on edges and vertices, the last of them inside a block box's face
+plane.  Every t is exact in float32, so tied hits
 are equal bit for bit in any float order, XLA's fused multiply-adds
 included: the port's plain sweep must pick the JAX package's winner on
 every ray.  The JAX side runs the Pallas sweep in interpret mode and its
@@ -33,7 +34,7 @@ torch.set_num_threads(1)
 REPO = pathlib.Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(REPO))
 
-from chip_smoke import tie_pool  # noqa: E402
+from chip_smoke import FACE_PLANE_RAYS, tie_pool  # noqa: E402
 
 T_MIN = 1e-3
 BLOCK = 16
@@ -135,6 +136,38 @@ def test_ties_match_blocked_oracle(ties, jax_side):
     np.testing.assert_array_equal(got[0].numpy(), t_w)
     np.testing.assert_array_equal(got[1].numpy().astype(np.float32),
                                   np.asarray(pid_w, np.float32))
+
+
+def test_face_plane_rays_hit_as_the_pallas_tile_does(ties, jax_side):
+    """The tie pool's last rays run inside a block box's face plane (a
+    zero direction component, the origin on the plane z = 4 or y = 4) onto
+    the +x face's edge there, at t = 8.  Their own slab test gives t_far =
+    0 for that block.  The Pallas sweep culls per tile, so it finds each
+    hit because other rays of the tile enter the block, and loses it when
+    the face-plane rays sweep alone; the port's per-ray test rechecks rays
+    parallel to an axis and finds it either way, as the tile does."""
+    import jax.numpy as jnp
+    from jax.experimental.pallas import tpu as pltpu
+    from nrenderer_tpu.ops.mesh_pallas import sweep_mesh_full
+    _, mt, o, d = ties
+    bt_j, pallas, _ = jax_side
+    face = slice(-FACE_PLANE_RAYS, None)
+    with_tile = pallas[False][0][face]
+    np.testing.assert_array_equal(with_tile, np.full(FACE_PLANE_RAYS, 8.0))
+    got = mesh_cuda.sweep_mesh_full(mt, o, d, T_MIN)
+    np.testing.assert_array_equal(got[0].numpy()[face], with_tile)
+    np.testing.assert_array_equal(got[1].numpy()[face],
+                                  pallas[False][1][face])
+    _, _, fo, fd = tie_pool()
+    alone_o, alone_d = fo[face], fd[face]
+    with pltpu.force_tpu_interpret_mode():
+        res = sweep_mesh_full(bt_j, _v3(alone_o, jnp.asarray),
+                              _v3(alone_d, jnp.asarray), T_MIN,
+                              interpret=True)
+    assert np.isinf(np.asarray(res[0])).all()
+    alone = mesh_cuda.sweep_mesh_full(mt, _v3(alone_o, torch.as_tensor),
+                                      _v3(alone_d, torch.as_tensor), T_MIN)
+    np.testing.assert_array_equal(alone[0].numpy(), with_tile)
 
 
 def test_schedule_counts_by_hand():
