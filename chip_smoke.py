@@ -81,7 +81,9 @@ exits non-zero without a result line:
  14. the hybrid path: AccPathTracer `--obj ico_5120.obj` on `mesh_box.scn`
      at 500x500, 256 spp, depth 20 (staged, 4 chunks of 64 spp); the
      overflow full sweeps, roulette firings and peak memory are printed,
-     and the ball must be brighter than the floor in its shadow;
+     and the ball must be brighter than the floor in its shadow; a second
+     row the same on the 81,920-face icosphere (640 blocks; written into
+     build/ by `tools/make_mesh_fixtures.py`'s `large_icosphere`);
  15. the env + mesh path: `--obj blob_960.obj --env-map env_sky.png` on
      `mesh_box.scn` at 512x512, 256 spp, depth 8 (the env row's 1024 spp
      cut to 256 to fit the script's time; unstaged), checked as phase 14;
@@ -164,7 +166,28 @@ exits non-zero without a result line:
      exits 2 with its message (with N >= 2 GPUs it renders on N NCCL
      ranks and must write the one-device PNG).
 
-Each of phases 5-7, 10, 11, 14, 15, 18-21 and 23 sets every launch count
+ 32. the large mesh: the 81,920-face icosphere's host prep with the host
+     library and with its numpy versions (NR_NO_NATIVE=1; the blocked
+     tables equal), AccPathTracer on it through `cli.main` at 500x500, 256
+     spp, depth 20 on the route the card's threshold picks (route, blocks,
+     render and CLI wall, scene-prep and bvh-build with each, the two
+     images bit for bit, peak memory, the hybrid route's counters), its
+     image against phase 14's ico_5120 image (linear means within 2%,
+     8x8-block correlation >= 0.95); B1e at its 640 blocks (a 32-spp
+     launch timed, and on a band of 8 rows bit for bit against its plain
+     version, with the bound from the plain version's counts); phase 13's
+     mesh pipe on it (B3a, B2 and B3b bit for bit, B2 timed with its bound
+     and schedule counts); the phase's seconds on a line of their own.
+
+Phases 13, 14 (both rows), 18 and 29's hybrid half measure the hybrid
+route: 14, 18 and 29 pin the CPU's megamesh limit (1024 triangles, the
+card's too before its crossover was measured;
+`acc_pt.pinned_megamesh_max_tris`) for their runs, so ico_5120.obj stays
+on it whatever the card's threshold (phase 29's ranks render the plan of
+the launching process); 13 and 16 build the hybrid render function
+directly, and phase 15's env map takes the hybrid route on any pool.
+
+Each of phases 5-7, 10, 11, 14, 15, 18-21, 23 and 32 sets every launch count
 to 0 just before its run and reads the counts just after (phases 22 and
 25 reset and read B1a's); a kernel its path runs must have launched.  In
 phases 27-30 each rank sets its counts to 0 before it renders and rank 0
@@ -1180,8 +1203,8 @@ class _Captured(Exception):
     """Ends a chunk once the mesh pipe's inputs are held."""
 
 
-def phase_pipe_main_shape(width=500, height=500, chunk=64, depth=20
-                          ) -> tuple:
+def phase_pipe_main_shape(width=500, height=500, chunk=64, depth=20,
+                          obj=ICO, phase=13) -> tuple:
     """One sorted mesh-pipe bounce of a chunk of the hybrid path, at its
     own shape (the second bounce of 64 spp of 500x500: 16 Mi lanes, a cap
     of 4 Mi rays): the pack and the unpack on the kernels and on the plain
@@ -1189,13 +1212,15 @@ def phase_pipe_main_shape(width=500, height=500, chunk=64, depth=20
     live prefix (shorter than the cap, as on every compacted bounce), and
     the sweep against its plain version on the whole sorted prefix, with
     its time, bound and schedule counts.  Returns the stats and (tables,
-    t_min, the sorted prefix) for phase 18."""
+    t_min, the sorted prefix) for phase 18.  `obj`: the mesh (phase 32
+    runs it on the 81,920-face icosphere)."""
     from nrenderer_torch.ops import mesh_cuda, stream_compact as sc
     from nrenderer_torch.ops.pt_core import scene_epsilon
     from nrenderer_torch.ops.soa import V3
-    print(f"== phase 13: mesh pipe at the hybrid path's shape, ico_5120.obj, "
-          f"bounce 1 of {width}x{height}, {chunk} spp, depth {depth}")
-    fn, ss, _, mt = _hybrid_fn((ICO,), width, height, depth, chunk)
+    print(f"== phase {phase}: mesh pipe at the hybrid path's shape, "
+          f"{os.path.basename(obj)}, bounce 1 of {width}x{height}, {chunk} "
+          f"spp, depth {depth}")
+    fn, ss, _, mt = _hybrid_fn((obj,), width, height, depth, chunk)
     t_min = scene_epsilon(ss)
     held, pack = [], sc.stream_pack_channels
 
@@ -1227,8 +1252,8 @@ def phase_pipe_main_shape(width=500, height=500, chunk=64, depth=20
     rays, perm = mesh_cuda.sort_rays(kp.packed[:, :n_hit], lo, hi, t_min)
     rays = rays.contiguous()
     sweep = _engine_vs_plain(mt, rays, t_min, True, False,
-                             "phase 13: B2 on the sorted live prefix",
-                             timing=True)
+                             f"phase {phase}: B2 on the sorted live prefix "
+                             f"({mt.n_blocks} blocks)", timing=True)
     out = mesh_cuda.sweep_mesh_full(
         mt, V3(rays[0], rays[1], rays[2]), V3(rays[3], rays[4], rays[5]),
         t_min, t_cap=rays[6], f2b=True)
@@ -1238,7 +1263,8 @@ def phase_pipe_main_shape(width=500, height=500, chunk=64, depth=20
     pu = sc.stream_unpack_plain(t_cap, out, misses, pp)
     unpack_err = max(_word_err(a, b) for a, b in zip(ku, pu))
     torch.cuda.synchronize()
-    st = {"lanes": t_cap.shape[0], "cap": cap, "live_prefix": n_hit,
+    st = {"mesh": os.path.basename(obj), "blocks": mt.n_blocks,
+          "lanes": t_cap.shape[0], "cap": cap, "live_prefix": n_hit,
           "pack_max_word_err": pack_err, "unpack_max_word_err": unpack_err,
           "hits": int((ku[1] >= 0).sum()), "sweep": sweep}
     print(json.dumps({k: v for k, v in st.items() if k != "sweep"}))
@@ -1248,13 +1274,77 @@ def phase_pipe_main_shape(width=500, height=500, chunk=64, depth=20
     return st, (mt, t_min, rays)
 
 
-def phase_hybrid_path(width=500, height=500, spp=256, depth=20) -> dict:
-    out = os.path.join(ROOT, "build", "smoke_ico.png")
+def _hybrid_pinned():
+    """The CPU's megamesh limit (1024) pinned for a run: the hybrid-route
+    phases on ico_5120.obj keep the route they have always measured,
+    whatever the card's limit."""
+    from nrenderer_torch.renderers import acc_pt
+    return acc_pt.pinned_megamesh_max_tris(acc_pt.MEGAMESH_MAX_TRIS)
+
+
+def phase_hybrid_path(obj=ICO, width=500, height=500, spp=256,
+                      depth=20) -> dict:
+    name = os.path.splitext(os.path.basename(obj))[0]
+    out = os.path.join(ROOT, "build", f"smoke_{name}.png")
     argv = _cli_argv(MESH_SCENE, "AccPathTracer", width, height, spp, depth,
-                     out, objs=(ICO,))
-    return phase_cli(14, "hybrid path (AccPathTracer, ico_5120)", argv,
-                     HYBRID_KERNELS, width, height, spp, depth,
-                     ICO_MEAN_BAND, _blob_lit)
+                     out, objs=(obj,))
+    with _hybrid_pinned():
+        return phase_cli(14, f"hybrid path (AccPathTracer, {name})", argv,
+                         HYBRID_KERNELS, width, height, spp, depth,
+                         ICO_MEAN_BAND, _blob_lit)
+
+
+def large_fixtures() -> tuple:
+    """(ico_20480.obj, ico_81920.obj): the subdivision-5 and -6 icospheres
+    of `tools/make_mesh_fixtures.py` (160 and 640 blocks of 128; the same
+    radius and place as ico_5120.obj), written under build/mesh_fixtures/
+    at first use."""
+    sys.path.insert(0, os.path.join(ROOT, "tools"))
+    import make_mesh_fixtures
+    return tuple(str(make_mesh_fixtures.large_icosphere(level))
+                 for level in make_mesh_fixtures.LARGE_LEVELS)
+
+
+def _same_tables(a, b) -> bool:
+    """Two BlockedTris field by field, bit for bit."""
+    return all((x is None and y is None) or (
+        x is not None and y is not None
+        and np.array_equal(np.asarray(x), np.asarray(y)))
+        for x, y in zip(a, b))
+
+
+def mesh_prep_seconds(obj) -> dict:
+    """Host seconds of one mesh's set-up on mesh_box.scn with the host
+    library and under NR_NO_NATIVE=1 (the numpy versions): `load_obj`,
+    the renderer's scene prep (`build_scene_arrays`, `make_static_scene`)
+    and its BVH and block build (`build_mesh_accel`, without the copy to
+    the card); the block count, and whether the two builds' blocked
+    tables are equal."""
+    from nrenderer_torch import build_scene_arrays, load_obj, load_scn
+    from nrenderer_torch.native import available
+    from nrenderer_torch.ops.bvh import build_mesh_accel
+    from nrenderer_torch.ops.intersect import make_static_scene
+    from nrenderer_torch.ops.pt_core import make_mat_channels
+    with _env("NR_NO_NATIVE", None):
+        available()   # built before the clock starts
+    out, tables = {}, []
+    for mode in ("native", "numpy"):
+        with _env("NR_NO_NATIVE", None if mode == "native" else "1"):
+            scene = load_scn(MESH_SCENE)
+            t0 = time.perf_counter()
+            load_obj(obj, scene, material=0)
+            t1 = time.perf_counter()
+            arrays = build_scene_arrays(scene)
+            ss = make_static_scene(arrays)
+            t2 = time.perf_counter()
+            tables.append(build_mesh_accel(arrays,
+                                           make_mat_channels(ss)).bt)
+            t3 = time.perf_counter()
+        out[mode] = {"load_obj": t1 - t0, "scene_prep": t2 - t1,
+                     "bvh_build": t3 - t2}
+    out["blocks"] = tables[0].n_blocks
+    out["tables_equal"] = _same_tables(*tables)
+    return out
 
 
 def phase_env_mesh_path(width=512, height=512, spp=256, depth=8) -> dict:
@@ -1316,21 +1406,177 @@ def phase_breakdown(width=500, height=500, chunk=64, depth=20) -> dict:
     return st
 
 
+# Phase 32's image bars: the 81,920-face icosphere's image against
+# ico_5120.obj's (phase 14) at the same settings.  The two spheres have
+# the same radius and place and differ by tessellation (the flat facets of
+# ico_5120 sit at most 3.4e-4 of the radius inside the sphere) and noise,
+# so their linear means agree within 2% and their 8x8-block means
+# correlate at 0.95 or more (the hybrid route's plain versions on the CPU,
+# 64x64, 64 spp, depth 20, seed 0: 0.29% and 0.9991).
+LARGE_MEAN_REL_MAX = 0.02
+LARGE_BLOCK_CORR_MIN = 0.95
+# B1e's band in phase 32: rows [137, 145) of a 500-row film (row 0 at the
+# bottom) cross the middle of the ball (its centre projects to row ~141)
+B1E_BAND_ROWS = (137, 8)
+
+
+def phase_b1e_large(obj, width=500, height=500, spp=32, depth=20) -> dict:
+    """Phase 32's B1e at 640 blocks: one launch of the megamesh route's
+    32-spp pass at 500x500, depth 20, timed; then, on `B1E_BAND_ROWS`
+    (4000 pixels, the same 32 spp), the kernel against its plain version
+    bit for bit, with both times (the plain version's while it counts)
+    and the bound from the plain version's counts on the band (the whole
+    launch's plain version would take minutes at 640 blocks)."""
+    from nrenderer_torch.ops import pt_cuda
+    from nrenderer_torch.ops.bvh import build_mesh_accel
+    from nrenderer_torch.ops.mesh_cuda import make_mesh_tables
+    from nrenderer_torch.ops.pt_core import make_mat_channels, scene_epsilon
+    print(f"== phase 32: pt_bsdf_mesh_kernel at {os.path.basename(obj)}, "
+          f"{width}x{height}, {spp} spp, depth {depth}")
+    ss, cam, _, arrays = _setup("cuda", MESH_SCENE, objs=(obj,))
+    mt = make_mesh_tables(build_mesh_accel(arrays,
+                                           make_mat_channels(ss)).bt, "cuda")
+    t_min = scene_epsilon(ss)
+    row0, rows = B1E_BAND_ROWS
+    pix0, n_band = row0 * width, rows * width
+
+    def run(fn, film_rows, **kw):
+        film = torch.zeros((film_rows, 3), dtype=torch.float32,
+                           device="cuda")
+        fn(film, ss, cam, width, height, 0, spp, depth, 0, t_min, bsdf=True,
+           mesh=mt, **kw)
+        return film
+
+    name = "pt_bsdf_mesh_kernel"
+    n0 = pt_cuda.KERNEL_LAUNCHES[name]
+    launch = lambda: run(pt_cuda.pt_accumulate, width * height)
+    launch()
+    torch.cuda.synchronize()
+    launches = pt_cuda.KERNEL_LAUNCHES[name] - n0
+    launch_ms = _time_ms(launch, 3)
+    band = dict(pix0=pix0, n_pix=n_band)
+    kernel = lambda: run(pt_cuda.pt_accumulate, n_band, **band)
+    work = {"enter": []}
+    lin_k = kernel()
+    # the plain version runs once, counting (minutes for the whole film)
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    lin_p = run(pt_cuda.pt_accumulate_plain, n_band, stats=work, **band)
+    end.record()
+    torch.cuda.synchronize()
+    b_ms, b_by = bound_ms(ss, n_band, work, None, mt)
+    st = {"kernel": name, "blocks": mt.n_blocks,
+          "launch_shape": [width, height, spp, depth],
+          "launches_per_pass": launches, "launch_ms": launch_ms,
+          "band_pixels": [pix0, n_band],
+          "max_abs_err": float((lin_k - lin_p).abs().max()),
+          "finite": bool(torch.isfinite(lin_k).all()),
+          "kernel_ms": _time_ms(kernel, 3),
+          "plain_ms": start.elapsed_time(end),
+          "bound_ms": b_ms, "bound_by": b_by,
+          "bounces_per_sample": work["bounces"] / work["samples"],
+          "slab_tests": work["slab_tests"], "tri_tests": work["tri_tests"],
+          "schedule": _pt_schedule(work["schedule"])}
+    del work
+    print(json.dumps(st))
+    if not st["finite"] or st["max_abs_err"] != 0.0 or launches != 1:
+        raise AssertionError(f"{name} at {mt.n_blocks} blocks: {st}")
+    return st
+
+
+def phase_large_mesh(ico_pixels, obj, width=500, height=500, spp=256,
+                     depth=20) -> dict:
+    """Phase 32: AccPathTracer on mesh_box.scn + the 81,920-face icosphere
+    through `cli.main` at (6b)'s settings, on the route the card's
+    threshold picks: its route and blocks, the host's mesh prep with the
+    host library and with its numpy versions (the blocked tables equal),
+    the render with each (the images bit for bit), peak memory and the
+    hybrid route's counters, and the image against ico_5120.obj's
+    (`ico_pixels`, phase 14) within LARGE_MEAN_REL_MAX and
+    LARGE_BLOCK_CORR_MIN; then B1e (`phase_b1e_large`) and the mesh pipe
+    (phase 13 at this mesh: B3a, B2, B3b bit for bit) at its 640 blocks."""
+    from nrenderer_torch import cli
+    from nrenderer_torch.parallel.mesh import plan_route
+    from nrenderer_torch.server.registry import get_server
+    from nrenderer_torch.utils.timing import GLOBAL_TIMER
+    t_phase = time.perf_counter()
+    name = os.path.splitext(os.path.basename(obj))[0]
+    print(f"== phase 32: large mesh, {name}: host prep, native and numpy")
+    prep = mesh_prep_seconds(obj)
+    print(json.dumps({"mesh_prep_s": prep}))
+    if not prep["tables_equal"]:
+        raise AssertionError(f"{name}: the numpy build's blocked tables "
+                             "differ from the host library's")
+    route = plan_route(_scene_of(MESH_SCENE, width, height, spp, depth,
+                                 objs=(obj,)),
+                       "AccPathTracer", False, "cuda").kind
+    out = os.path.join(ROOT, "build", f"smoke_{name}.png")
+    argv = _cli_argv(MESH_SCENE, "AccPathTracer", width, height, spp, depth,
+                     out, objs=(obj,))
+    timers = ("AccPathTracer.scene-prep", "AccPathTracer.bvh-build")
+    kernels = (HYBRID_KERNELS if route == "hybrid"
+               else ["pt_bsdf_mesh_kernel"])
+    st = phase_cli(32, f"large mesh (AccPathTracer, {name}, {route} route, "
+                   f"{prep['blocks']} blocks)", argv, kernels, width, height,
+                   spp, depth, ICO_MEAN_BAND, _blob_lit, timers=timers)
+    px = get_server().screen.get_pixels()[:, :, :3].copy()
+    with _env("NR_NO_NATIVE", "1"):
+        t0s = {k: GLOBAL_TIMER.get(k).total_s for k in timers}
+        t0 = time.perf_counter()
+        if cli.main(argv) != 0:
+            raise AssertionError(f"{name}: render under NR_NO_NATIVE=1 "
+                                 "failed")
+        torch.cuda.synchronize()
+        numpy_wall = time.perf_counter() - t0
+        numpy_timers = {k: GLOBAL_TIMER.get(k).total_s - t
+                        for k, t in t0s.items()}
+    px_np = get_server().screen.get_pixels()[:, :, :3]
+    lin = _lin_stats(px, ico_pixels)
+    st.update(route=route, blocks=prep["blocks"], mesh_prep_s=prep,
+              numpy_timers=numpy_timers, numpy_seconds=numpy_wall,
+              numpy_image_bit_for_bit=bool(np.array_equal(px, px_np)),
+              vs_ico_5120=lin)
+    print(f"phase 32: {name} on the {route} route, {prep['blocks']} blocks: "
+          f"render {st['render_seconds']:.4f} s, CLI wall "
+          f"{st['seconds']:.4f} s; scene-prep / bvh-build "
+          f"{st['timers'][timers[0]]:.4f} / {st['timers'][timers[1]]:.4f} s "
+          f"native, {numpy_timers[timers[0]]:.4f} / "
+          f"{numpy_timers[timers[1]]:.4f} s numpy (CLI wall "
+          f"{numpy_wall:.4f} s), images bit for bit: "
+          f"{st['numpy_image_bit_for_bit']}; peak "
+          f"{st['peak_memory_bytes'] / 2**30:.2f} GiB; route counts "
+          f"{json.dumps(st.get('routes', {}))}; vs ico_5120: {json.dumps(lin)}"
+          f" on {gpu_name_power()}")
+    if not st["numpy_image_bit_for_bit"]:
+        raise AssertionError(f"{name}: the numpy build's image differs")
+    if lin["linear_mean_rel_diff"] > LARGE_MEAN_REL_MAX \
+            or lin["block_corr"] < LARGE_BLOCK_CORR_MIN:
+        raise AssertionError(f"{name}'s image outside the band of "
+                             f"ico_5120's: {lin}")
+    st["b1e"] = phase_b1e_large(obj)
+    st["pipe"], _ = phase_pipe_main_shape(obj=obj, phase=32)
+    st["phase_seconds"] = time.perf_counter() - t_phase
+    print(f"phase 32 (large mesh) took {st['phase_seconds']:.1f} s")
+    return st
+
+
 @contextlib.contextmanager
-def _mxu_switch(on: bool):
-    """NR_MESH_MXU set to 1 (or removed) for the duration."""
-    old = os.environ.get("NR_MESH_MXU")
-    if on:
-        os.environ["NR_MESH_MXU"] = "1"
-    else:
-        os.environ.pop("NR_MESH_MXU", None)
+def _env(name: str, value):
+    """The environment variable `name` set to `value` (removed when None)
+    for the duration: NR_MESH_MXU=1 sweeps on B4, NR_NO_NATIVE=1 runs the
+    host library's numpy versions."""
+    def put(v):
+        if v is None:
+            os.environ.pop(name, None)
+        else:
+            os.environ[name] = v
+
+    old = os.environ.get(name)
+    put(value)
     try:
         yield
     finally:
-        if old is None:
-            os.environ.pop("NR_MESH_MXU", None)
-        else:
-            os.environ["NR_MESH_MXU"] = old
+        put(old)
 
 
 def _ptxas(kernel: str) -> str:
@@ -1417,7 +1663,7 @@ def phase_mxu_sweep(n_rays=1 << 20, seed=0) -> dict:
           f"blocks of {bt.block}), {n_rays} rays")
     kept_ptxas = check_kept_ptxas()
     work = {"enter": []}
-    with _mxu_switch(True):
+    with _env("NR_MESH_MXU", "1"):
         before = mesh_mxu.KERNEL_LAUNCHES[name]
         got = sweep_mesh_full(mt, o, d, t_min, t_cap=cap)
         if mesh_mxu.KERNEL_LAUNCHES[name] != before + 1:
@@ -1427,7 +1673,7 @@ def phase_mxu_sweep(n_rays=1 << 20, seed=0) -> dict:
     raw = mesh_mxu.sweep_mxu_plain(mt, o, d, t_min, cap, stats=work)
     plain_ms = _time_ms(lambda: mesh_mxu.sweep_mxu_plain(mt, o, d, t_min,
                                                          cap), 1)
-    with _mxu_switch(False):
+    with _env("NR_MESH_MXU", None):
         b2 = sweep_mesh_full(mt, o, d, t_min, t_cap=cap)
     torch.cuda.synchronize()
     want = [torch.where(raw[1] >= 0, raw[0], float("inf")),
@@ -1588,7 +1834,7 @@ def phase_hybrid_mxu_path(b2_pixels, prefix, width=500, height=500,
     argv = _cli_argv(MESH_SCENE, "AccPathTracer", width, height, spp, depth,
                      out, objs=(ICO,))
     from nrenderer_torch.server.registry import get_server
-    with _mxu_switch(True):
+    with _env("NR_MESH_MXU", "1"), _hybrid_pinned():
         st = phase_cli(18, "hybrid path under NR_MESH_MXU=1 (AccPathTracer, "
                        "ico_5120)", argv, HYBRID_MXU_KERNELS, width, height,
                        spp, depth, ICO_MEAN_BAND, _blob_lit)
@@ -1631,8 +1877,10 @@ def _linear(px):
 
 
 def _blocks8(px):
-    h, w = px.shape[:2]
-    return px.reshape(h // 8, 8, w // 8, 8, 3).mean(axis=(1, 3)).reshape(-1)
+    """Means of the whole 8x8 blocks (a ragged right or top edge dropped)."""
+    h, w = (n - n % 8 for n in px.shape[:2])
+    return px[:h, :w].reshape(h // 8, 8, w // 8, 8, 3).mean(
+        axis=(1, 3)).reshape(-1)
 
 
 def phase_mlt_cornell(width=512, height=512, chains=1024, mutations=256,
@@ -1688,7 +1936,8 @@ def phase_mlt_mesh(width=128, height=128, chains=1024, mutations=256,
                          mutations, out, objs=(BLOB,))
         warm = _mlt_argv(MESH_SCENE, width, height, depth, chains, 2, out,
                          objs=(BLOB,))
-        with _mxu_switch(mxu == "1"), _held_sweeps(chains, {}) as held:
+        with _env("NR_MESH_MXU", "1" if mxu == "1" else None), \
+                _held_sweeps(chains, {}) as held:
             st = phase_cli(20, f"MLT mesh scene ({kernel}), {chains} chains "
                            f"x {mutations} mutations", argv, [kernel],
                            width, height, 1, depth, MLT_MESH_MEAN_BAND,
@@ -2247,14 +2496,20 @@ def phase_sharded_mesh(width=256, height=256) -> dict:
             ("megamesh", BLOB, 256, ["pt_bsdf_mesh_kernel"], ("samples",)),
             ("hybrid", ICO, 64, HYBRID_KERNELS, ("samples", "pixels"))):
         scene = _scene_of(MESH_SCENE, width, height, spp, 20, objs=(obj,))
-        reset_launch_counts()
-        one = AccPathTracerRenderer(device="cuda").render(scene)
-        one = one.pixels[..., :3]
-        one_launches = _launch_counts()
-        for shard in shards:
-            out, st = _sharded(f"phase 29: {route} {shard}", render_sharded,
-                               scene, ["cuda:0"] * 2, "AccPathTracer", shard,
-                               kernels=kernels)
+        # the hybrid half keeps its route under the old limit, here and on
+        # the ranks, which render the plan of this process
+        pin = _hybrid_pinned() if route == "hybrid" \
+            else contextlib.nullcontext()
+        with pin:
+            reset_launch_counts()
+            one = AccPathTracerRenderer(device="cuda").render(scene)
+            one = one.pixels[..., :3]
+            one_launches = _launch_counts()
+            runs_of = [(shard, *_sharded(
+                f"phase 29: {route} {shard}", render_sharded, scene,
+                ["cuda:0"] * 2, "AccPathTracer", shard, kernels=kernels))
+                for shard in shards]
+        for shard, out, st in runs_of:
             if out.route != route:
                 raise AssertionError(f"phase 29: took {out.route}, not "
                                      f"{route}")
@@ -2465,6 +2720,8 @@ def main(argv=None) -> int:
     paths = [main_path, phase_acc_path(), *phase_env_paths(),
              phase_mesh_path(), *phase_tex_paths(), phase_hybrid_path()]
     b2_pixels = get_server().screen.get_pixels()[:, :, :3].copy()
+    ico_81920 = large_fixtures()[1]
+    paths.append(phase_hybrid_path(ico_81920))   # phase 14's second row
     paths.append(phase_env_mesh_path())
     mxu_path = phase_hybrid_mxu_path(b2_pixels, prefix)
     paths += [mxu_path, phase_mlt_cornell()]
@@ -2486,6 +2743,8 @@ def main(argv=None) -> int:
         **phase_sharded_mesh()}
     sharded_resume = phase_sharded_resume()
     phase_sharded_cli()
+    large = phase_large_mesh(b2_pixels, ico_81920)
+    paths.append(large)
     launches = {}
     for run in paths:
         for name, n in run["launches"].items():
@@ -2506,6 +2765,9 @@ def main(argv=None) -> int:
               f"{run['mbounce_rays_per_s']:.1f} Mbounce-rays/s, peak "
               f"{run['peak_memory_bytes'] / 2**30:.2f} GiB on {gpu}")
     print(f"hybrid chunk: {breakdown['chunk_seconds']:.3f} s on {gpu}")
+    print(f"large mesh (phase 32): {large['route']} route at "
+          f"{large['blocks']} blocks, render {large['render_seconds']:.4f} s"
+          f"; the phase {large['phase_seconds']:.1f} s on {gpu}")
     for run in progressive:
         t = {k.split(".")[1]: v for k, v in run["timers"].items()}
         print(f"{run['path']}: passes "
@@ -2533,6 +2795,7 @@ def main(argv=None) -> int:
                         "bound_ms": st["bound_ms"],
                         "schedule": st["schedule"]}
     b2_shapes = {"hybrid_prefix": shape(pipe["sweep"]),
+                 "hybrid_prefix_640_blocks": shape(large["pipe"]["sweep"]),
                  **{f"mlt_{st['rays']}": shape(st)
                     for st in mlt_runs[0]["batches_vs_plain"]}}
     b4_shapes = {"hybrid_prefix": shape(mxu_path["prefix_vs_plain"]),
@@ -2550,6 +2813,10 @@ def main(argv=None) -> int:
         "bound_ms": st["bound_ms"], "bound_by": st["bound_by"],
         "library_ms": None, "shape": st["shape"],
         "sharded_launches": sharded_launches.get(name, 0),
+        **({"large_mesh": {k: large["b1e"][k] for k in (
+            "blocks", "launch_shape", "launch_ms", "band_pixels",
+            "kernel_ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err",
+            "schedule")}} if name == "pt_bsdf_mesh_kernel" else {}),
         **({"progressive_pass": {
             k: held[k] for k in ("kernel_ms", "plain_ms", "bound_ms",
                                  "bound_by", "max_abs_err", "shape")}}
@@ -2585,8 +2852,9 @@ def main(argv=None) -> int:
             "source": stream_compact.KERNEL_SOURCE,
             "replaces": stream_compact.REPLACES[name],
             "launches": launches.get(name, 0),
-            "max_abs_err": float(max(compactor[f"{key}_err"],
-                                     pipe[f"{key}_max_word_err"])),
+            "max_abs_err": float(max(
+                compactor[f"{key}_err"], pipe[f"{key}_max_word_err"],
+                large["pipe"][f"{key}_max_word_err"])),
             "ms": st[f"{key}_ms"], "plain_ms": st[f"{key}_plain_ms"],
             "bound_ms": st[f"{key}_bound_ms"], "bound_by": "bytes",
             "library_ms": st.get(f"{key}_library_ms"),

@@ -15,19 +15,23 @@ civilizwa/nrenderer):
     feeds the diffuse lobes and `map_Ks` the specular lobes; `map_bump` is
     stored but not shaded.  A missing `.mtl` is skipped.
 
-Plain triangulated files (no `mtllib`, `usemtl`, `o` or `g`) take a
-vectorised scan (`_scan_plain`) that builds the Scene the JAX package's
-native C++ scan builds (`nrenderer_tpu/io/obj.py:119-172`): one mesh that
-keeps the file's whole `v` pool, where the line parser compacts the pool
-per mesh.  All buffers land in the same Scene structures the `.scn` parser
-fills, so the two importers compose."""
+Plain triangulated files (no `mtllib`, `usemtl`, `o` or `g`) take the
+host library's scan (`native.obj_scan`, the C++ scan of the JAX package's
+native route, `nrenderer_tpu/io/obj.py:119-172`), or under NR_NO_NATIVE=1
+its numpy version `_scan_plain`, and build one mesh that keeps the file's
+whole `v` pool, where the line parser compacts the pool per mesh.  Both
+scans round each coordinate once, as `strtof` does.  All buffers land in
+the same Scene structures the `.scn` parser fills, so the two importers
+compose."""
 from __future__ import annotations
 
 import os
+from decimal import Decimal
 from typing import Dict, List, Optional
 
 import numpy as np
 
+from .. import native
 from ..scene.model import (
     Material, Mesh, Model, Node, NodeType, Property, PropertyType, Scene,
     Texture,
@@ -119,25 +123,58 @@ def _parse_mtl(scene: Scene, path: str, mtl_map: Dict[str, int]) -> None:
                 _load_map(scene, path, parts[-1], current, "bumpMap")
 
 
+def _needs_line_parser(data: bytes) -> bool:
+    """Whether a file has the directives the plain route refuses
+    (`nrenderer_tpu/io/obj.py:130-140`), matched the same way: anywhere
+    in the file."""
+    probe = b"\n" + data
+    return (b"usemtl" in probe or b"mtllib" in probe or b"\no " in probe
+            or b"\ng " in probe)
+
+
+# float32's largest finite value plus half its last step: the point at
+# which rounding to nearest overflows to infinity
+_F32_OVERFLOW = float(np.finfo(np.float32).max) + 2.0 ** 103
+
+
+def _float32(tokens: List[str]) -> np.ndarray:
+    """Decimal strings rounded once to float32, as `strtof` rounds them.
+    Rounding through float64 rounds twice, and goes wrong where the
+    float64 value lands exactly on a point halfway between two float32
+    values that the decimal is not on: there the decimal decides.
+    Raises ValueError on a token `float` refuses."""
+    wide = np.array([float(t) for t in tokens], np.float64)
+    with np.errstate(over="ignore", invalid="ignore"):
+        near = wide.astype(np.float32)
+        # the float32 on wide's other side of near, and the point halfway
+        other = np.nextafter(near, np.where(wide > near, np.float32(np.inf),
+                                            np.float32(-np.inf)))
+        half = (near.astype(np.float64) + other.astype(np.float64)) * 0.5
+    half = np.where(np.isinf(near) & np.isfinite(wide),
+                    np.copysign(_F32_OVERFLOW, wide), half)
+    for i in np.flatnonzero(wide == half):
+        exact, mid = Decimal(tokens[i]), Decimal(float(half[i]))
+        if exact != mid:   # on the midpoint the tie goes to even, as in near
+            lo, hi = sorted((near[i], other[i]))
+            near[i] = hi if exact > mid else lo
+    return near
+
+
 def _scan_plain(path: str):
-    """The `v`/`vt`/`vn`/`f` records of a plain OBJ file, by the native
-    scanner's rules (`native/nrnative.cpp` `nr_obj_parse`): a record is
-    keyed by its first two characters (`v `, `vt`, `vn`, `f `); a face
-    must have exactly three corners.  Returns (positions (V, 3), uvs
-    (T, 2), normals (N, 3) float32, and the (F, 3) int64 face position,
-    uv and normal indices, 1-based as in the file, 0 = absent), or None
-    when the file has directives that need the line parser or a face that
-    is not a triangle."""
+    """The numpy version of `native.obj_scan` (`nrnative.cpp`
+    `nr_obj_parse`) for a plain OBJ file: a record is keyed by its first
+    two characters (`v `, `vt`, `vn`, `f `); a face must have exactly
+    three corners; each coordinate is rounded once to float32.  Returns
+    (positions (V, 3), uvs (T, 2), normals (N, 3) float32, and the (F, 3)
+    int64 face position, uv and normal indices, 1-based as in the file,
+    0 = absent), or None when the file has directives that need the line
+    parser, no face, or a record that does not parse."""
     try:
         with open(path, "rb") as f:
             data = f.read()
     except OSError:
         return None
-    # the directives the native route refuses (`nrenderer_tpu/io/obj.py:
-    # 130-140`), matched the same way: anywhere in the file
-    probe = b"\n" + data
-    if (b"usemtl" in probe or b"mtllib" in probe or b"\no " in probe
-            or b"\ng " in probe):
+    if _needs_line_parser(data):
         return None
     v, vt, vn, faces = [], [], [], []
     for line in data.decode("utf-8", errors="replace").splitlines():
@@ -157,9 +194,10 @@ def _scan_plain(path: str):
         return None
 
     def floats(rows, n):
+        if any(len(r) != n for r in rows):
+            return None
         try:
-            return np.asarray([[float(x) for x in r] for r in rows],
-                              np.float32).reshape(-1, n)
+            return _float32([x for r in rows for x in r]).reshape(-1, n)
         except ValueError:
             return None
 
@@ -180,12 +218,30 @@ def _scan_plain(path: str):
     return pos, uvs, nrm, fidx[:, :, 0], fidx[:, :, 1], fidx[:, :, 2]
 
 
+def scan_plain_file(path: str):
+    """The records of a plain triangulated file (`_scan_plain`'s result),
+    read by the host library, or by `_scan_plain` under NR_NO_NATIVE=1;
+    None when the file needs the line parser."""
+    if native.disabled():
+        return _scan_plain(path)
+    try:
+        with open(path, "rb") as f:
+            if _needs_line_parser(f.read()):
+                return None
+    except OSError:
+        return None
+    scanned = native.obj_scan(path)
+    if scanned is None or scanned[3].shape[0] == 0:
+        return None
+    return scanned
+
+
 def _load_obj_plain(path: str, scene: Scene,
                     material: Optional[int]) -> Optional[Scene]:
     """Plain triangulated files: one mesh over the file's whole `v` pool,
     the Scene of the JAX package's native route.  Returns None to fall
     back to the line parser."""
-    scanned = _scan_plain(path)
+    scanned = scan_plain_file(path)
     if scanned is None:
         return None
     v, vt, vn, fv, ft, fn = scanned

@@ -5,8 +5,10 @@ the acc_path_tracing BVH (`acc_path_tracing/include/BVH.hpp:18-223`):
 
   - `build_bvh`: midpoint-median object split on the max-extent axis of the
     centroid bounds, stable sort, 1-primitive leaves, flattened in
-    depth-first preorder with escape indices.  The same arrays as the JAX
-    package's numpy builder and its native C++ one.
+    depth-first preorder with escape indices: the host library's C++
+    builder (`native/nrnative.cpp`), or its numpy version here with
+    `use_native=False` or under NR_NO_NATIVE=1.  The same arrays as the
+    JAX package's numpy builder and its native one.
   - `pack_blocked_triangles`: the valid triangles in BVH-preorder leaf
     order, chunked into blocks of `block` (128), with per-block and
     per-sub-block AABBs, per-octant front-to-back block orders, the UV
@@ -25,18 +27,24 @@ from typing import NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from .. import native
 from .soa import V3
 
 
-def build_bvh(bb_min: np.ndarray, bb_max: np.ndarray
+def build_bvh(bb_min: np.ndarray, bb_max: np.ndarray, use_native: bool = True
               ) -> Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
     """Build from per-primitive AABBs; returns flat (bb_min, bb_max, skip,
     prim) numpy arrays in depth-first preorder (`prim` -1 at internal
-    nodes; `skip` the node after the subtree)."""
+    nodes; `skip` the node after the subtree).  `use_native`: the host
+    library's builder (unless NR_NO_NATIVE=1), else the numpy version
+    below, its plain version."""
     n = bb_min.shape[0]
     if n == 0:
         return (np.zeros((1, 3), np.float32), np.zeros((1, 3), np.float32),
                 np.ones((1,), np.int32), np.full((1,), -1, np.int32))
+    if use_native and not native.disabled():
+        return native.build_bvh(np.asarray(bb_min, np.float32),
+                                np.asarray(bb_max, np.float32))
     centroid = (bb_min + bb_max) * 0.5
 
     out_min, out_max, out_skip, out_prim = [], [], [], []

@@ -12,7 +12,9 @@ route on the same device, printing one line per path:
 - AccPathTracer on `resource/pt_glass_box.scn`;
 - MetropolisLightTransport on `resource/cornell_box.scn`, chain-sharded;
 - the mesh routes: AccPathTracer on `resource/mesh_box.scn` with
-  `resource/obj/blob_960.obj` (megamesh) and `ico_5120.obj` (hybrid).
+  `resource/obj/blob_960.obj` (megamesh) and `ico_5120.obj` (the hybrid
+  route, which the GPU's threshold would not pick for it: the line pins
+  the CPU's `acc_pt.MEGAMESH_MAX_TRIS`).
 
 Pixel bands must equal the one-device film's rows bit for bit; sample and
 chain sharding must agree within RTOL (the final sum's order is all that
@@ -21,6 +23,7 @@ for are not there (no GPU, or fewer than N)."""
 from __future__ import annotations
 
 import argparse
+import contextlib
 import pathlib
 import sys
 import time
@@ -64,20 +67,23 @@ def run(n: int, device_type: str = "cuda", shard: str = "samples") -> bool:
     from ..parallel.group import make_devices
     from ..parallel.mesh import render_sharded
     from ..parallel.mlt import render_mlt_sharded
+    from ..renderers import acc_pt
     devices = make_devices(n, device_type)
     mlt_kw = dict(chains=64 * n, mutations=16, n_init=512)
+    # (label, renderer, scene, the megamesh limit pinned for the path)
     paths = [
-        ("SPT", "SimplePathTracer", _scene("cornell_box.scn")),
-        ("AccPT", "AccPathTracer", _scene("pt_glass_box.scn")),
-        ("MLT", "MetropolisLightTransport", _scene("cornell_box.scn")),
+        ("SPT", "SimplePathTracer", _scene("cornell_box.scn"), None),
+        ("AccPT", "AccPathTracer", _scene("pt_glass_box.scn"), None),
+        ("MLT", "MetropolisLightTransport", _scene("cornell_box.scn"), None),
         # the megamesh route shards passes of 32 spp
         ("AccPT mesh blob_960", "AccPathTracer",
-         _scene("mesh_box.scn", "blob_960.obj", spp=32 * n)),
+         _scene("mesh_box.scn", "blob_960.obj", spp=32 * n), None),
         ("AccPT mesh ico_5120", "AccPathTracer",
-         _scene("mesh_box.scn", "ico_5120.obj", spp=4)),
+         _scene("mesh_box.scn", "ico_5120.obj", spp=4),
+         acc_pt.MEGAMESH_MAX_TRIS),
     ]
     ok = True
-    for label, renderer, scene in paths:
+    for label, renderer, scene, limit in paths:
         t0 = time.perf_counter()
         mlt = renderer == "MetropolisLightTransport"
         if mlt:
@@ -85,8 +91,10 @@ def run(n: int, device_type: str = "cuda", shard: str = "samples") -> bool:
             want = _one_device(scene, renderer, device_type, **mlt_kw)
             mode = "chains"
         else:
-            out = render_sharded(scene, devices, renderer, shard)
-            want = _one_device(scene, renderer, device_type)
+            with (contextlib.nullcontext() if limit is None else
+                  acc_pt.pinned_megamesh_max_tris(limit)):
+                out = render_sharded(scene, devices, renderer, shard)
+                want = _one_device(scene, renderer, device_type)
             mode = shard
         got = out.image
         err = float(np.abs(got - want).max())

@@ -21,7 +21,8 @@ seed `seed * 100003 + step` for the megamesh route, the checkpointed
 megakernel and SimplePathTracer's progressive route; chunks of samples for
 the hybrid route when it renders in passes.  AccPathTracer picks its route
 by the one-device rules (`renderers/acc_pt.py`), in place of JAX's
-`n_tri > 64` switch.
+`n_tri > 64` switch; the launching process plans the route and hands its
+plan to the ranks, which render it whatever their own rules would pick.
 
 Every random number comes from the counter-based hash keyed by the global
 pixel, sample and seed, so a rank that renders a global range draws what a
@@ -122,7 +123,7 @@ def plan_route(scene, renderer: str, resumable: bool, device_type: str,
     n_tri = int(np.asarray(arrays.tri_valid).sum())
     acc_type = int(getattr(ro, "acc_type", 1))
     if acc_pt.accelerates(acc_type, n_tri):
-        if ss.ambient_type == 1 or n_tri > acc_pt.MEGAMESH_MAX_TRIS:
+        if acc_pt.takes_hybrid(n_tri, ss.ambient_type == 1, device_type):
             chunk = pick_chunk(w, h, spp, budget_rays=acc_pt.
                                HYBRID_BUDGET_RAYS[device_type])
             n_steps = spp // chunk
@@ -139,8 +140,9 @@ def plan_route(scene, renderer: str, resumable: bool, device_type: str,
 
 
 def make_route(scene, renderer: str, resumable: bool, device,
-               seed: int) -> Route:
-    """The route `plan_route` names, with its tables on `device`."""
+               seed: int, plan: Optional[Plan] = None) -> Route:
+    """The route `plan` names (by default `plan_route`'s), with its tables
+    on `device`."""
     from ..ops.bvh import build_mesh_accel
     from ..ops.camera import make_camera
     from ..ops.mesh_cuda import make_mesh_tables
@@ -154,7 +156,8 @@ def make_route(scene, renderer: str, resumable: bool, device,
     from ..server.checkpoint import camera_key
     dev = torch.device(device)
     arrays, ss = _prep(scene)
-    plan = plan_route(scene, renderer, resumable, dev.type, arrays, ss)
+    if plan is None:
+        plan = plan_route(scene, renderer, resumable, dev.type, arrays, ss)
     ro = scene.render_option
     w, h, depth = ro.width, ro.height, ro.depth
     cam = make_camera(scene.camera, device=dev)
@@ -308,11 +311,13 @@ def _sharded_pass(rank: Rank, route: Route, shard: str, u0: int, n: int,
     return film if rank.rank == 0 else None
 
 
-def _render_rank(rank: Rank, scene, renderer: str, shard: str, seed: int):
-    """A one-shot sharded render on one rank (see the module doc)."""
+def _render_rank(rank: Rank, scene, renderer: str, shard: str, seed: int,
+                 plan: Optional[Plan] = None):
+    """A one-shot sharded render on one rank (see the module doc), on the
+    launching process's `plan`."""
     t0 = time.perf_counter()
     reset_launch_counts()
-    route = make_route(scene, renderer, False, rank.device, seed)
+    route = make_route(scene, renderer, False, rank.device, seed, plan)
     ro = scene.render_option
     seconds = {}
     film = _sharded_pass(rank, route, shard, 0, route.plan.n_units,
@@ -356,7 +361,7 @@ def render_sharded(scene, devices: Sequence, renderer: str =
     devs = check_devices(devices)
     plan = plan_route(scene, renderer, False, devs[0].type)
     check_split(plan, shard, len(devs), scene.render_option.height)
-    return launch(_render_rank, devs, scene, renderer, shard, seed,
+    return launch(_render_rank, devs, scene, renderer, shard, seed, plan,
                   timeout=timeout, threads=threads)
 
 
@@ -389,14 +394,15 @@ def pass_count(plan: Plan, shard: str, world: int) -> int:
 
 
 def _resumable_rank(rank: Rank, scene, renderer: str, shard: str, seed: int,
-                    checkpoint_path: Optional[str], pass_limit: Optional[int]):
+                    checkpoint_path: Optional[str], pass_limit: Optional[int],
+                    plan: Plan):
     """The resumable sharded render on one rank (see
-    `render_multichip_resumable`)."""
+    `render_multichip_resumable`), on the launching process's `plan`."""
     from ..server.checkpoint import (
         load_checkpoint, render_fingerprint, save_checkpoint)
     t0 = time.perf_counter()
     reset_launch_counts()
-    route = make_route(scene, renderer, True, rank.device, seed)
+    route = make_route(scene, renderer, True, rank.device, seed, plan)
     ro = scene.render_option
     w, h, spp = ro.width, ro.height, ro.samples_per_pixel
     plan = route.plan
@@ -472,5 +478,5 @@ def render_multichip_resumable(
             on_preview(spp_done, img)
 
     return launch(_resumable_rank, devs, scene, renderer, shard, seed,
-                  checkpoint_path, pass_limit, timeout=timeout,
+                  checkpoint_path, pass_limit, plan, timeout=timeout,
                   threads=threads, on_message=on_message)

@@ -17,11 +17,16 @@ plain torch version on `device="cpu"`.  A scene without primitives runs
 the megakernel as well (the CUDA kernel handles it; the JAX package sends
 it to its XLA wavefront).
 
-An accelerated pool of at most `MEGAMESH_MAX_TRIS` triangles without an
-env map takes the megamesh route (`acc_pt.py:297-341`): the pool is
-packed into BVH-preorder blocks (`ops/bvh.build_mesh_accel`) and the
-kernel's mesh form runs the blocked sweep inside its bounce loop, in
-passes of `pcall` in (32, 16, 8, 4, 2, 1) samples with Screen previews and
+An accelerated pool of at most `megamesh_max_tris(device)` triangles
+without an env map takes the megamesh route (`acc_pt.py:297-341`): on the
+CPU `MEGAMESH_MAX_TRIS` (1024, the JAX package's figure: the plain mesh
+form is the CPU's slow path), on the card `MEGAMESH_MAX_TRIS_CUDA`
+(20,480, the largest measured pool at which the megamesh route beat the
+hybrid route on an H100: PERF.md §5's crossover; the JAX package's route
+too depends on its backend, `acc_pt.py:297-303`).  The pool is packed
+into BVH-preorder blocks (`ops/bvh.build_mesh_accel`) and the kernel's
+mesh form runs the blocked sweep inside its bounce loop, in passes of
+`pcall` in (32, 16, 8, 4, 2, 1) samples with Screen previews and
 `--checkpoint`.  Textures are dropped when the pool carries no UVs.
 
 Larger pools and env-map mesh scenes take the hybrid route
@@ -48,6 +53,7 @@ pass; an interrupted render resumes at the next pass
 (`server/checkpoint.py`)."""
 from __future__ import annotations
 
+import contextlib
 from typing import Optional
 
 import numpy as np
@@ -79,7 +85,12 @@ from ._wavefront import (
 from .simple_pt import pick_chunk
 
 BVH_THRESHOLD = 64
-MEGAMESH_MAX_TRIS = 1024  # the megamesh route's pools: in-kernel sweep
+MEGAMESH_MAX_TRIS = 1024  # the megamesh route's pools on the CPU
+# and on the card: the largest measured pool at which the megamesh route's
+# median CLI wall beat the hybrid route's on an H100 (500x500, 256 spp,
+# depth 20: at 20,480 faces 1.241 s against 2.864 s; at 81,920 faces
+# 4.153 s against 3.836 s; PERF.md §5, `tools/torch_ab.py --crossover`)
+MEGAMESH_MAX_TRIS_CUDA = 20480
 ACC_TYPE0_MAX_TRIS = MAX_TRIS  # acc_type=0 (brute force) refused past this
 STAGED_MIN_DEPTH = 12  # the hybrid route stages its wavefront from here
 HYBRID_BUDGET_RAYS = {"cuda": 1 << 24, "cpu": 1 << 21}  # rays per chunk
@@ -99,6 +110,33 @@ def accelerates(acc_type: int, n_tri: int) -> bool:
     if acc_type == 1:
         return n_tri > BVH_THRESHOLD
     return n_tri > 0
+
+
+def megamesh_max_tris(device_type: str) -> int:
+    """The largest accelerated pool the megamesh route takes on a device
+    of this type ("cuda" or "cpu")."""
+    return MEGAMESH_MAX_TRIS_CUDA if device_type == "cuda" \
+        else MEGAMESH_MAX_TRIS
+
+
+def takes_hybrid(n_tri: int, env: bool, device_type: str) -> bool:
+    """Whether an accelerated pool of `n_tri` triangles takes the hybrid
+    route (else the megamesh route): under an env map, or past the
+    device's `megamesh_max_tris`."""
+    return env or n_tri > megamesh_max_tris(device_type)
+
+
+@contextlib.contextmanager
+def pinned_megamesh_max_tris(limit: int):
+    """Both devices' megamesh limit set to `limit` for the duration: a
+    route forced for a measurement (0: the hybrid route on any pool)."""
+    global MEGAMESH_MAX_TRIS, MEGAMESH_MAX_TRIS_CUDA
+    saved = MEGAMESH_MAX_TRIS, MEGAMESH_MAX_TRIS_CUDA
+    MEGAMESH_MAX_TRIS = MEGAMESH_MAX_TRIS_CUDA = limit
+    try:
+        yield
+    finally:
+        MEGAMESH_MAX_TRIS, MEGAMESH_MAX_TRIS_CUDA = saved
 
 
 def checkpoint_pass_spp(spp: int) -> int:
@@ -266,7 +304,7 @@ class AccPathTracerRenderer(RenderComponent):
         env_map = arrays.env_map if use_env else None
         textures = arrays.textures if ss.tri_uv else None
         if accelerates(acc_type, n_tri):
-            if use_env or n_tri > MEGAMESH_MAX_TRIS:
+            if takes_hybrid(n_tri, use_env, dev.type):
                 img = self._render_hybrid(arrays, ss, cam, dev, timer, w, h,
                                           spp, depth, env_map, textures)
             else:
@@ -275,6 +313,10 @@ class AccPathTracerRenderer(RenderComponent):
         else:
             img = self._render_megakernel(ss, cam, dev, timer, w, h, spp,
                                           depth, env_map, textures)
+        for name in ("scene-prep", "bvh-build"):
+            if timer.get(name).count:
+                GLOBAL_TIMER.add(f"AccPathTracer.{name}",
+                                 timer.get(name).total_s)
         get_server().logger.log("phases: " + timer.summary())
         get_server().logger.log("Done...")
         rgba = np.concatenate([img, np.ones((h, w, 1), np.float32)], axis=2)

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Write the mesh and texture fixtures of the renderer's tests and smoke runs.
 
-    python3 tools/make_mesh_fixtures.py [--out-dir DIR]
+    python3 tools/make_mesh_fixtures.py [--out-dir DIR] [--large]
 
 Deterministic (numpy arithmetic and fixed-point text, a PNG with stored
 deflate blocks) and needs nothing outside the repository.  Writes, under
@@ -27,10 +27,17 @@ deflate blocks) and needs nothing outside the repository.  Writes, under
                       textured triangles)
   tex_grid.scn        the bench row's area light in the same frame
 
+With `--large` it writes instead, under `build/mesh_fixtures/` (or DIR),
+the subdivision-5 and -6 icospheres of the same radius and place,
+`ico_20480.obj` and `ico_81920.obj` (160 and 640 blocks of 128; not
+committed: `large_icosphere` writes them at run time where they are
+needed).
+
 Both packages parse every file the same way (`tests/test_torch_obj.py`)."""
 from __future__ import annotations
 
 import argparse
+import os
 import pathlib
 import struct
 import zlib
@@ -225,6 +232,45 @@ def icosphere(level: int = 4, radius: float = 120.0):
     return verts, faces, centre
 
 
+def icosphere_name(level: int) -> str:
+    return f"ico_{20 * 4 ** level}.obj"
+
+
+def write_icosphere(obj_dir: pathlib.Path, level: int) -> pathlib.Path:
+    """Write `icosphere(level)` as `obj_dir/ico_<faces>.obj`; returns the
+    path.  The file appears whole: it is written under a pid-tagged name
+    and then renamed, so processes that write it at once never read a
+    partial one."""
+    verts, faces, _ = icosphere(level)
+    p = obj_dir / icosphere_name(level)
+    tmp = p.with_name(f"{p.name}.{os.getpid()}.tmp")
+    write_obj(tmp, verts, faces, header=(
+        f"{p.stem}: a subdivision-{level} icosphere, {len(faces)} faces, "
+        "radius",
+        "120, resting on the Cornell floor (y = -278).",
+        "Written by tools/make_mesh_fixtures.py."))
+    os.replace(tmp, p)
+    return p
+
+
+# The large icospheres of the mesh routes' crossover and the large-mesh
+# smoke phase: 160 and 640 blocks of 128, too large to commit (the
+# 81,920-face file is 3 MB of text), so written at run time into build/
+LARGE_LEVELS = (5, 6)
+LARGE_DIR = ROOT / "build" / "mesh_fixtures"
+
+
+def large_icosphere(level: int, obj_dir: pathlib.Path = LARGE_DIR
+                    ) -> pathlib.Path:
+    """The path of `icosphere(level)`'s OBJ under `obj_dir`, written there
+    first if it is not there yet."""
+    p = obj_dir / icosphere_name(level)
+    if not p.exists():
+        obj_dir.mkdir(parents=True, exist_ok=True)
+        write_icosphere(obj_dir, level)
+    return p
+
+
 def grid_quad(nsub: int):
     """The bench row's 2x2 quad split into nsub x nsub cells (2 faces
     each), turned half a turn about y to sit 4 units in front of the
@@ -290,13 +336,7 @@ def write_all(out_dir: pathlib.Path) -> list:
     p.write_text(MESH_BOX_SCN)
     written.append(p)
 
-    verts, faces, centre = icosphere()
-    p = obj / "ico_5120.obj"
-    write_obj(p, verts, faces, header=(
-        f"ico_5120: a subdivision-4 icosphere, {len(faces)} faces, radius",
-        "120, resting on the Cornell floor (y = -278).",
-        "Written by tools/make_mesh_fixtures.py."))
-    written.append(p)
+    written.append(write_icosphere(obj, 4))
 
     p = obj / "tex_grid.png"
     p.write_bytes(png_bytes(grid_texture()))
@@ -328,10 +368,20 @@ def write_all(out_dir: pathlib.Path) -> list:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--out-dir", default=str(ROOT / "resource"),
-                    help="where to write (default: resource/)")
+    ap.add_argument("--out-dir", default=None,
+                    help="where to write (default: resource/, with "
+                         "--large build/mesh_fixtures/)")
+    ap.add_argument("--large", action="store_true",
+                    help="write only the large icospheres (20,480 and "
+                         "81,920 faces), which are not committed")
     args = ap.parse_args(argv)
-    for p in write_all(pathlib.Path(args.out_dir)):
+    if args.large:
+        out = pathlib.Path(args.out_dir) if args.out_dir else LARGE_DIR
+        out.mkdir(parents=True, exist_ok=True)
+        written = [write_icosphere(out, level) for level in LARGE_LEVELS]
+    else:
+        written = write_all(pathlib.Path(args.out_dir or ROOT / "resource"))
+    for p in written:
         print(p)
     return 0
 

@@ -11,6 +11,7 @@
     python3 tools/torch_ab.py --mxu build/parent        # the MXU sweep
     python3 tools/torch_ab.py --mxu --ray-batch 2,6 --min-blocks 4,6 \
         build/parent
+    python3 tools/torch_ab.py --crossover  # this checkout alone
 
 Runs the two checkouts in turns (parent, change, change, parent), each in a
 fresh process that builds its own kernel library and then renders, through
@@ -36,8 +37,8 @@ K,...` their launch bound's blocks an SM (`kDenseMinBlocks` in
 
 With `--hybrid` it renders instead the two hybrid-route paths of
 phases 14-15 (`ico_5120.obj` on `mesh_box.scn`, 500x500, 256 spp, depth
-20; `blob_960.obj` under `env_sky.png`, 512x512, 256 spp, depth 8) the
-same way, then runs phase 16's breakdown of one hybrid chunk, and first
+20, with the megamesh limit at 1024 as in phase 14; `blob_960.obj` under
+`env_sky.png`, 512x512, 256 spp, depth 8) the same way, then runs phase 16's breakdown of one hybrid chunk, and first
 phase 12 (the streaming compactor against its plain versions at 2^24
 lanes: kernel, plain, library and bound times of the stage and mesh
 cases) with the compactor kernels' `nvcc -Xptxas -v` lines (registers,
@@ -53,9 +54,11 @@ between CUDA events); `mesh_sweep_kernel` (B2) on phase 9's rays at
 `ico_5120.obj` at 2^20 rays and at MLT's batch sizes, 2048 and 36,864
 rays, in both block orders; phase 10's megamesh render (`blob_960.obj`,
 500x500, 256 spp, depth 20, warm-up and three renders); and the
-megamesh/hybrid crossover: `blob_960.obj` and `ico_5120.obj` each
-rendered once on both routes (500x500, 256 spp, depth 20), the route
-forced by setting `acc_pt.MEGAMESH_MAX_TRIS` for that render.  With
+megamesh/hybrid crossover: `blob_960.obj` and `ico_5120.obj` each on
+both routes (500x500, 256 spp, depth 20; a warm-up and three renders), the
+route forced by setting every megamesh limit the checkout has
+(`acc_pt.MEGAMESH_MAX_TRIS`, and the card's `MEGAMESH_MAX_TRIS_CUDA` where
+it exists) for those renders.  With
 `--dense-min K,...` it then runs the `--mesh` measurements once more in a
 copy of this checkout for each K, with the warp sweep's dense-step
 threshold (`kDenseMin` in `csrc/mesh_sweep.cuh`) set to K.
@@ -77,6 +80,18 @@ the rays the MXU kernel tests against each triangle it loads
 `ops/mesh_mxu.py`) set to K, and with `--min-blocks K,...` for each K
 with its launch bound's blocks an SM (`kMinBlocks`) set to K.
 
+With `--crossover` (no second checkout) it measures the megamesh/hybrid
+crossover in this checkout alone, in one process: the host's mesh prep of
+`blob_960.obj`, `ico_5120.obj` and the 20,480- and 81,920-face icospheres
+(`chip_smoke.large_fixtures`) with the host library and with its numpy
+versions (`chip_smoke.mesh_prep_seconds`), then each of the four pools on
+both routes (500x500, 256 spp, depth 20; the route forced by the
+megamesh limits), a warm-up render and three timed ones each, with peak
+device memory; it prints each route's median CLI wall (argv to PNG, what
+decides the crossover) and render phase by size.  The megamesh route's
+render phase counts its passes after the first (7 of 8 at 256 spp), as the
+JAX renderer's does; the wall counts all of them and their previews.
+
 Prints one line per run and a final `AB` JSON line.  Imports nothing of
 JAX."""
 from __future__ import annotations
@@ -91,27 +106,42 @@ import sys
 COMMON = r'''
 import json, os, time, torch, chip_smoke as c
 from nrenderer_torch import cli
+from nrenderer_torch.renderers import acc_pt
 from nrenderer_torch.utils.timing import GLOBAL_TIMER
 c.phase_build()
 out = {}
+# the megamesh limits a checkout has (an older one lacks the card's own)
+LIMITS = [n for n in ("MEGAMESH_MAX_TRIS", "MEGAMESH_MAX_TRIS_CUDA")
+          if hasattr(acc_pt, n)]
 
 
-def renders(label, scene, renderer, size, spp, depth, env, objs=()):
+def renders(label, scene, renderer, size, spp, depth, env, objs=(),
+            limit=None):
     """A warm-up render, then three whose render phases and CLI walls are
-    kept under `label`."""
+    kept under `label`.  `limit`: every megamesh limit set to it for the
+    renders (1024 keeps ico_5120.obj on the hybrid route, 0 forces the
+    hybrid route, 1 << 30 the megamesh route)."""
     png = os.path.join(c.ROOT, "build", f"ab_{label}.png")
     os.makedirs(os.path.dirname(png), exist_ok=True)
     argv = c._cli_argv(scene, renderer, size, size, spp, depth, png,
                        env=env, objs=objs)
-    assert cli.main(argv) == 0
-    phases, walls = [], []
-    for _ in range(3):
-        g0 = GLOBAL_TIMER.get(f"{renderer}.render").total_s
-        t0 = time.perf_counter()
+    saved = [getattr(acc_pt, n) for n in LIMITS]
+    for n in LIMITS if limit is not None else ():
+        setattr(acc_pt, n, limit)
+    try:
         assert cli.main(argv) == 0
-        torch.cuda.synchronize()
-        walls.append(time.perf_counter() - t0)
-        phases.append(GLOBAL_TIMER.get(f"{renderer}.render").total_s - g0)
+        phases, walls = [], []
+        for _ in range(3):
+            g0 = GLOBAL_TIMER.get(f"{renderer}.render").total_s
+            t0 = time.perf_counter()
+            assert cli.main(argv) == 0
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            phases.append(GLOBAL_TIMER.get(f"{renderer}.render").total_s
+                          - g0)
+    finally:
+        for n, v in zip(LIMITS, saved):
+            setattr(acc_pt, n, v)
     out[label] = {"render_phase_s": phases, "cli_s": walls}
 '''
 
@@ -139,7 +169,7 @@ out["ptxas"] = {ln.split("'")[1]: " / ".join(
     for i, ln in enumerate(lines)
     if "Compiling entry function" in ln and "pack" in ln}
 renders("hybrid", c.MESH_SCENE, "AccPathTracer", 500, 256, 20, False,
-        (c.ICO,))
+        (c.ICO,), limit=1024)
 renders("env_mesh", c.MESH_SCENE, "AccPathTracer", 512, 256, 8, True,
         (c.BLOB,))
 out["chunk"] = c.phase_breakdown()
@@ -216,22 +246,32 @@ for n in (1 << 20, 36864, 2048):
 renders("megamesh", c.MESH_SCENE, "AccPathTracer", 500, 256, 20, False,
         (c.BLOB,))
 # the megamesh/hybrid crossover: each pool on both routes
-out["crossover_render_s"] = {}
 for obj in (c.BLOB, c.ICO):
     for route, limit in (("megamesh", 1 << 30), ("hybrid", 0)):
-        saved, acc_pt.MEGAMESH_MAX_TRIS = acc_pt.MEGAMESH_MAX_TRIS, limit
-        try:
-            png = os.path.join(c.ROOT, "build", f"ab_cross_{route}.png")
-            argv = c._cli_argv(c.MESH_SCENE, "AccPathTracer", 500, 500, 256,
-                               20, png, objs=(obj,))
-            g0 = GLOBAL_TIMER.get("AccPathTracer.render").total_s
-            assert cli.main(argv) == 0
-            torch.cuda.synchronize()
-            out["crossover_render_s"][
-                f"{os.path.basename(obj)}_{route}"] = (
-                GLOBAL_TIMER.get("AccPathTracer.render").total_s - g0)
-        finally:
-            acc_pt.MEGAMESH_MAX_TRIS = saved
+        renders(f"cross_{os.path.basename(obj)}_{route}", c.MESH_SCENE,
+                "AccPathTracer", 500, 256, 20, False, (obj,), limit=limit)
+print("RESULT", json.dumps(out))
+'''
+
+CROSSOVER = COMMON + r'''
+from nrenderer_torch.parallel.mesh import plan_route
+objs = [c.BLOB, c.ICO, *c.large_fixtures()]
+# the host's mesh prep with the host library and with the numpy versions
+out["mesh_prep_s"] = {os.path.basename(o): c.mesh_prep_seconds(o)
+                      for o in objs}
+for obj in objs:
+    name = os.path.splitext(os.path.basename(obj))[0]
+    for route, limit in (("megamesh", 1 << 30), ("hybrid", 0)):
+        with acc_pt.pinned_megamesh_max_tris(limit):
+            scene = c._scene_of(c.MESH_SCENE, 500, 500, 256, 20, (obj,))
+            assert plan_route(scene, "AccPathTracer", False,
+                              "cuda").kind == route
+        torch.cuda.reset_peak_memory_stats()
+        renders(f"{name}_{route}", c.MESH_SCENE, "AccPathTracer", 500, 256,
+                20, False, (obj,), limit=limit)
+        out[f"{name}_{route}"]["peak_bytes"] = \
+            torch.cuda.max_memory_allocated()
+out["gpu"] = c.gpu_name_power()
 print("RESULT", json.dumps(out))
 '''
 
@@ -273,10 +313,10 @@ renders("megamesh", c.MESH_SCENE, "AccPathTracer", 500, 256, 20, False,
         (c.BLOB,))
 os.environ.pop("NR_MESH_MXU", None)
 renders("hybrid_b2", c.MESH_SCENE, "AccPathTracer", 500, 256, 20, False,
-        (c.ICO,))
+        (c.ICO,), limit=1024)
 os.environ["NR_MESH_MXU"] = "1"
 renders("hybrid_b4", c.MESH_SCENE, "AccPathTracer", 500, 256, 20, False,
-        (c.ICO,))
+        (c.ICO,), limit=1024)
 print("RESULT", json.dumps(out))
 '''
 
@@ -370,7 +410,7 @@ def main(argv) -> int:
     args = argv[1:]
     while args and args[0].startswith("--"):
         flag = args.pop(0)
-        if flag in ("--hybrid", "--mesh", "--mxu"):
+        if flag in ("--hybrid", "--mesh", "--mxu", "--crossover"):
             mode = flag[2:]
         elif flag[2:].replace("-", "_") in THRESHOLDS and args:
             which = flag[2:].replace("-", "_")
@@ -385,13 +425,32 @@ def main(argv) -> int:
             args = []
     bad = any(mode != THRESHOLDS[which][0]
               for sw in sweeps for which in sw)
+    change = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    if mode == "crossover" and not args and not sweeps:
+        st = _run(change, CROSSOVER)
+        for name in sorted({k.rsplit("_", 1)[0] for k in st
+                            if k.endswith(("_megamesh", "_hybrid"))}):
+            med = {(r, key): sorted(st[f"{name}_{r}"][key])[1]
+                   for r in ("megamesh", "hybrid")
+                   for key in ("cli_s", "render_phase_s")}
+            wins = med["megamesh", "cli_s"] < med["hybrid", "cli_s"]
+            print(f"{name}: median CLI wall megamesh "
+                  f"{med['megamesh', 'cli_s']:.4f} s, hybrid "
+                  f"{med['hybrid', 'cli_s']:.4f} s (render phase "
+                  f"{med['megamesh', 'render_phase_s']:.4f}, "
+                  f"{med['hybrid', 'render_phase_s']:.4f} s): "
+                  f"{'megamesh' if wins else 'hybrid'} wins", flush=True)
+        print("CROSSOVER", json.dumps(st))
+        return 0
     if len(args) != 1 or bad or not os.path.isfile(
             os.path.join(args[0], "chip_smoke.py")):
         print(__doc__, file=sys.stderr)
         return 2
     code = {"analytic": CODE, "hybrid": HYBRID, "mesh": MESH,
-            "mxu": MXU}[mode]
-    change = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+            "mxu": MXU}.get(mode)
+    if code is None:
+        print(__doc__, file=sys.stderr)
+        return 2
     runs = []
     for who in ("parent", "change", "change", "parent"):
         st = _run(args[0] if who == "parent" else change, code)
