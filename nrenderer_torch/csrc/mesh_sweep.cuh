@@ -5,7 +5,7 @@
 // _sweep_kernel (its shared engine sweep_tile, :72-256).  Two callers
 // inline it: mesh_sweep_kernel (csrc/mesh_sweep.cu, the standalone sweep
 // behind nrenderer_torch/ops/mesh_cuda.sweep_mesh_full) and the mesh form of
-// the path-tracing kernel (csrc/pt_kernel.cu, pt_kernel<.., kMesh, ..>),
+// the path-tracing kernel (csrc/pt_kernel.cu, pt_mesh_kernel<kTex>),
 // which runs it in every bounce with the dense hit's t as the cap.
 //
 // The contract, in sweep_tile's float order (the plain torch version

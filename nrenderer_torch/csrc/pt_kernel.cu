@@ -4,18 +4,17 @@
 // its forms bsdf=False / bsdf=True, each without or with the env-map terms
 // (env_rows / env_exact), the mesh form (mesh=(n_blocks, b): the blocked
 // triangle sweep inline in the bounce loop) and the texture form (n_tex > 0,
-// mesh_uv: binned surface textures).  pt_dense_kernel<kBsdf, kRange> is
-// instantiated for the dense forms: pt_diffuse_kernel <false, ..>
-// (SimplePathTracer's main path) and pt_bsdf_kernel <true, ..>
-// (AccPathTracer on analytic scenes), each for the whole film and for a
-// range of pixels.  pt_kernel<kBsdf, kEnv, kTex> is instantiated six
-// times: pt_diffuse_env_kernel and pt_bsdf_env_kernel (kEnv), the dense
-// forms with kTex (pt_diffuse_tex_kernel, pt_bsdf_tex_kernel) and the env
-// forms with kTex (pt_diffuse_env_tex_kernel, pt_bsdf_env_tex_kernel);
+// mesh_uv: binned surface textures).  pt_dense_kernel<kBsdf, kEnv, kTex,
+// kRange> is instantiated for the eight forms without a mesh, each for the
+// whole film and for a range of pixels: pt_diffuse_kernel <false, false,
+// false> (SimplePathTracer's main path), pt_bsdf_kernel <true, false,
+// false> (AccPathTracer on analytic scenes), pt_diffuse_env_kernel and
+// pt_bsdf_env_kernel (kEnv), pt_diffuse_tex_kernel and pt_bsdf_tex_kernel
+// (kTex), pt_diffuse_env_tex_kernel and pt_bsdf_env_tex_kernel (both);
 // pt_mesh_kernel<kTex> twice: pt_bsdf_mesh_kernel (AccPathTracer's
-// megamesh route, 65 to 1024 triangles, no env map) and
-// pt_bsdf_mesh_tex_kernel.  The Python wrapper, its plain torch version and
-// the launch counters are in nrenderer_torch/ops/pt_cuda.py.
+// megamesh route, no env map) and pt_bsdf_mesh_tex_kernel.  The Python
+// wrapper, its plain torch version and the launch counters are in
+// nrenderer_torch/ops/pt_cuda.py.
 //
 // What it computes, per pixel and per sample: a jittered camera ray (thin
 // lens when lens_r > 0) from hash_uniform(pid, sample, draw 0..3, seed), then
@@ -32,15 +31,16 @@
 // lobe's values unchanged, so evaluating only that lobe is exact.  A path
 // that survives the depth cap sees the ambient constant.
 //
-// The env form: a path that misses everything at bounce 0 adds throughput *
-// the native-resolution texel of its direction; a later miss records its
-// throughput and direction (a path dies at its miss, so one record), and
-// after the loop one lookup in the mean-pooled 32x128 bin table adds
-// throughput * bin.  Both index with the Pallas kernel's polynomial
-// atan2/asin.  The Pallas kernel reads the bounce-0 texel from per-pixel
-// PxP windows gathered on the host because Mosaic cannot gather; here it is
-// a direct read of the map, the same texel whenever the window fits.  As
-// the Pallas kernel peels bounce 0, the env form runs it even at depth 0.
+// The env form: a path that misses everything at bounce 0 adds throughput * the
+// native-resolution texel of its direction; a later miss adds throughput * the
+// bin of its direction in the mean-pooled 32x128 bin table (the Pallas kernel
+// records the miss and looks the bin up after the bounce loop; a path dies at
+// its miss and its radiance is 0 until then, so looking up at the miss adds the
+// same float).  Both index with the Pallas kernel's polynomial atan2/asin.  The
+// Pallas kernel reads the bounce-0 texel from per-pixel PxP windows gathered on
+// the host because Mosaic cannot gather; here it is a direct read of the map,
+// the same texel whenever the window fits.  As the Pallas kernel peels bounce
+// 0, the env form runs it even at depth 0.
 //
 // The mesh form: the dense pass tests spheres and planes only (the wrapper
 // packs no triangles); then the warp-cooperative sweep nr_mesh::warp_sweep
@@ -68,28 +68,29 @@
 // same device functions there); against the JAX kernel on the CPU the last
 // ulp of the transcendentals differs.
 //
-// Design of the dense forms (pt_dense_kernel): one flat loop per thread
-// whose iteration is one bounce of whichever sample the thread is on; the
-// iteration that ends a path adds the sample into the pixel's sum and
-// starts the next sample (path regeneration), so the lanes of a warp stay
-// in the loop body together instead of idling at a bounce loop's exit
-// until the warp's longest path ends (on the Cornell box 35.7% of the
-// nested loop's lane slots were bounces, 89% of the flat loop's at launches
-// of 256 spp: pt_cuda.loop_slots).  The grid is persistent: as many blocks
-// as fit on the card at once, each thread taking its next pixel from a
-// counter.  The forms that keep the nested loop (pt_kernel, the env and
-// texture forms; pt_mesh_kernel): one thread per pixel, looping over its
-// samples and their bounces and stopping a path as soon as it dies (a dead
-// path changes nothing in the estimator, so stopping early is exact); in
-// the mesh forms a lane whose path has ended stays in the bounce loop with
-// no ray until the warp's last path ends, so the warp sweep keeps all 32
-// lanes.  Pixel ids follow the JAX kernel's numbering, pid = py * W + px
-// with py = 0 the bottom row, so both draw the same hash values.  The
-// scene is a small packed float32 table in device memory; every thread of
-// a warp reads the same address at the same time, so the reads are
-// broadcasts served from L1.  The env map and its bin table are read per
-// miss (at most two reads per sample).  The camera basis and t_min are
-// kernel arguments.
+// Design of the dense pool (pt_dense_kernel): one flat loop per thread whose
+// iteration is one bounce of whichever sample the thread is on; the iteration
+// that ends a path adds the sample into the pixel's sum and starts the next
+// sample (path regeneration), so the lanes of a warp stay in the loop body
+// together instead of idling at a bounce loop's exit until the warp's longest
+// path ends (on the Cornell box 35.7% of the nested loop's lane slots were
+// bounces, 89% of the flat loop's at launches of 256 spp: pt_cuda.loop_slots).
+// On short paths the lanes that end a path build the next camera ray while
+// others scatter, nearly every iteration: at 1.5 bounces a sample the env
+// forms ran 1.04-1.15x faster than a nested loop on an H100, the textured quad
+// (97% of a nested loop's slots useful already) 1.4x slower (PERF.md §6).  The
+// grid is persistent: as many blocks as fit on the card at once, each thread
+// taking its next pixel from a counter.  The mesh forms keep a nested loop
+// (pt_mesh_kernel): one thread per pixel, looping over its samples and their
+// bounces; a lane whose path has ended (a dead path changes nothing in the
+// estimator) stays in the bounce loop with no ray until the warp's last path
+// ends, so the warp sweep keeps all 32 lanes.  Pixel ids follow the JAX
+// kernel's numbering, pid = py * W + px with py = 0 the bottom row, so both
+// draw the same hash values.  The scene is a small packed float32 table in
+// device memory; every thread of a warp reads the same address at the same
+// time, so the reads are broadcasts served from L1.  The env map and its bin
+// table are read per miss (at most two reads per sample).  The camera basis
+// and t_min are kernel arguments.
 //
 // The film is a linear (W*H, 3) float32 SUM that each launch adds samples
 // [sp0, sp0 + n_spp) into IN PLACE, one sample after another per pixel: a
@@ -100,20 +101,19 @@
 // is the full film's rows bit for bit.  The wrapper scales by 1/spp and
 // applies the sqrt gamma.
 //
-// What bounds it on the H100: FP32 issue (about 16 primitive tests per
-// bounce for the Cornell box, plus the lobe's math), with the table's
-// loads beside it, and warp divergence: in the nested loop as paths die at
-// different bounces, in every form as lanes of a warp take different
-// lobes of the material switch or, in the flat loop, start a sample while
-// others scatter; memory traffic is one film read and write per pixel per
+// What bounds it on the H100: FP32 issue (about 16 primitive tests per bounce
+// for the Cornell box, plus the lobe's math), with the table's loads beside it,
+// and warp divergence: in the mesh forms' nested loop as paths die at different
+// bounces, in every form as lanes of a warp take different lobes of the
+// material switch or, in the flat loop, start a sample (or look up a texel)
+// while others scatter; memory traffic is one film read and write per pixel per
 // launch plus a few env texels per sample.
 // The mesh form adds per bounce a slab test per block and ~53 operations
 // per triangle of each entered block (the sweep's bound, mesh_sweep.cuh);
 // the warp sweep tests a block few lanes enter with the whole warp, so
 // lanes that enter different blocks no longer serialise 128 tests each.
 // The texture form adds one or two texel reads per hit.  Not done: the
-// flat loop in the env and texture forms (short launches, < 0.02 s a
-// render) and in the mesh forms (slower there: the warp sweep needs every
+// flat loop in the mesh forms (slower there: the warp sweep needs every
 // lane at each call); per-scene specialisation; sorting of rays by
 // material; FMA contraction (about 11% faster, but not bit for bit with
 // the plain version).
@@ -464,305 +464,12 @@ __device__ __forceinline__ int mesh_mat_row(const float mat, const int n_mat) {
   return ((float)mi == mat && mi >= 1 && mi < n_mat) ? mi : 0;
 }
 
-template <bool kBsdf, bool kEnv, bool kTex>
-__global__ void __launch_bounds__(128)
-pt_kernel(float* __restrict__ film, const float* __restrict__ scene,
-          const SceneCounts nc, const CamArgs cam, const int width,
-          const int pix0, const int pix_end, const int sp0, const int n_spp,
-          const int depth,
-          const uint32_t seed, const float* __restrict__ env_bin,
-          const float* __restrict__ env_map, const int env_h,
-          const int env_w, const nr_mesh::MeshArgs mesh,
-          const float* __restrict__ tex_tab, const int n_tex) {
-  const int pid = pix0 + blockIdx.x * blockDim.x + threadIdx.x;
-  if (pid >= pix_end) return;
-  const int py = pid / width;
-  const int px = pid - py * width;
-  const float pxf = (float)px;
-  const float pyf = (float)py;
-  const uint32_t upid = (uint32_t)pid;
-
-  const float* __restrict__ sph = scene;
-  const float* __restrict__ tri = sph + nc.n_sph * SPH_STRIDE;
-  const float* __restrict__ pln = tri + nc.n_tri * TRI_STRIDE;
-  const float* __restrict__ al = pln + nc.n_pln * PLN_STRIDE;
-  const float* __restrict__ mat = al + nc.n_al * AL_STRIDE;
-  const float* __restrict__ amb = mat + nc.n_mat * MAT_STRIDE;
-  const float amb_r = amb[0], amb_g = amb[1], amb_b = amb[2];
-  const float* __restrict__ uvtab = amb + 3;  // texture forms only
-  // the env form peels bounce 0, so it runs it even at depth 0
-  const int n_bounces = (kEnv && depth < 1) ? 1 : depth;
-
-  float fr = film[3 * pid + 0];
-  float fg = film[3 * pid + 1];
-  float fb = film[3 * pid + 2];
-
-  for (int k = 0; k < n_spp; ++k) {
-    const uint32_t sp = (uint32_t)(sp0 + k);
-    // camera ray: pixel jitter in [-1, 1] (UniformInSquare)
-    const float rx = hash_uniform(upid, sp, 0u, seed) * 2.0f - 1.0f;
-    const float ry = hash_uniform(upid, sp, 1u, seed) * 2.0f - 1.0f;
-    const float s = (pxf + rx) * cam.inv_w;
-    const float t = (pyf + ry) * cam.inv_h;
-    float ox = cam.pos[0], oy = cam.pos[1], oz = cam.pos[2];
-    if (cam.lens_r > 0.0f) {
-      const float lr = sqrtf(hash_uniform(upid, sp, 2u, seed)) * cam.lens_r;
-      const float phi = hash_uniform(upid, sp, 3u, seed) * TWO_PI;
-      const float du = lr * cosf(phi);
-      const float dv = lr * sinf(phi);
-      ox = cam.pos[0] + du * cam.u[0] + dv * cam.v[0];
-      oy = cam.pos[1] + du * cam.u[1] + dv * cam.v[1];
-      oz = cam.pos[2] + du * cam.u[2] + dv * cam.v[2];
-    }
-    float dx = cam.ll[0] + s * cam.hor[0] + t * cam.ver[0] - ox;
-    float dy = cam.ll[1] + s * cam.hor[1] + t * cam.ver[1] - oy;
-    float dz = cam.ll[2] + s * cam.hor[2] + t * cam.ver[2] - oz;
-    const float inv_len = rsqrtf(dx * dx + dy * dy + dz * dz);
-    dx *= inv_len;
-    dy *= inv_len;
-    dz *= inv_len;
-
-    float tr = 1.0f, tg = 1.0f, tb = 1.0f;
-    float rr = 0.0f, rg = 0.0f, rb = 0.0f;
-    bool alive = true;
-    // env form: throughput and direction at a miss after bounce 0
-    bool missed = false;
-    float mr = 0.0f, mg = 0.0f, mb = 0.0f;
-    float mdx = 0.0f, mdy = 0.0f, mdz = 1.0f;
-    for (int b = 0; b < n_bounces; ++b) {
-      const uint32_t bseed = seed + (uint32_t)b * 0x9E3779B1u;
-      const float u1 = hash_uniform(upid, sp, 4u, bseed);
-      const float u2 = hash_uniform(upid, sp, 5u, bseed);
-
-      // closest hit: spheres, triangles, planes; first strictly closer wins
-      float t_best = INFINITY, nx = 0.0f, ny = 0.0f, nz = 0.0f;
-      int m_best = 0;
-      int tri_best = -1;          // texture forms: the winning triangle
-      float bu = 0.0f, bv = 0.0f;  // and its barycentrics
-      for (int i = 0; i < nc.n_sph; ++i) {
-        const float* p = sph + i * SPH_STRIDE;
-        const float ocx = ox - p[0], ocy = oy - p[1], ocz = oz - p[2];
-        const float bq = ocx * dx + ocy * dy + ocz * dz;
-        const float c = ocx * ocx + ocy * ocy + ocz * ocz - p[3];
-        const float a = dx * dx + dy * dy + dz * dz;
-        const float disc = bq * bq - a * c;
-        const float sq = sqrtf(fmaxf(disc, 0.0f));
-        const float inv_a = 1.0f / a;
-        const float t1 = (-bq - sq) * inv_a;
-        const float t2 = (-bq + sq) * inv_a;
-        const bool ok = disc > 0.0f;
-        const float th = (ok && t1 >= cam.t_min)
-                             ? t1
-                             : ((ok && t2 >= cam.t_min) ? t2 : INFINITY);
-        if (th < t_best) {
-          t_best = th;
-          nx = (ox + th * dx - p[0]) * p[4];
-          ny = (oy + th * dy - p[1]) * p[4];
-          nz = (oz + th * dz - p[2]) * p[4];
-          m_best = (int)p[5];
-          if constexpr (kTex) tri_best = -1;
-        }
-      }
-      for (int i = 0; i < nc.n_tri; ++i) {
-        const float* p = tri + i * TRI_STRIDE;
-        const float e1x = p[3], e1y = p[4], e1z = p[5];
-        const float e2x = p[6], e2y = p[7], e2z = p[8];
-        // P = d x e2; Moller-Trumbore with the det-sign fold
-        const float qpx = e2z * dy - e2y * dz;
-        const float qpy = -e2z * dx + e2x * dz;
-        const float qpz = e2y * dx - e2x * dy;
-        const float det0 = e1x * qpx + e1y * qpy + e1z * qpz;
-        const float sign = det0 > 0.0f ? 1.0f : -1.0f;
-        const float det = det0 * sign;
-        const float tx = (ox - p[0]) * sign;
-        const float ty = (oy - p[1]) * sign;
-        const float tz = (oz - p[2]) * sign;
-        const float u = tx * qpx + ty * qpy + tz * qpz;
-        const float qx = e1z * ty - e1y * tz;
-        const float qy = -e1z * tx + e1x * tz;
-        const float qz = e1y * tx - e1x * ty;
-        const float v = dx * qx + dy * qy + dz * qz;
-        const float w =
-            (e2x * qx + e2y * qy + e2z * qz) / (det == 0.0f ? 1.0f : det);
-        const bool ok = (det >= 1e-6f) && (u >= 0.0f) && (u <= det) &&
-                        (v >= 0.0f) && (u + v <= det) && (w >= cam.t_min);
-        if (ok && w < t_best) {
-          t_best = w;
-          nx = p[9];
-          ny = p[10];
-          nz = p[11];
-          m_best = (int)p[12];
-          if constexpr (kTex) {
-            const float inv_det = 1.0f / (det == 0.0f ? 1.0f : det);
-            tri_best = i;
-            bu = u * inv_det;
-            bv = v * inv_det;
-          }
-        }
-      }
-      for (int i = 0; i < nc.n_pln; ++i) {
-        const float* p = pln + i * PLN_STRIDE;
-        const float th = patch_t(p, ox, oy, oz, dx, dy, dz, cam.t_min);
-        if (th < t_best) {
-          t_best = th;
-          nx = p[3];
-          ny = p[4];
-          nz = p[5];
-          m_best = (int)p[13];
-          if constexpr (kTex) tri_best = -1;
-        }
-      }
-      // the hit's texture coordinates: (0, 0, -1) unless a textured face
-      float hu = 0.0f, hv = 0.0f, htex = -1.0f;
-      if constexpr (kTex) {
-        if (tri_best >= 0) {
-          const float* q = uvtab + tri_best * UV_STRIDE;
-          hu = q[0] + (bu * q[2] + bv * q[4]);
-          hv = q[1] + (bu * q[3] + bv * q[5]);
-          htex = q[6];
-        }
-      }
-      float t_l = INFINITY, lr_ = 0.0f, lg_ = 0.0f, lb_ = 0.0f;
-      for (int i = 0; i < nc.n_al; ++i) {
-        const float* p = al + i * AL_STRIDE;
-        const float th = patch_t(p, ox, oy, oz, dx, dy, dz, cam.t_min);
-        if (th < t_l) {
-          t_l = th;
-          lr_ = p[13];
-          lg_ = p[14];
-          lb_ = p[15];
-        }
-      }
-
-      const bool obj_first = (t_best < INFINITY) && (t_best < t_l);
-      if (!obj_first) {
-        if (t_l < INFINITY) {  // the light comes first
-          rr += tr * lr_;
-          rg += tg * lg_;
-          rb += tb * lb_;
-        } else if (kEnv) {  // a miss: env-map candidate
-          if (b == 0) {     // native-resolution texel
-            float u, v;
-            env_uv(dx, dy, dz, &u, &v);
-            const float* e = env_map + 3 * (clamp_index(v * env_h, env_h) *
-                                                env_w +
-                                            clamp_index(u * env_w, env_w));
-            rr += tr * e[0];
-            rg += tg * e[1];
-            rb += tb * e[2];
-          } else {  // recorded; one binned lookup after the loop
-            missed = true;
-            mr = tr;
-            mg = tg;
-            mb = tb;
-            mdx = dx;
-            mdy = dy;
-            mdz = dz;
-          }
-        }
-        alive = false;
-        break;
-      }
-
-      if constexpr (kBsdf) {
-        const float* mt = mat + m_best * MAT_STRIDE;
-        const float* df = mt + M_DIFFUSE;
-        const float* al = mt + M_ALBEDO;
-        float tdf[3], tal[3];
-        if constexpr (kTex) {
-          if (tex_lookup(tex_tab, n_tex, hu, hv, htex, tdf)) df = tdf;
-          if (tex_lookup(tex_tab, n_tex, hu, hv, mt[M_STEX], tal)) al = tal;
-        }
-        F3 nd, w;
-        bsdf_scatter(mt, df, al, F3{dx, dy, dz}, F3{nx, ny, nz}, u1, u2,
-                     upid, sp, bseed, &nd, &w);
-        tr = tr * w.x;
-        tg = tg * w.y;
-        tb = tb * w.z;
-        ox = ox + t_best * dx;
-        oy = oy + t_best * dy;
-        oz = oz + t_best * dz;
-        dx = nd.x;
-        dy = nd.y;
-        dz = nd.z;
-      } else {
-        // Lambertian bounce: uniform hemisphere about the stored normal
-        const float hr = sqrtf(fmaxf(0.0f, 1.0f - u1 * u1));
-        const float phi = TWO_PI * u2;
-        const float lx = cosf(phi) * hr, ly = sinf(phi) * hr, lz = u1;
-        // Onb (Onb.hpp:17-27): a = big_x ? (0,1,0) : (1,0,0)
-        const bool big_x = fabsf(nx) > 0.9f;
-        const float ax_ = big_x ? 0.0f : 1.0f, ay_ = big_x ? 1.0f : 0.0f;
-        float vx = ny * 0.0f - nz * ay_;
-        float vy = nz * ax_ - nx * 0.0f;
-        float vz = nx * ay_ - ny * ax_;
-        const float vinv =
-            rsqrtf(fmaxf(vx * vx + vy * vy + vz * vz, 1.2e-38f));
-        vx *= vinv;
-        vy *= vinv;
-        vz *= vinv;
-        const float ux = ny * vz - nz * vy;
-        const float uy = nz * vx - nx * vz;
-        const float uz = nx * vy - ny * vx;
-        float ndx = lx * ux + ly * vx + lz * nx;
-        float ndy = lx * uy + ly * vy + lz * ny;
-        float ndz = lx * uz + ly * vz + lz * nz;
-        const float dinv =
-            rsqrtf(fmaxf(ndx * ndx + ndy * ndy + ndz * ndz, 1.2e-38f));
-        ndx *= dinv;
-        ndy *= dinv;
-        ndz *= dinv;
-        const float scale = 2.0f * (nx * ndx + ny * ndy + nz * ndz);
-        const float* alb = mat + m_best * MAT_STRIDE + M_DIFFUSE;
-        float ar = alb[0], ag = alb[1], ab = alb[2];
-        if constexpr (kTex) {
-          float t[3];
-          if (tex_lookup(tex_tab, n_tex, hu, hv, htex, t)) {
-            ar = t[0];
-            ag = t[1];
-            ab = t[2];
-          }
-        }
-        tr = tr * (ar * scale);
-        tg = tg * (ag * scale);
-        tb = tb * (ab * scale);
-        ox = ox + t_best * dx;
-        oy = oy + t_best * dy;
-        oz = oz + t_best * dz;
-        dx = ndx;
-        dy = ndy;
-        dz = ndz;
-      }
-    }
-    if (kEnv && missed) {  // binned equirect lookup
-      float u, v;
-      env_uv(mdx, mdy, mdz, &u, &v);
-      const int bin = clamp_index(v * ENV_ROWS, ENV_ROWS) * ENV_LANES +
-                      clamp_index(u * ENV_LANES, ENV_LANES);
-      rr += mr * env_bin[bin];
-      rg += mg * env_bin[ENV_ROWS * ENV_LANES + bin];
-      rb += mb * env_bin[2 * ENV_ROWS * ENV_LANES + bin];
-    }
-    if (alive) {  // depth cap: ambient constant
-      rr += tr * amb_r;
-      rg += tg * amb_g;
-      rb += tb * amb_b;
-    }
-    fr += rr;
-    fg += rg;
-    fb += rb;
-  }
-  film[3 * pid + 0] = fr;
-  film[3 * pid + 1] = fg;
-  film[3 * pid + 2] = fb;
-}
-
-// The mesh forms (B1e and its texture form): pt_kernel's BSDF bounce
-// around the warp sweep.  Their scene table holds no triangles (the
+// The mesh forms (B1e and its texture form): the BSDF bounce around the
+// warp sweep.  Their scene table holds no triangles (the
 // launcher checks), so the dense pass is spheres and planes.
 
 // A jittered camera ray of sample `sp` of pixel (pxf, pyf) (thin lens when
-// lens_r > 0), normalised: pt_kernel's, in its order.
+// lens_r > 0), normalised, in the plain version's order.
 __device__ __forceinline__ void camera_ray(const CamArgs& cam,
                                            const uint32_t upid,
                                            const uint32_t sp,
@@ -795,7 +502,7 @@ __device__ __forceinline__ void camera_ray(const CamArgs& cam,
   dz *= inv_len;
 }
 
-// The closest hit over spheres and planes (pt_kernel's dense pass without
+// The closest hit over spheres and planes (the dense pass without
 // triangles): t (INFINITY on a miss), normal and material row.
 __device__ __forceinline__ float sphere_plane_hit(
     const float* __restrict__ sph, const float* __restrict__ pln,
@@ -842,15 +549,15 @@ __device__ __forceinline__ float sphere_plane_hit(
   return t_best;
 }
 
-// pt_kernel<true, false, kTex> with the blocked pool swept by the warp
-// sweep.  The warp sweep needs all 32 lanes at every call, so the bounce
-// loop runs while any lane of the warp still has a live path, and a lane
-// whose path has ended (or that lies past the image) sweeps with no ray,
-// as a helper; every lane then starts the next sample together.  (A flat
-// loop, each lane starting its next sample as soon as its path ends,
-// gives the same film but was slower on the card: the lanes starting a
-// sample and the lanes scattering diverge in every iteration, and it
-// saves no sweep work, see chip_smoke.py phase 8's schedule counts.)
+// The BSDF estimator with the blocked pool swept by the warp sweep.  The warp
+// sweep needs all 32 lanes at every call, so the bounce loop runs while any
+// lane of the warp still has a live path, and a lane whose path has ended (or
+// that lies past the image) sweeps with no ray, as a helper; every lane then
+// starts the next sample together.  (A flat loop, each lane starting its next
+// sample as soon as its path ends, gives the same film but was slower on the
+// card: the lanes starting a sample and the lanes scattering diverge in every
+// iteration, and it saves no sweep work, see chip_smoke.py phase 8's schedule
+// counts.)
 template <bool kTex>
 __global__ void __launch_bounds__(128)
 pt_mesh_kernel(float* __restrict__ film, const float* __restrict__ scene,
@@ -973,17 +680,27 @@ pt_mesh_kernel(float* __restrict__ film, const float* __restrict__ scene,
   film[3 * pid + 2] = fb;
 }
 
-// The dense forms (B1a: pt_diffuse_kernel, B1b: pt_bsdf_kernel):
-// pt_kernel<kBsdf, false, false>'s estimator in one flat loop per thread.
-// An iteration is one bounce of whichever sample the thread is on; the
-// iteration that ends a path (a miss, a light hit, or the depth cap with
-// the ambient term) adds the sample into the pixel's sum and builds the
-// next sample's camera ray, so a lane whose path ended early goes on with
-// its next sample instead of waiting for the warp's longest path.  Each
-// sample's float operations, the hash arguments and the order in which
-// samples are added are pt_kernel's, and the film is read once when a
-// pixel starts and written once when it is done: the same sums bit for
-// bit.
+// The dense pool, one kernel: B1a (pt_diffuse_kernel), B1b
+// (pt_bsdf_kernel), B1c (the env forms, kEnv) and B1d's dense texture
+// forms (kTex, with or without kEnv), each form's estimator in one flat
+// loop per thread.  An iteration is one bounce of whichever sample the
+// thread is on; the iteration that ends a path (a miss, a light hit, or
+// the depth cap with the ambient term) adds the sample into the pixel's sum
+// and builds the next sample's camera ray, so a lane whose path ended early
+// goes on with its next sample instead of waiting for the warp's longest
+// path.  Each sample's float operations, the hash arguments and the order
+// in which samples are added are the plain version's
+// (pt_cuda.pt_accumulate_plain), and the film is read once when a pixel
+// starts and written once when it is done: the same sums bit for bit.
+//
+// The env forms run at least one bounce (the Pallas kernel peels bounce
+// 0).  A path that misses everything adds throughput * a texel and ends:
+// at bounce 0 the map's native texel, later the binned one, looked up at
+// the miss itself.  A path's radiance is 0 until it ends, so 0 + thr * bin
+// is the plain version's deferred sum (bins looked up after the bounce
+// loop) bit for bit, and no miss record stays live across the loop.  The
+// texture forms keep the winning triangle and its barycentrics through the
+// light test and resolve its UV row and texels when the path scatters.
 //
 // Persistent: the grid holds only the blocks that fit on the card at once
 // (kDenseMinBlocks blocks of 128 an SM), and a thread that has done its
@@ -991,11 +708,12 @@ pt_mesh_kernel(float* __restrict__ film, const float* __restrict__ scene,
 // launch), a warp's free lanes together with one atomicAdd.  A thread
 // still owns each pixel it takes whole, for the launch's samples.
 //
-// The diffuse form reads the primitives from `rec`: each primitive's row
-// of the scene table padded to whole float4s (pt_cuda.dense_records:
-// spheres 2, triangles, planes and lights 4), in float4 loads, a quarter
-// of the load instructions.  The BSDF form reads the table itself: with
-// records its lobe math spilled and it ran slower (PERF.md §6).
+// B1a reads the primitives from `rec`: each primitive's row of the scene
+// table padded to whole float4s (pt_cuda.dense_records: spheres 2,
+// triangles, planes and lights 4), in float4 loads, a quarter of the load
+// instructions.  The other forms read the table itself: with records B1b's
+// lobe math spilled and it ran slower (PERF.md §6), and the diffuse env and
+// texture forms spilled 28-56 B at no gain.
 constexpr int kDenseMinBlocks = 8;
 constexpr int SPH_REC = 2, TRI_REC = 4, PLN_REC = 4, AL_REC = 4;
 
@@ -1026,20 +744,24 @@ __device__ __forceinline__ int take_pixel(int* __restrict__ next_pixel,
 }
 
 // kRange: the launch covers pixels [pix0, pix_end) only.  `film` is then
-// indexed by the global pixel id, as in the nested forms, while the loop
+// indexed by the global pixel id, as in the mesh forms, while the loop
 // counts the range's pixels (pid, rows of `band`) and adds pix0 for the
 // hash and the camera (a global loop index cost 4 B more spill loads on an
 // H100).  A whole-film launch takes the loop without the range, which is
 // the main path's code as it was (the range's arithmetic cost the BSDF
 // form a register and 1-2% of its launch time on an H100, PERF.md).
-template <bool kBsdf, bool kRange>
+template <bool kBsdf, bool kEnv, bool kTex, bool kRange>
 __global__ void __launch_bounds__(128, kDenseMinBlocks)
 pt_dense_kernel(float* __restrict__ film, const float* __restrict__ scene,
                 const SceneCounts nc, const CamArgs cam, const int width,
                 const int height, const int pix0, const int pix_end,
                 const int sp0, const int n_spp, const int depth,
                 const uint32_t seed, int* __restrict__ next_pixel,
-                const float4* __restrict__ rec) {
+                const float4* __restrict__ rec,
+                const float* __restrict__ env_bin,
+                const float* __restrict__ env_map, const int env_h,
+                const int env_w, const float* __restrict__ tex_tab,
+                const int n_tex) {
   const int p0 = kRange ? pix0 : 0;
   const int n_lanes = gridDim.x * blockDim.x;
   const int n_pix = kRange ? pix_end - pix0 : width * height;
@@ -1053,12 +775,16 @@ pt_dense_kernel(float* __restrict__ film, const float* __restrict__ scene,
   const float* __restrict__ al = pln + nc.n_pln * PLN_STRIDE;
   const float* __restrict__ mat = al + nc.n_al * AL_STRIDE;
   const float* __restrict__ amb = mat + nc.n_mat * MAT_STRIDE;
+  const float* __restrict__ uvtab = amb + 3;  // texture forms only
   const float4* __restrict__ sph_r = rec;
   const float4* __restrict__ tri_r = sph_r + nc.n_sph * SPH_REC;
   const float4* __restrict__ pln_r = tri_r + nc.n_tri * TRI_REC;
   const float4* __restrict__ al_r = pln_r + nc.n_pln * PLN_REC;
+  constexpr bool kRec = !(kBsdf || kEnv || kTex);
+  // the env forms peel bounce 0, so they run it even at depth 0
+  const int n_bounces = (kEnv && depth < 1) ? 1 : depth;
 
-  if (depth <= 0) {  // every sample is the ambient term alone
+  if (n_bounces <= 0) {  // every sample is the ambient term alone
     for (; pid < n_pix; pid += n_lanes) {
       float fr = band[3 * pid + 0];
       float fg = band[3 * pid + 1];
@@ -1105,10 +831,12 @@ pt_dense_kernel(float* __restrict__ film, const float* __restrict__ scene,
     // closest hit: spheres, triangles, planes; first strictly closer wins
     float t_best = INFINITY, nx = 0.0f, ny = 0.0f, nz = 0.0f;
     int m_best = 0;
+    int tri_best = -1;           // texture forms: the winning triangle
+    float bu = 0.0f, bv = 0.0f;  // and its barycentrics
     for (int i = 0; i < nc.n_sph; ++i) {
       float q[4 * SPH_REC];
       const float* p = sph + i * SPH_STRIDE;
-      if constexpr (!kBsdf) {
+      if constexpr (kRec) {
         load_records(q, sph_r + i * SPH_REC, SPH_REC);
         p = q;
       }
@@ -1131,12 +859,13 @@ pt_dense_kernel(float* __restrict__ film, const float* __restrict__ scene,
         ny = (oy + th * dy - p[1]) * p[4];
         nz = (oz + th * dz - p[2]) * p[4];
         m_best = (int)p[5];
+        if constexpr (kTex) tri_best = -1;
       }
     }
     for (int i = 0; i < nc.n_tri; ++i) {
       float q[4 * TRI_REC];
       const float* p = tri + i * TRI_STRIDE;
-      if constexpr (!kBsdf) {
+      if constexpr (kRec) {
         load_records(q, tri_r + i * TRI_REC, TRI_REC);
         p = q;
       }
@@ -1167,12 +896,18 @@ pt_dense_kernel(float* __restrict__ film, const float* __restrict__ scene,
         ny = p[10];
         nz = p[11];
         m_best = (int)p[12];
+        if constexpr (kTex) {
+          const float inv_det = 1.0f / (det == 0.0f ? 1.0f : det);
+          tri_best = i;
+          bu = u * inv_det;
+          bv = v * inv_det;
+        }
       }
     }
     for (int i = 0; i < nc.n_pln; ++i) {
       float q[4 * PLN_REC];
       const float* p = pln + i * PLN_STRIDE;
-      if constexpr (!kBsdf) {
+      if constexpr (kRec) {
         load_records(q, pln_r + i * PLN_REC, PLN_REC);
         p = q;
       }
@@ -1183,13 +918,14 @@ pt_dense_kernel(float* __restrict__ film, const float* __restrict__ scene,
         ny = p[4];
         nz = p[5];
         m_best = (int)p[13];
+        if constexpr (kTex) tri_best = -1;
       }
     }
     float t_l = INFINITY, lr_ = 0.0f, lg_ = 0.0f, lb_ = 0.0f;
     for (int i = 0; i < nc.n_al; ++i) {
       float q[4 * AL_REC];
       const float* p = al + i * AL_STRIDE;
-      if constexpr (!kBsdf) {
+      if constexpr (kRec) {
         load_records(q, al_r + i * AL_REC, AL_REC);
         p = q;
       }
@@ -1206,11 +942,28 @@ pt_dense_kernel(float* __restrict__ film, const float* __restrict__ scene,
     float rr = 0.0f, rg = 0.0f, rb = 0.0f;
     bool ended = true;
     if ((t_best < INFINITY) && (t_best < t_l)) {
+      // the hit's texture coordinates: (0, 0, -1) unless a textured face
+      float hu = 0.0f, hv = 0.0f, htex = -1.0f;
+      if constexpr (kTex) {
+        if (tri_best >= 0) {
+          const float* q = uvtab + tri_best * UV_STRIDE;
+          hu = q[0] + (bu * q[2] + bv * q[4]);
+          hv = q[1] + (bu * q[3] + bv * q[5]);
+          htex = q[6];
+        }
+      }
       if constexpr (kBsdf) {
         const float* mt = mat + m_best * MAT_STRIDE;
+        const float* dfp = mt + M_DIFFUSE;
+        const float* alp = mt + M_ALBEDO;
+        float tdf[3], tal[3];
+        if constexpr (kTex) {
+          if (tex_lookup(tex_tab, n_tex, hu, hv, htex, tdf)) dfp = tdf;
+          if (tex_lookup(tex_tab, n_tex, hu, hv, mt[M_STEX], tal)) alp = tal;
+        }
         F3 nd, w;
-        bsdf_scatter(mt, mt + M_DIFFUSE, mt + M_ALBEDO, F3{dx, dy, dz},
-                     F3{nx, ny, nz}, u1, u2, upid, sp, bseed, &nd, &w);
+        bsdf_scatter(mt, dfp, alp, F3{dx, dy, dz}, F3{nx, ny, nz}, u1, u2,
+                     upid, sp, bseed, &nd, &w);
         tr = tr * w.x;
         tg = tg * w.y;
         tb = tb * w.z;
@@ -1249,9 +1002,18 @@ pt_dense_kernel(float* __restrict__ film, const float* __restrict__ scene,
         ndz *= dinv;
         const float scale = 2.0f * (nx * ndx + ny * ndy + nz * ndz);
         const float* alb = mat + m_best * MAT_STRIDE + M_DIFFUSE;
-        tr = tr * (alb[0] * scale);
-        tg = tg * (alb[1] * scale);
-        tb = tb * (alb[2] * scale);
+        float ar = alb[0], ag = alb[1], ab = alb[2];
+        if constexpr (kTex) {
+          float t[3];
+          if (tex_lookup(tex_tab, n_tex, hu, hv, htex, t)) {
+            ar = t[0];
+            ag = t[1];
+            ab = t[2];
+          }
+        }
+        tr = tr * (ar * scale);
+        tg = tg * (ag * scale);
+        tb = tb * (ab * scale);
         ox = ox + t_best * dx;
         oy = oy + t_best * dy;
         oz = oz + t_best * dz;
@@ -1259,7 +1021,7 @@ pt_dense_kernel(float* __restrict__ film, const float* __restrict__ scene,
         dy = ndy;
         dz = ndz;
       }
-      ended = ++b == depth;
+      ended = ++b == n_bounces;
       if (ended) {  // depth cap: ambient constant
         rr += tr * amb[0];
         rg += tg * amb[1];
@@ -1269,6 +1031,20 @@ pt_dense_kernel(float* __restrict__ film, const float* __restrict__ scene,
       rr += tr * lr_;
       rg += tg * lg_;
       rb += tb * lb_;
+    } else if constexpr (kEnv) {  // a miss: the native texel at bounce 0,
+      float u, v;                 // the binned one after it
+      env_uv(dx, dy, dz, &u, &v);
+      const bool native = b == 0;
+      const float* e =
+          native ? env_map + 3 * (clamp_index(v * env_h, env_h) * env_w +
+                                  clamp_index(u * env_w, env_w))
+                 : env_bin + (clamp_index(v * ENV_ROWS, ENV_ROWS) *
+                                  ENV_LANES +
+                              clamp_index(u * ENV_LANES, ENV_LANES));
+      const int c = native ? 1 : ENV_ROWS * ENV_LANES;  // channel stride
+      rr += tr * e[0];
+      rg += tg * e[c];
+      rb += tb * e[2 * c];
     }
     if (ended) {
       fr += rr;
@@ -1298,30 +1074,57 @@ pt_dense_kernel(float* __restrict__ film, const float* __restrict__ scene,
   }
 }
 
-// One launch of a dense form: a persistent grid of the blocks that fit on
-// the card at once, and the pixel counter cleared first.
-template <bool kBsdf, bool kRange>
-int launch_dense(float* film, const float* scene, const SceneCounts nc,
-                 const CamArgs ca, const int width, const int height,
-                 const int pix0, const int pix_end, const int sp0,
-                 const int n_spp, const int depth, const uint32_t seed,
-                 int* next_pixel, const float4* rec, const int blocks,
-                 const int threads, cudaStream_t st) {
+// One launch's arguments (host side).
+struct DenseArgs {
+  float* film;
+  const float* scene;
+  SceneCounts nc;
+  CamArgs cam;
+  int width, height, pix0, pix_end, sp0, n_spp, depth;
+  uint32_t seed;
+  int* next_pixel;
+  const float4* rec;
+  const float* env_bin;
+  const float* env_map;
+  int env_h, env_w;
+  const float* tex_tab;
+  int n_tex;
+};
+
+// One launch of a dense-pool form: a persistent grid of the blocks that
+// fit on the card at once, and the pixel counter cleared first.
+template <bool kBsdf, bool kEnv, bool kTex, bool kRange>
+int launch_dense(const DenseArgs& a, const int blocks, const int threads,
+                 cudaStream_t st) {
+  const auto kernel = pt_dense_kernel<kBsdf, kEnv, kTex, kRange>;
   int dev = 0, sms = 0, per_sm = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e == cudaSuccess)
     e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (e == cudaSuccess)
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, pt_dense_kernel<kBsdf, kRange>, threads, 0);
-  if (e == cudaSuccess) e = cudaMemsetAsync(next_pixel, 0, sizeof(int), st);
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                      threads, 0);
+  if (e == cudaSuccess)
+    e = cudaMemsetAsync(a.next_pixel, 0, sizeof(int), st);
   if (e != cudaSuccess) return (int)e;
   const int grid =
       (per_sm * sms >= 1 && per_sm * sms < blocks) ? per_sm * sms : blocks;
-  pt_dense_kernel<kBsdf, kRange><<<grid, threads, 0, st>>>(
-      film, scene, nc, ca, width, height, pix0, pix_end, sp0, n_spp, depth,
-      seed, next_pixel, rec);
+  kernel<<<grid, threads, 0, st>>>(
+      a.film, a.scene, a.nc, a.cam, a.width, a.height, a.pix0, a.pix_end,
+      a.sp0, a.n_spp, a.depth, a.seed, a.next_pixel, a.rec, a.env_bin,
+      a.env_map, a.env_h, a.env_w, a.tex_tab, a.n_tex);
   return (int)cudaGetLastError();
+}
+
+// A form's launch: its whole-film instantiation when the launch covers the
+// film, else its range one.
+template <bool kBsdf, bool kEnv, bool kTex>
+int launch_form(const DenseArgs& a, const bool whole, const int blocks,
+                const int threads, cudaStream_t st) {
+  return whole ? launch_dense<kBsdf, kEnv, kTex, false>(a, blocks, threads,
+                                                         st)
+               : launch_dense<kBsdf, kEnv, kTex, true>(a, blocks, threads,
+                                                        st);
 }
 
 __global__ void hash_fill_kernel(const int32_t* __restrict__ pid,
@@ -1349,8 +1152,8 @@ extern "C" {
 // `env_map` (device): the (env_h, env_w, 3) map; `mesh_tris`, `mesh_uvs`,
 // `mesh_bb` (device): the blocked pool's tables (csrc/mesh_sweep.cuh;
 // `mesh_uvs` with textures); `tex_tab` (device): n_tex binned textures;
-// `next_pixel` (device, one int; the dense forms): the pixel counter,
-// zeroed here before the launch; `dense_rec` (device; the diffuse form):
+// `next_pixel` (device, one int; every form but the mesh ones): the pixel
+// counter, zeroed here before the launch; `dense_rec` (device; form 0):
 // the primitive records (pt_cuda.dense_records).
 int nr_pt_render(float* film, const float* scene, const int* counts,
                  const float* cam, int width, int height, int pix0,
@@ -1401,40 +1204,42 @@ int nr_pt_render(float* film, const float* scene, const int* counts,
   const int threads = 128;
   const int blocks = (n_pix + threads - 1) / threads;
   cudaStream_t st = (cudaStream_t)stream;
-  if (form == 0 || form == 1) {
+  if ((form & 4) == 0) {  // the dense pool: the flat loop, persistent
     if (next_pixel == nullptr || (form == 0 && dense_rec == nullptr))
       return (int)cudaErrorInvalidValue;
-    const float4* rec = reinterpret_cast<const float4*>(dense_rec);
+    const DenseArgs a{film, scene, nc, ca, width, height, pix0, pix_end,
+                      sp0, n_spp, depth, (uint32_t)seed, next_pixel,
+                      reinterpret_cast<const float4*>(dense_rec), env_bin,
+                      env_map, env_h, env_w, tex_tab, n_tex};
     const bool whole = pix0 == 0 && n_pix == width * height;
-    const auto launch =
-        form ? (whole ? launch_dense<true, false> : launch_dense<true, true>)
-             : (whole ? launch_dense<false, false>
-                      : launch_dense<false, true>);
-    return launch(film, scene, nc, ca, width, height, pix0, pix_end, sp0,
-                  n_spp, depth, (uint32_t)seed, next_pixel, rec, blocks,
-                  threads, st);
+    switch (form) {
+      case 0: return launch_form<false, false, false>(a, whole, blocks,
+                                                       threads, st);
+      case 1: return launch_form<true, false, false>(a, whole, blocks,
+                                                      threads, st);
+      case 2: return launch_form<false, true, false>(a, whole, blocks,
+                                                      threads, st);
+      case 3: return launch_form<true, true, false>(a, whole, blocks,
+                                                     threads, st);
+      case 8: return launch_form<false, false, true>(a, whole, blocks,
+                                                      threads, st);
+      case 9: return launch_form<true, false, true>(a, whole, blocks,
+                                                     threads, st);
+      case 10: return launch_form<false, true, true>(a, whole, blocks,
+                                                      threads, st);
+      case 11: return launch_form<true, true, true>(a, whole, blocks,
+                                                     threads, st);
+      default: return (int)cudaErrorInvalidValue;
+    }
   }
-#define NR_LAUNCH(B, E, T)                                                  \
-  pt_kernel<B, E, T><<<blocks, threads, 0, st>>>(                           \
-      film, scene, nc, ca, width, pix0, pix_end, sp0, n_spp, depth,         \
-      (uint32_t)seed, env_bin, env_map, env_h, env_w, mesh, tex_tab, n_tex)
-#define NR_LAUNCH_MESH(T)                                                   \
-  pt_mesh_kernel<T><<<blocks, threads, 0, st>>>(                            \
-      film, scene, nc, ca, width, pix0, pix_end, sp0, n_spp, depth,         \
-      (uint32_t)seed, mesh, tex_tab, n_tex)
-  switch (form) {
-    case 2: NR_LAUNCH(false, true, false); break;
-    case 3: NR_LAUNCH(true, true, false); break;
-    case 5: NR_LAUNCH_MESH(false); break;
-    case 8: NR_LAUNCH(false, false, true); break;
-    case 9: NR_LAUNCH(true, false, true); break;
-    case 10: NR_LAUNCH(false, true, true); break;
-    case 11: NR_LAUNCH(true, true, true); break;
-    case 13: NR_LAUNCH_MESH(true); break;
-    default: return (int)cudaErrorInvalidValue;
-  }
-#undef NR_LAUNCH_MESH
-#undef NR_LAUNCH
+  // the mesh forms: pt_mesh_kernel on a plain grid
+  if (form != 5 && form != 13) return (int)cudaErrorInvalidValue;
+  const auto mesh_kernel =
+      form == 13 ? pt_mesh_kernel<true> : pt_mesh_kernel<false>;
+  mesh_kernel<<<blocks, threads, 0, st>>>(film, scene, nc, ca, width, pix0,
+                                          pix_end, sp0, n_spp, depth,
+                                          (uint32_t)seed, mesh, tex_tab,
+                                          n_tex);
   return (int)cudaGetLastError();
 }
 

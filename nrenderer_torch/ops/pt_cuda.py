@@ -8,11 +8,12 @@ or with an environment map; the BSDF one with the blocked mesh sweep in its
 bounce loop (`mesh_accel`, AccPathTracer's megamesh route); and each of
 those five with binned surface textures (`textures`).  The kernel,
 `csrc/pt_kernel.cu`, replaces the Pallas `_pt_kernel` in those forms; its
-source header says what it computes and how.  The two dense forms (no env
-map, no mesh, no textures) run one flat bounce loop per pixel with path
-regeneration (`pt_dense_kernel`), in launches of their own size
-(`DENSE_PIXEL_SAMPLES_PER_LAUNCH`); `loop_slots` counts that loop's lane
-slots from the plain version's per-path bounce counts.
+source header says what it computes and how.  Every form without a mesh
+(the dense, env and texture forms) runs one flat bounce loop per pixel with
+path regeneration on a persistent grid (`pt_dense_kernel`), in launches of
+`DENSE_PIXEL_SAMPLES_PER_LAUNCH`; the mesh forms keep a plain grid and
+`PIXEL_SAMPLES_PER_LAUNCH` (`launch_plan`).  `loop_slots` counts the flat
+loop's lane slots from the plain version's per-path bounce counts.
 
 `pt_accumulate` is the wrapper: for a film tensor on a CUDA device it
 launches the kernel instantiation the form needs (and raises if the build or
@@ -26,7 +27,8 @@ agree pixel by pixel up to float rounding.
 Env-map form: a path that misses at bounce 0 reads the map's native texel
 (the Pallas kernel's exact bounce-0 term); a later miss records its
 throughput and direction, and one lookup in the mean-pooled 32x128 bin table
-per sample follows the bounce loop, as in the Pallas kernel.  Both index
+per sample follows the bounce loop, as in the Pallas kernel (the CUDA
+kernel looks the bin up at the miss: the same sum).  Both index
 with the Pallas kernel's polynomial angles (`ops.env`).
 
 Mesh form: the dense pass runs without triangles and the sweep
@@ -113,14 +115,14 @@ def reset_launch_counts() -> None:
     HASH_LAUNCHES = 0
 
 
-# One launch of the env, texture and mesh forms covers at most this many
-# pixel-samples (a 512x512 film takes 32 spp per launch); the plain version
-# traces at most this many rays per wavefront.
+# One launch of the mesh forms covers at most this many pixel-samples (a
+# 500x500 film takes 33 spp per launch); the plain version traces at most
+# this many rays per wavefront.
 PIXEL_SAMPLES_PER_LAUNCH = 1 << 23
 PLAIN_RAYS_PER_WAVEFRONT = 1 << 20
-# The dense forms' (pt_diffuse_kernel, pt_bsdf_kernel) launch size: 256 spp
-# of a 512x512 film.  Their flat loop sums each pixel's samples in one
-# lane, so more samples a launch even out the warp's lanes (89% of lane
+# The launch size of the forms without a mesh (pt_dense_kernel's flat
+# loop): 256 spp of a 512x512 film.  The loop sums each pixel's samples in
+# one lane, so more samples a launch even out the warp's lanes (89% of lane
 # slots useful at 256 spp, 77% at 32 on the Cornell box); 512 measured no
 # faster than 256 on an H100 (PERF.md §6).
 DENSE_PIXEL_SAMPLES_PER_LAUNCH = 1 << 26
@@ -422,6 +424,16 @@ def pt_accumulate(film: torch.Tensor, ss: StaticScene, cam: CameraParams,
     return film
 
 
+def launch_plan(mesh: bool, n_pix: int) -> tuple:
+    """(persistent, spp a launch) of a wrapper call over `n_pix` pixels:
+    the forms without a mesh run the flat loop on a persistent grid, with
+    a pixel counter cleared before each launch, in launches of
+    DENSE_PIXEL_SAMPLES_PER_LAUNCH pixel-samples; the mesh forms a plain
+    grid of PIXEL_SAMPLES_PER_LAUNCH.  At least one sample a launch."""
+    per = PIXEL_SAMPLES_PER_LAUNCH if mesh else DENSE_PIXEL_SAMPLES_PER_LAUNCH
+    return not mesh, max(1, per // n_pix)
+
+
 def _pt_accumulate_cuda(film, ss, cam, width, height, sp0, n_spp, depth,
                         seed, t_min, name, bsdf, env, mesh, tex, pix0,
                         n_pix) -> None:
@@ -451,13 +463,10 @@ def _pt_accumulate_cuda(film, ss, cam, width, height, sp0, n_spp, depth,
                                                     tex.shape[0])
     form = (int(bool(bsdf)) | (env is not None) << 1
             | (mesh is not None) << 2 | with_uv << 3)
-    dense = form in (0, 1)
-    per_launch = max(1, (DENSE_PIXEL_SAMPLES_PER_LAUNCH if dense
-                         else PIXEL_SAMPLES_PER_LAUNCH) // n_pix)
-    # the dense forms' pixel counter, and the diffuse form's primitive
-    # records
+    persistent, per_launch = launch_plan(mesh is not None, n_pix)
+    # the persistent grid's pixel counter, and B1a's primitive records
     next_pixel = torch.zeros(1, dtype=torch.int32, device=film.device) \
-        if dense else None
+        if persistent else None
     rec = torch.as_tensor(dense_records(table, counts), device=film.device) \
         if form == 0 else None
     with torch.cuda.device(film.device):
@@ -470,7 +479,8 @@ def _pt_accumulate_cuda(film, ss, cam, width, height, sp0, n_spp, depth,
                                    _int32(seed), form, env_bin, env_map,
                                    env_h, env_w, m_tris, m_uvs, m_bb,
                                    n_blocks, block, tex_ptr, n_tex,
-                                   next_pixel.data_ptr() if dense else None,
+                                   None if next_pixel is None
+                                   else next_pixel.data_ptr(),
                                    None if rec is None else rec.data_ptr(),
                                    stream)
             _check_launch(lib, err, name)
@@ -663,8 +673,8 @@ def _sweep_groups(sched: list, enters: list, alive_at: list,
 
 def loop_slots(path_bounces: torch.Tensor, launch_spp: int,
                resident: Optional[int] = None) -> dict:
-    """Lane slots (one lane for one bounce iteration) of the dense forms'
-    bounce loops, from each path's bounce count (`path_bounces`, the
+    """Lane slots (one lane for one bounce iteration) of the bounce loops
+    of the forms without a mesh, from each path's bounce count (`path_bounces`, the
     (n_pix, n_spp) tensor of `pt_accumulate_plain`'s stats), with pixel p
     in lane p % 32 of warp p // 32; a ragged last warp's missing lanes
     count as idle slots:

@@ -409,6 +409,60 @@ def test_cuda_dense_forms_bit_exact_ragged(gpu, bsdf, depth):
     assert torch.equal(film_k, film_p)
 
 
+ENV_TEX_FORMS = [(b, e, t) for t in (False, True) for e in (True, False)
+                 for b in (False, True) if e or t]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("depth", [0, 1, 6])
+@pytest.mark.parametrize(
+    "form", ENV_TEX_FORMS,
+    ids=[pt_cuda.kernel_name(b, e, False, t) for b, e, t in ENV_TEX_FORMS])
+def test_cuda_env_tex_forms_bit_exact(gpu, form, depth):
+    """The env forms (env_spheres.scn under env_sky.png) and the dense
+    texture forms (tex_quad.obj, with and without the map) on the flat
+    loop against the plain version bit for bit: 64x64 at 16 spp, and at
+    the ragged shape above (61x37, 33 spp split 20 + 13, a thin lens, a
+    nonzero ambient) and a band of pixels [100, 1099) of it."""
+    from nrenderer_torch import load_obj
+    from nrenderer_torch.io.image import load_image
+    bsdf, env, tex = form
+    name = pt_cuda.kernel_name(bsdf, env, False, tex)
+    res = SCENE.parent
+    emap = load_image(str(res / "env_sky.png"))[:, :, :3]
+    envt = pt_cuda.make_env_tables(emap, gpu) if env else None
+    for lens, w, h, calls, band in ((False, 64, 64, ((0, 16),), None),
+                                    (True, 61, 37, ((0, 20), (20, 13)),
+                                     None),
+                                    (True, 61, 37, ((0, 20), (20, 13)),
+                                     (100, 999))):
+        scene = load_scn(str(res / ("tex_grid.scn" if tex
+                                    else "env_spheres.scn")))
+        if tex:
+            load_obj(str(res / "obj" / "tex_quad.obj"), scene, material=0)
+        if lens:
+            scene.camera.aperture, scene.camera.focus_distance = 20.0, 1000.0
+        arrays = build_scene_arrays(scene)
+        ss = make_static_scene(arrays)._replace(
+            ambient_constant=(0.3, 0.4, 0.5))
+        cam = make_camera(scene.camera, device=gpu)
+        t_min = scene_epsilon(ss)
+        tx = pt_cuda.make_tex_tables(arrays.textures, gpu) if tex else None
+        pix0, n_pix = band or (0, w * h)
+        before = pt_cuda.KERNEL_LAUNCHES[name]
+        films = []
+        for fn in (pt_cuda.pt_accumulate, pt_cuda.pt_accumulate_plain):
+            film = torch.zeros((n_pix, 3), device=gpu)
+            for sp0, n in calls:
+                fn(film, ss, cam, w, h, sp0, n, depth, 5, t_min, bsdf=bsdf,
+                   env=envt, tex=tx, pix0=pix0, n_pix=n_pix)
+            films.append(film)
+        assert pt_cuda.KERNEL_LAUNCHES[name] == before + len(calls)
+        assert torch.isfinite(films[0]).all()
+        assert float(films[0].mean()) > 0.0
+        assert torch.equal(films[0], films[1]), (name, w, h, band)
+
+
 @pytest.mark.cuda
 def test_cuda_hash_bit_exact(gpu):
     rng = np.random.default_rng(0)

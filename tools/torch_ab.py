@@ -14,26 +14,35 @@
     python3 tools/torch_ab.py --crossover  # this checkout alone
 
 Runs the two checkouts in turns (parent, change, change, parent), each in a
-fresh process that builds its own kernel library and then renders, through
-its own `cli.main`, the four paths of `chip_smoke.py` phases 5-7: the
-SimplePathTracer main path (Cornell box, 512x512, 2048 spp, depth 20),
-AccPathTracer on `pt_glass_box.scn` (512x512, 2048 spp, depth 20), and
-AccPathTracer and SimplePathTracer on `env_spheres.scn` under
-`env_sky.png` (512x512, 1024 spp, depth 8).  Each path gets a warm-up
-render and then three renders whose render phases it reads from the
-renderer's timer.  Then it times each path's kernel form alone: one
-`pt_accumulate` call of the path's spp at 512x512 at its depth (so the
-wrapper's host work is a small share even for the short env launches),
-three calls between CUDA events, in ms per 32 spp and per launch, with the
-launches a call makes; and it prints the `-Xptxas -v` lines of every
-path-tracing form (the dense forms' `pt_dense_kernel` among them).  The
-dense forms' tuning constants each get a run per value, in a copy of this
-checkout (`build/<name>_K/`, ~1 min a run), after the four:
-`--launch-spp K,...` sets their launch size to K spp of a 512x512 film
-(`DENSE_PIXEL_SAMPLES_PER_LAUNCH` in `ops/pt_cuda.py`), `--pt-min-blocks
-K,...` their launch bound's blocks an SM (`kDenseMinBlocks` in
-`csrc/pt_kernel.cu`).  `--set NAME=K,NAME=K` (NAME a flag's name with
-`_` for `-`) adds one run with several constants set at once.
+fresh process that builds its own kernel library.  It times each form of
+the path-tracing kernel without a mesh alone at its path's shape (the
+paths of `chip_smoke.py` phases 5-7 and 11's dense textured quad: the
+Cornell box and `pt_glass_box.scn` at 512x512, 2048 spp, depth 20;
+`env_spheres.scn` under `env_sky.png` at 512x512, 1024 spp, depth 8;
+`tex_quad.obj` on `tex_grid.scn` at 256x256, 512 spp, depth 6, without
+and with the map; each with SimplePathTracer's and AccPathTracer's
+estimator): one `pt_accumulate` call of the path's spp, three calls
+between CUDA events (ms a call, the wrapper's host work included), and
+each launch alone between events recorded around the library call (ms a
+launch on the device), with the launches a call makes; the env and
+texture forms also at other launch sizes (the constants set in-process),
+at the other path's film size and, for the diffuse env form, at the
+progressive route's 8-spp pass; the first change run adds the bound
+(`chip_smoke.bound_ms`) and the lane slots (`pt_cuda.loop_slots`) of one
+launch of the change's size.  Then it renders each of those paths through
+its own `cli.main` (a warm-up render and three, seven for the textured
+quad, whose render phases it reads from the renderer's timer, and the
+CLI walls) and the progressive env route (`--progressive`, 128 passes of
+8 spp); and it prints the `-Xptxas -v` lines of every path-tracing
+kernel.  The dense forms' tuning constants each get a kernel-only run
+per value, in a copy of this checkout (`build/<name>_K/`, ~1 min a run),
+after the four: `--launch-spp K,...` sets the launch size of the forms
+without a mesh to K spp of a 512x512 film
+(`DENSE_PIXEL_SAMPLES_PER_LAUNCH` in `ops/pt_cuda.py`),
+`--pt-min-blocks K,...` their launch bound's blocks an SM
+(`kDenseMinBlocks` in `csrc/pt_kernel.cu`).  `--set NAME=K,NAME=K` (NAME
+a flag's name with `_` for `-`) adds one run with several constants set
+at once.
 
 With `--hybrid` it renders instead the two hybrid-route paths of
 phases 14-15 (`ico_5120.obj` on `mesh_box.scn`, 500x500, 256 spp, depth
@@ -116,22 +125,22 @@ LIMITS = [n for n in ("MEGAMESH_MAX_TRIS", "MEGAMESH_MAX_TRIS_CUDA")
 
 
 def renders(label, scene, renderer, size, spp, depth, env, objs=(),
-            limit=None):
-    """A warm-up render, then three whose render phases and CLI walls are
+            limit=None, extra=(), n=3):
+    """A warm-up render, then `n` whose render phases and CLI walls are
     kept under `label`.  `limit`: every megamesh limit set to it for the
     renders (1024 keeps ico_5120.obj on the hybrid route, 0 forces the
-    hybrid route, 1 << 30 the megamesh route)."""
+    hybrid route, 1 << 30 the megamesh route); `extra`: more CLI flags."""
     png = os.path.join(c.ROOT, "build", f"ab_{label}.png")
     os.makedirs(os.path.dirname(png), exist_ok=True)
     argv = c._cli_argv(scene, renderer, size, size, spp, depth, png,
-                       env=env, objs=objs)
+                       env=env, objs=objs) + list(extra)
     saved = [getattr(acc_pt, n) for n in LIMITS]
     for n in LIMITS if limit is not None else ():
         setattr(acc_pt, n, limit)
     try:
         assert cli.main(argv) == 0
         phases, walls = [], []
-        for _ in range(3):
+        for _ in range(n):
             g0 = GLOBAL_TIMER.get(f"{renderer}.render").total_s
             t0 = time.perf_counter()
             assert cli.main(argv) == 0
@@ -205,13 +214,15 @@ for label, scene, objs, bsdf, env, size, depth in forms:
               tex=(pt_cuda.make_tex_tables(arrays.textures, "cuda")
                    if "tex" in label else None))
     film = torch.zeros((size * size, 3), device="cuda")
-    # the dense forms launch in sizes of their own (a parent may not have
-    # them)
+    # the checkout's launch size (an older one lacks `launch_plan`, and
+    # one older still the dense forms' own size)
     per_pix = (getattr(pt_cuda, "DENSE_PIXEL_SAMPLES_PER_LAUNCH",
                        pt_cuda.PIXEL_SAMPLES_PER_LAUNCH)
                if label in ("diffuse", "bsdf")
                else pt_cuda.PIXEL_SAMPLES_PER_LAUNCH)
-    per_launch = max(1, per_pix // (size * size))
+    per_launch = (pt_cuda.launch_plan(mesh, size * size)[1]
+                  if hasattr(pt_cuda, "launch_plan")
+                  else max(1, per_pix // (size * size)))
     call = lambda: pt_cuda.pt_accumulate(film, ss, cam, size, size, 0,
                                          8 * per_launch, depth, 0,
                                          scene_epsilon(ss), **kw)
@@ -320,29 +331,122 @@ renders("hybrid_b4", c.MESH_SCENE, "AccPathTracer", 500, 256, 20, False,
 print("RESULT", json.dumps(out))
 '''
 
-CODE = COMMON + PTXAS + r'''
-paths = (("main", c.SCENE, "SimplePathTracer", 2048, 20, False),
-         ("acc", c.GLASS_SCENE, "AccPathTracer", 2048, 20, False),
-         ("env_acc", c.ENV_SCENE, "AccPathTracer", 1024, 8, True),
-         ("env_simple", c.ENV_SCENE, "SimplePathTracer", 1024, 8, True))
-for label, scene, renderer, spp, depth, env in paths:
-    renders(label, scene, renderer, 512, spp, depth, env)
+# The dense pool's forms at their paths' shapes: (label, scene, objs, bsdf,
+# env, size, spp, depth), the label a path's (phases 5-7 and 11's dense
+# textured quad)
+FORMS = r'''
+FORMS = (("main", c.SCENE, (), False, False, 512, 2048, 20),
+         ("acc", c.GLASS_SCENE, (), True, False, 512, 2048, 20),
+         ("env_simple", c.ENV_SCENE, (), False, True, 512, 1024, 8),
+         ("env_acc", c.ENV_SCENE, (), True, True, 512, 1024, 8),
+         ("tex_simple", c.TEX_SCENE, (c.TEX_QUAD,), False, False, 256, 512,
+          6),
+         ("tex_acc", c.TEX_SCENE, (c.TEX_QUAD,), True, False, 256, 512, 6),
+         ("tex_env_simple", c.TEX_SCENE, (c.TEX_QUAD,), False, True, 256,
+          512, 6),
+         ("tex_env_acc", c.TEX_SCENE, (c.TEX_QUAD,), True, True, 256, 512,
+          6))
+'''
+
+# Each form alone: one `pt_accumulate` call of its path's spp (the launches
+# the checkout's wrapper makes), three calls between CUDA events ("ms": a
+# call, the wrapper's host work included, as a render pays it), and each
+# launch alone between events recorded around the library call
+# ("launch_ms": the device's time, the pixel counter's memset included);
+# the env and texture forms also at every launch size of LAUNCH_SPP set
+# in-process, at the other path's film size (the env scene at 256x256, 512
+# spp; the textured quad at 512x512, 1024 spp) and the progressive env
+# route's pass (one 8-spp call).  With BOUNDS the bound
+# (`chip_smoke.bound_ms`) and the lane slots (`pt_cuda.loop_slots`) of one
+# launch of the change's size, from the plain version's counts.
+KERNEL_TIMES = FORMS + r'''
 from nrenderer_torch.ops import pt_cuda
 from nrenderer_torch.ops.pt_core import scene_epsilon
-for label, scene, renderer, spp, depth, env in paths:
-    ss, cam, emap = c._setup("cuda", scene, env)[:3]
-    tables = pt_cuda.make_env_tables(emap, "cuda") if env else None
-    film = torch.zeros((512 * 512, 3), device="cuda")
-    call = lambda: pt_cuda.pt_accumulate(
-        film, ss, cam, 512, 512, 0, spp, depth, 0, scene_epsilon(ss),
-        bsdf=renderer == "AccPathTracer", env=tables)
-    n0 = sum(pt_cuda.KERNEL_LAUNCHES.values())
+LAUNCH_SPP = {True: (32, 64, 256), False: (128, 512)}   # by env
+BOUNDS = False
+CONSTS = [n for n in ("PIXEL_SAMPLES_PER_LAUNCH",
+                      "DENSE_PIXEL_SAMPLES_PER_LAUNCH") if hasattr(pt_cuda, n)]
+lib = pt_cuda._kernels()
+render_fn, launch_events = lib.nr_pt_render, []
+
+
+def timed_render(*a):
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    ev[0].record()
+    err = render_fn(*a)
+    ev[1].record()
+    launch_events.append(ev)
+    return err
+
+
+lib.nr_pt_render = timed_render
+out["kernel"] = {}
+
+
+def timed(ss, cam, size, n_spp, depth, t_min, kw):
+    film = torch.zeros((size * size, 3), device="cuda")
+    call = lambda: pt_cuda.pt_accumulate(film, ss, cam, size, size, 0,
+                                         n_spp, depth, 0, t_min, **kw)
     call()
     torch.cuda.synchronize()
-    launches = sum(pt_cuda.KERNEL_LAUNCHES.values()) - n0
+    launch_events.clear()
     ms = c._time_ms(call, 3)
-    out[label].update(kernel_ms_32spp=ms / (spp / 32), launches=launches,
-                      kernel_ms_launch=ms / launches)
+    launches = len(launch_events) // 3
+    launch_ms = sum(a.elapsed_time(b) for a, b in launch_events) / (
+        3 * launches)
+    return {"ms": ms, "launches": launches, "launch_ms": launch_ms,
+            "ms_32spp": ms / (n_spp / 32)}
+
+
+for label, scene, objs, bsdf, env, size, spp, depth in FORMS:
+    ss, cam, emap, arrays = c._setup("cuda", scene, env, objs)
+    kw = dict(bsdf=bsdf,
+              env=pt_cuda.make_env_tables(emap, "cuda") if env else None,
+              tex=(pt_cuda.make_tex_tables(arrays.textures, "cuda")
+                   if objs else None))
+    t_min = scene_epsilon(ss)
+    row = timed(ss, cam, size, spp, depth, t_min, kw)
+    if env or objs:
+        saved = [getattr(pt_cuda, n) for n in CONSTS]
+        for k in LAUNCH_SPP[not objs]:
+            for n in CONSTS:
+                setattr(pt_cuda, n, k * size * size)
+            row[f"launch_{k}"] = timed(ss, cam, size, spp, depth, t_min, kw)
+        for n, v in zip(CONSTS, saved):
+            setattr(pt_cuda, n, v)
+        other, other_spp = (256, 512) if size == 512 else (512, 1024)
+        row[f"film_{other}"] = timed(ss, cam, other, other_spp, depth, t_min,
+                                     kw)
+        if env and not (bsdf or objs):
+            row["progressive_pass"] = timed(ss, cam, size, 8, depth, t_min,
+                                            kw)
+    if BOUNDS:
+        launch = min(spp, pt_cuda.launch_plan(False, size * size)[1])
+        work = {}
+        pt_cuda.pt_accumulate_plain(
+            torch.zeros((size * size, 3), device="cuda"), ss, cam, size,
+            size, 0, launch, depth, 0, t_min, stats=work, **kw)
+        row["bound"] = {"launch_spp": launch, "bound_ms": c.bound_ms(
+            ss, size * size, work, emap, None, kw["tex"])[0],
+            "bounces_per_sample": work["bounces"] / work["samples"],
+            "slots": pt_cuda.loop_slots(work["path_bounces"], launch)}
+    out["kernel"][label] = row
+    print(label, json.dumps(row), flush=True)
+lib.nr_pt_render = render_fn
+'''
+
+CODE = COMMON + PTXAS + KERNEL_TIMES + r'''
+for label, scene, objs, bsdf, env, size, spp, depth in FORMS:
+    renders(label, scene, "AccPathTracer" if bsdf else "SimplePathTracer",
+            size, spp, depth, env, objs, n=7 if objs else 3)
+renders("env_progressive", c.ENV_SCENE, "SimplePathTracer", 512, 1024, 8,
+        True, extra=["--progressive"])
+out["gpu"] = c.gpu_name_power()
+print("RESULT", json.dumps(out))
+'''
+
+ANALYTIC_KERNEL = COMMON + PTXAS + KERNEL_TIMES + r'''
+out["gpu"] = c.gpu_name_power()
 print("RESULT", json.dumps(out))
 '''
 
@@ -452,14 +556,18 @@ def main(argv) -> int:
         print(__doc__, file=sys.stderr)
         return 2
     runs = []
-    for who in ("parent", "change", "change", "parent"):
-        st = _run(args[0] if who == "parent" else change, code)
+    for i, who in enumerate(("parent", "change", "change", "parent")):
+        bounds = mode == "analytic" and i == 1   # once: the same inputs
+        st = _run(args[0] if who == "parent" else change,
+                  code.replace("BOUNDS = False", "BOUNDS = True")
+                  if bounds else code)
         runs.append((who, st))
         print(who, json.dumps(st), flush=True)
     for sw in sweeps:
         label = ",".join(f"{k}={v}" for k, v in sorted(sw.items()))
         st = _run(_threshold_copy(change, sw),
-                  MXU_KERNEL if mode == "mxu" else code)
+                  {"mxu": MXU_KERNEL, "analytic": ANALYTIC_KERNEL}.get(
+                      mode, code))
         runs.append((label, st))
         print(label, json.dumps(st), flush=True)
     print("AB", json.dumps(runs))
