@@ -14,7 +14,6 @@ import torch
 pytest.importorskip("jax")
 
 import nrenderer_tpu as T  # noqa: E402
-from nrenderer_tpu import native  # noqa: E402
 from nrenderer_tpu.ops import bvh as jbvh  # noqa: E402
 from nrenderer_tpu.ops.intersect import (  # noqa: E402
     make_static_scene as jax_make_static_scene,
@@ -28,6 +27,10 @@ from nrenderer_torch.ops import bvh  # noqa: E402
 from nrenderer_torch.ops.intersect import make_static_scene  # noqa: E402
 from nrenderer_torch.ops.pt_core import make_mat_channels  # noqa: E402
 from nrenderer_torch.ops.soa import V3  # noqa: E402
+from test_torch_jax_native import jax_native  # noqa: E402,F401
+
+# the JAX package's loader loads a build of this process's own
+pytestmark = pytest.mark.usefixtures("jax_native")
 
 torch.set_num_threads(1)
 
@@ -53,12 +56,12 @@ def _aabbs(kind):
 
 @pytest.mark.parametrize("kind", ["random", "ties", "blob_960.obj",
                                   "ico_5120.obj"])
-def test_build_bvh_matches_jax_numpy_and_native(kind):
+def test_build_bvh_matches_jax_numpy_and_native(kind, jax_native):
     mn, mx = _aabbs(kind)
     got = bvh.build_bvh(mn, mx)
-    builders = [False] + ([True] if native.available() else [])
-    for use_native in builders:
-        want = jbvh.build_bvh(mn, mx, use_native=use_native)
+    for want in (jbvh.build_bvh(mn, mx, use_native=False),
+                 jax_native.build_bvh(mn, mx)):
+        assert len(want) == len(got)
         for g, w in zip(got, want):
             np.testing.assert_array_equal(g, np.asarray(w))
             assert g.dtype == np.asarray(w).dtype

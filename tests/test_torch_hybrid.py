@@ -54,6 +54,10 @@ from nrenderer_torch.server.registry import get_server
 
 from test_torch_mesh_sweep import CHANNELS, N_RAYS, T_MIN, T_RTOL, \
     _blob_scene, _rays
+from test_torch_jax_native import jax_loader  # noqa: F401
+
+# the JAX package's loader loads a build of this process's own
+pytestmark = pytest.mark.usefixtures("jax_loader")
 
 torch.set_num_threads(1)
 

@@ -37,6 +37,10 @@ from nrenderer_torch.ops.camera import make_camera
 from nrenderer_torch.ops.intersect import make_static_scene
 from nrenderer_torch.ops.pt_core import make_mat_channels, scene_epsilon
 from nrenderer_torch.renderers.acc_pt import AccPathTracerRenderer
+from test_torch_jax_native import jax_loader  # noqa: F401
+
+# the JAX package's loader loads a build of this process's own
+pytestmark = pytest.mark.usefixtures("jax_loader")
 
 torch.set_num_threads(1)
 

@@ -32,6 +32,10 @@ from nrenderer_torch.ops import mesh_cuda
 from nrenderer_torch.ops.bvh import build_mesh_accel
 from nrenderer_torch.ops.soa import V3
 from nrenderer_torch.scene import model
+from test_torch_jax_native import jax_loader  # noqa: F401
+
+# the JAX package's loader loads a build of this process's own
+pytestmark = pytest.mark.usefixtures("jax_loader")
 
 torch.set_num_threads(1)
 

@@ -30,6 +30,10 @@ import nrenderer_torch as P
 from nrenderer_torch.ops import mesh_cuda
 from nrenderer_torch.ops.soa import V3
 from nrenderer_torch.renderers import mlt
+from test_torch_jax_native import jax_loader  # noqa: F401
+
+# the JAX package's loader loads a build of this process's own
+pytestmark = pytest.mark.usefixtures("jax_loader")
 
 torch.set_num_threads(1)
 

@@ -28,6 +28,10 @@ RES = REPO / "resource"
 sys.path.insert(0, str(REPO))
 
 from chip_smoke import tie_pool  # noqa: E402
+from test_torch_jax_native import jax_loader  # noqa: E402,F401
+
+# the JAX package's loader loads a build of this process's own
+pytestmark = pytest.mark.usefixtures("jax_loader")
 
 T_MIN = 1e-3
 CHANNELS = [(0.25, 9.0), (1.0, 2.0)]

@@ -9,7 +9,11 @@ both packages from them; `film_to_rgba8` takes the JAX test's cases.  Each
 coordinate of a plain file is rounded once to float32 (as `strtof` rounds
 it) by the library and by the numpy scan alike.  The library builds into
 `build/nrenderer_torch/`, a failed build raises with the compiler's
-output, and NR_NO_NATIVE=1 is the one way to the numpy versions."""
+output, and NR_NO_NATIVE=1 is the one way to the numpy versions.
+
+Every comparison with the JAX package's library takes it from the
+`jax_native` fixture (`test_torch_jax_native.py`), so it runs in every
+test order."""
 import pathlib
 import sys
 from decimal import Decimal, localcontext
@@ -20,7 +24,6 @@ import pytest
 pytest.importorskip("jax")
 
 import nrenderer_tpu as T  # noqa: E402
-from nrenderer_tpu import native as jnative  # noqa: E402
 from nrenderer_tpu.ops import bvh as jbvh  # noqa: E402
 
 import nrenderer_torch as P  # noqa: E402
@@ -29,6 +32,7 @@ from nrenderer_torch._build import BUILD_DIR  # noqa: E402
 from nrenderer_torch.io import obj as pobj  # noqa: E402
 from nrenderer_torch.ops import bvh  # noqa: E402
 
+from test_torch_jax_native import jax_native  # noqa: E402,F401
 from test_torch_scene import plain  # noqa: E402
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
@@ -85,7 +89,7 @@ def _assert_same(got, want):
 
 @pytest.mark.parametrize("kind", [1, 2, 3, 513, "ico_5120.obj",
                                   "equal_centroids"])
-def test_library_bvh_is_the_numpy_and_jax_builders(kind):
+def test_library_bvh_is_the_numpy_and_jax_builders(kind, jax_native):
     mn, mx = _aabbs(kind)
     if kind == "equal_centroids":
         c = (mn + mx) * np.float32(0.5)
@@ -94,8 +98,8 @@ def test_library_bvh_is_the_numpy_and_jax_builders(kind):
     _assert_same(got, bvh.build_bvh(mn, mx))   # the library by default
     _assert_same(got, bvh.build_bvh(mn, mx, use_native=False))
     _assert_same(got, jbvh.build_bvh(mn, mx, use_native=False))
-    if jnative.available():
-        _assert_same(got, jbvh.build_bvh(mn, mx, use_native=True))
+    _assert_same(got, jax_native.build_bvh(mn, mx))
+    _assert_same(got, jbvh.build_bvh(mn, mx, use_native=True))
     n = mn.shape[0]
     assert got[3].shape == (2 * n - 1,)
     assert sorted(got[3][got[3] >= 0].tolist()) == list(range(n))
@@ -134,19 +138,15 @@ def test_obj_scan_is_the_numpy_scan(name, ico_20480):
 
 
 @pytest.mark.parametrize("name", FIXTURES + ["ico_20480.obj"])
-def test_obj_scan_is_the_jax_native_scan(name, ico_20480):
-    if not jnative.available():
-        pytest.skip("the JAX package's native library did not load")
+def test_obj_scan_is_the_jax_native_scan(name, ico_20480, jax_native):
     path = str(_path(name, ico_20480))
-    _assert_same(native.obj_scan(path), jnative.obj_scan(path))
+    _assert_same(native.obj_scan(path), jax_native.obj_scan(path))
 
 
 @pytest.mark.parametrize("no_native", ["0", "1"])
 @pytest.mark.parametrize("name", FIXTURES + ["ico_20480.obj"])
 def test_load_obj_builds_the_jax_scene(name, no_native, ico_20480,
-                                       monkeypatch):
-    if not jnative.available():
-        pytest.skip("the JAX package's native library did not load")
+                                       monkeypatch, jax_native):
     monkeypatch.setenv("NR_NO_NATIVE", no_native)
     path = str(_path(name, ico_20480))
     ps = P.load_obj(path)
@@ -166,7 +166,7 @@ def _film_to_rgba8_numpy(film, apply_gamma):
                                         np.uint8)], axis=-1)
 
 
-def test_film_to_rgba8():
+def test_film_to_rgba8(jax_native):
     """The JAX test's cases (`tests/test_native.py`), then the library
     against numpy and the JAX library on a random film."""
     film = np.array([[[0.0, 0.25, 1.5], [-1.0, 1.0, 0.5]]], np.float32)
@@ -183,9 +183,8 @@ def test_film_to_rgba8():
         got = native.film_to_rgba8(film, gamma)
         np.testing.assert_array_equal(
             got, _film_to_rgba8_numpy(film, gamma))
-        if jnative.available():
-            np.testing.assert_array_equal(
-                got, jnative.film_to_rgba8(film, gamma))
+        np.testing.assert_array_equal(
+            got, jax_native.film_to_rgba8(film, gamma))
 
 
 def _midpoint_decimals(n: int, seed: int) -> list:
@@ -211,7 +210,7 @@ def _midpoint_decimals(n: int, seed: int) -> list:
     return out
 
 
-def test_coordinates_round_once(tmp_path, ico_20480):
+def test_coordinates_round_once(tmp_path, ico_20480, jax_native):
     """The double-rounding fault: `np.float32(float(s))` rounds twice
     and reads DOUBLE_ROUNDING as 1.0, where `strtof` reads 1.0000001.
     The JAX package's native scan, the port's library and the port's
@@ -229,8 +228,7 @@ def test_coordinates_round_once(tmp_path, ico_20480):
     numpy_scan = pobj._scan_plain(str(path))[0]
     np.testing.assert_array_equal(lib, numpy_scan)
     assert lib[0, 0] == np.float32(1.0000001) != np.float32(1.0)
-    if jnative.available():
-        np.testing.assert_array_equal(lib, jnative.obj_scan(str(path))[0])
+    np.testing.assert_array_equal(lib, jax_native.obj_scan(str(path))[0])
     flat = [d for r in rows for d in r]
     with np.errstate(over="ignore"):
         old = np.float32([float(d) for d in flat]).reshape(-1, 3)

@@ -26,6 +26,10 @@ from nrenderer_torch.ops.intersect import make_static_scene  # noqa: E402
 from nrenderer_torch.ops.pt_core import make_mat_channels  # noqa: E402
 
 from test_torch_scene import assert_static_equal, plain  # noqa: E402
+from test_torch_jax_native import jax_loader  # noqa: E402,F401
+
+# the JAX package's loader loads a build of this process's own
+pytestmark = pytest.mark.usefixtures("jax_loader")
 
 torch.set_num_threads(1)
 

@@ -25,6 +25,10 @@ from nrenderer_torch.renderers.preview import (
 )
 from nrenderer_torch.renderers.raycast import RayCastRenderer, render_raycast
 from nrenderer_torch.server.manager import ComponentManager
+from test_torch_jax_native import jax_loader  # noqa: F401
+
+# the JAX package's loader loads a build of this process's own
+pytestmark = pytest.mark.usefixtures("jax_loader")
 
 torch.set_num_threads(1)
 

@@ -31,6 +31,10 @@ from nrenderer_torch.ops.soa import (
     V3, lerp3, norm3, one_hot_argmin, reflect3, select_prim, select_prim3,
     splat, to_array, v3,
 )
+from test_torch_jax_native import jax_loader  # noqa: F401
+
+# the JAX package's loader loads a build of this process's own
+pytestmark = pytest.mark.usefixtures("jax_loader")
 
 torch.set_num_threads(1)
 

@@ -35,6 +35,10 @@ REPO = pathlib.Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(REPO))
 
 from chip_smoke import FACE_PLANE_RAYS, tie_pool  # noqa: E402
+from test_torch_jax_native import jax_loader  # noqa: E402,F401
+
+# the JAX package's loader loads a build of this process's own
+pytestmark = pytest.mark.usefixtures("jax_loader")
 
 T_MIN = 1e-3
 BLOCK = 16
