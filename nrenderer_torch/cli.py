@@ -34,12 +34,15 @@ cpu`.
 from __future__ import annotations
 
 import argparse
+import functools
 import logging
 import os
 import sys
 import time
 
 import numpy as np
+
+from .utils.timing import GLOBAL_TIMER
 
 
 def _build_scene(args):
@@ -133,18 +136,19 @@ def _prepare(args):
     from .io.obj import ObjParseError
     from .io.scn import ScnParseError
     from .ops.pt_cuda import check_device
-    try:
-        device = check_device(args.device)
-    except (RuntimeError, ValueError) as exc:
-        print(f"error: {exc}", file=sys.stderr)
+    with GLOBAL_TIMER.phase("cli.parse"):
+        try:
+            device = check_device(args.device)
+        except (RuntimeError, ValueError) as exc:
+            print(f"error: {exc}", file=sys.stderr)
+            return None, 2
+        try:
+            return device, _build_scene(args)
+        except (ScnParseError, ObjParseError) as exc:
+            print(f"error: scene import failed: {exc}", file=sys.stderr)
+        except EnvMapError as exc:
+            print(f"error: {exc}", file=sys.stderr)
         return None, 2
-    try:
-        return device, _build_scene(args)
-    except (ScnParseError, ObjParseError) as exc:
-        print(f"error: scene import failed: {exc}", file=sys.stderr)
-    except EnvMapError as exc:
-        print(f"error: {exc}", file=sys.stderr)
-    return None, 2
 
 
 def _cmd_render(args) -> int:
@@ -201,7 +205,8 @@ def _cmd_render(args) -> int:
             viewer.stop()
         print("render failed", file=sys.stderr)
         return 1
-    write_png(args.out, result.pixels)
+    with GLOBAL_TIMER.phase("cli.png"):
+        write_png(args.out, result.pixels)
     n_rays = args.width * args.height * max(1, args.spp)
     print(f"{args.renderer}[{device.type}]: {args.width}x{args.height} "
           f"spp={args.spp} depth={args.depth} in {wall:.2f}s "
@@ -278,7 +283,8 @@ def _render_multichip(args, scene, device) -> int:
     if img.shape[2] == 3:
         img = np.concatenate(
             [img, np.ones(img.shape[:2] + (1,), np.float32)], axis=2)
-    write_png(args.out, img)
+    with GLOBAL_TIMER.phase("cli.png"):
+        write_png(args.out, img)
     print(f"{args.renderer}[{n} x {device.type}, {out.route}]: "
           f"{args.width}x{args.height} {what} depth={args.depth} in "
           f"{wall:.2f}s -> {args.out}")
@@ -393,8 +399,10 @@ def _cmd_list(args) -> int:
     return 0
 
 
-def main(argv=None) -> int:
-    logging.basicConfig(level=logging.INFO, format="%(levelname)s %(message)s")
+@functools.lru_cache(maxsize=None)
+def _parser() -> argparse.ArgumentParser:
+    """The CLI's parser, built once a process: a build takes ~2 ms, which
+    every command would spend outside its spans."""
     p = argparse.ArgumentParser(prog="nrenderer_torch")
     sub = p.add_subparsers(dest="cmd", required=True)
 
@@ -467,8 +475,17 @@ def main(argv=None) -> int:
     pl = sub.add_parser("list-renderers", help="list registered renderers")
     pl.set_defaults(fn=_cmd_list)
 
-    args = p.parse_args(argv)
-    return args.fn(args)
+    return p
+
+
+def main(argv=None) -> int:
+    logging.basicConfig(level=logging.INFO, format="%(levelname)s %(message)s")
+    args = _parser().parse_args(argv)
+    if args.fn is not _cmd_render:
+        return args.fn(args)
+    # the root of the command's spans (`utils/timing.py`)
+    with GLOBAL_TIMER.phase("cli.render", root=True):
+        return args.fn(args)
 
 
 if __name__ == "__main__":

@@ -77,7 +77,7 @@ from ..scene.arrays import build_scene_arrays
 from ..scene.model import Scene
 from ..server.component import RenderComponent, RenderResult
 from ..server.registry import get_server, register_renderer
-from ..utils.timing import GLOBAL_TIMER, PhaseTimer
+from ..utils.timing import GLOBAL_TIMER
 from . import _wavefront
 from ._wavefront import (
     bounce_uniforms, build_staged_wavefront_fn, build_wavefront_fn,
@@ -165,7 +165,10 @@ def progressive_loop(checkpoint_path, seed, timer, w, h, spp, pcall,
     the (n_pix, 3) linear film SUM of pass `step`; passes use disjoint seeds,
     so a resume reproduces the remaining passes exactly.  A preview is
     posted to the Screen every `preview_every` passes and after the last.
-    Returns (image row 0 = top, first pass run, number of passes)."""
+    `timer` times the loop as `render` (every pass, the first included,
+    with the previews and checkpoint writes between them), and inside it
+    the passes as `first-pass` and `render-pass` and the previews as
+    `host-preview`.  Returns the image, row 0 = top."""
     from ..server.checkpoint import (
         load_checkpoint, render_fingerprint, save_checkpoint)
     film = np.zeros((w * h, 3), np.float32)
@@ -180,22 +183,24 @@ def progressive_loop(checkpoint_path, seed, timer, w, h, spp, pcall,
             get_server().logger.log(
                 f"resumed at {spp_done}/{spp} spp from {checkpoint_path}")
     n_steps = spp // pcall
-    for step in range(start, n_steps):
-        with timer.phase("first-pass" if step == start else "render-pass"):
-            film += render_step(step).cpu().numpy()
-        done = (step + 1) * pcall
-        if (step + 1) % preview_every == 0 or step == n_steps - 1:
-            with timer.phase("host-preview"):
-                img = np.sqrt(np.maximum(film / done, 0.0))
-                img = img.reshape(h, w, 3)[::-1]
-                get_server().screen.set(
-                    np.concatenate([img, np.ones((h, w, 1), np.float32)],
-                                   axis=2), w, h)
-        if checkpoint_path:
-            save_checkpoint(checkpoint_path, film, done, w, h, seed,
-                            fingerprint)
+    with timer.phase("render"):
+        for step in range(start, n_steps):
+            with timer.phase("first-pass" if step == start
+                             else "render-pass"):
+                film += render_step(step).cpu().numpy()
+            done = (step + 1) * pcall
+            if (step + 1) % preview_every == 0 or step == n_steps - 1:
+                with timer.phase("host-preview"):
+                    img = np.sqrt(np.maximum(film / done, 0.0))
+                    img = img.reshape(h, w, 3)[::-1]
+                    get_server().screen.set(
+                        np.concatenate([img, np.ones((h, w, 1), np.float32)],
+                                       axis=2), w, h)
+            if checkpoint_path:
+                save_checkpoint(checkpoint_path, film, done, w, h, seed,
+                                fingerprint)
     img = np.sqrt(np.maximum(film / spp, 0.0)).reshape(h, w, 3)
-    return np.clip(img[::-1], 0.0, 1.0), start, n_steps
+    return np.clip(img[::-1], 0.0, 1.0)
 
 
 def _device_textures(textures, device):
@@ -290,7 +295,8 @@ class AccPathTracerRenderer(RenderComponent):
 
     def render(self, scene: Scene) -> RenderResult:
         dev = check_device(self.device)
-        timer = PhaseTimer()
+        # each phase is a span "AccPathTracer.<phase>" of GLOBAL_TIMER
+        timer = GLOBAL_TIMER.scope("AccPathTracer")
         ro = scene.render_option
         w, h, spp, depth = (ro.width, ro.height, ro.samples_per_pixel,
                             ro.depth)
@@ -313,10 +319,6 @@ class AccPathTracerRenderer(RenderComponent):
         else:
             img = self._render_megakernel(ss, cam, dev, timer, w, h, spp,
                                           depth, env_map, textures)
-        for name in ("scene-prep", "bvh-build"):
-            if timer.get(name).count:
-                GLOBAL_TIMER.add(f"AccPathTracer.{name}",
-                                 timer.get(name).total_s)
         get_server().logger.log("phases: " + timer.summary())
         get_server().logger.log("Done...")
         rgba = np.concatenate([img, np.ones((h, w, 1), np.float32)], axis=2)
@@ -344,17 +346,12 @@ class AccPathTracerRenderer(RenderComponent):
                                  mesh=mesh, tex=tex)
 
         from ..server.checkpoint import camera_key
-        img, start, n_steps = progressive_loop(
+        return progressive_loop(
             self.checkpoint_path, self.seed, timer, w, h, spp, pcall,
             render_step,
             (ss, camera_key(cam), w, h, spp, depth, self.seed, pcall,
              "megamesh"),
             tuple(textures or ()))
-        GLOBAL_TIMER.add("AccPathTracer.render",
-                         timer.get("render-pass").total_s
-                         if n_steps - start > 1 else
-                         timer.get("first-pass").total_s)
-        return img
 
     def _render_hybrid(self, arrays, ss, cam, dev, timer, w, h, spp, depth,
                        env_map, textures):
@@ -383,7 +380,7 @@ class AccPathTracerRenderer(RenderComponent):
                              env_map=env, textures=tex, staged=staged)
         if n_steps > 4 or (self.checkpoint_path and n_steps > 1):
             from ..server.checkpoint import camera_key
-            img, start, n_run = progressive_loop(
+            img = progressive_loop(
                 self.checkpoint_path, self.seed, timer, w, h, spp, chunk,
                 lambda step: fn(self.seed, step * chunk, chunk),
                 (ss, camera_key(cam), w, h, spp, depth, self.seed, chunk,
@@ -391,23 +388,16 @@ class AccPathTracerRenderer(RenderComponent):
                  env is not None),
                 ((np.asarray(env_map),) if env is not None else ())
                 + tuple(textures or ()))
-            GLOBAL_TIMER.add("AccPathTracer.render",
-                             timer.get("render-pass").total_s
-                             if n_run - start > 1 else
-                             timer.get("first-pass").total_s)
         else:
             if self.checkpoint_path:
                 get_server().logger.warning(
                     f"--checkpoint: render fits a single pass ({spp} spp, "
                     f"chunk {chunk}); nothing to snapshot")
-            render_phase = f"render[{dev.type}]"
-            with timer.phase(render_phase):
+            with timer.phase("render"):
                 film = fn(self.seed, 0, spp).cpu().numpy()
             with timer.phase("host-post"):
                 img = np.sqrt(np.maximum(film / spp, 0.0)).reshape(h, w, 3)
                 img = np.clip(img[::-1], 0.0, 1.0)
-            GLOBAL_TIMER.add("AccPathTracer.render",
-                             timer.get(render_phase).total_s)
         get_server().logger.log(
             "hybrid route: " + ", ".join(
                 f"{k} {v}" for k, v in {**mesh_cuda.ROUTE_COUNTS,
@@ -435,30 +425,22 @@ class AccPathTracerRenderer(RenderComponent):
                                      bsdf=True, env=env, tex=tex)
 
             from ..server.checkpoint import camera_key
-            img, start, n_steps = progressive_loop(
+            return progressive_loop(
                 self.checkpoint_path, self.seed, timer, w, h, spp, pcall,
                 render_step,
                 (ss, camera_key(cam), w, h, spp, depth, self.seed, pcall,
                  "megakernel", use_env),
                 ((np.asarray(env_map),) if use_env else ())
                 + tuple(textures or ()))
-            GLOBAL_TIMER.add("AccPathTracer.render",
-                             timer.get("render-pass").total_s
-                             if n_steps - start > 1 else
-                             timer.get("first-pass").total_s)
-            return img
         if self.checkpoint_path:
             get_server().logger.warning(
                 f"--checkpoint: render fits a single pass ({spp} spp); "
                 "nothing to snapshot")
-        render_phase = f"render[{dev.type}]"
-        with timer.phase(render_phase):
+        with timer.phase("render"):
             # .cpu() waits for the device, so the phase covers the kernel
             img = render_bsdf_pt(ss, cam, w, h, spp, depth, seed=self.seed,
                                  env_map=env_map, textures=textures,
                                  device=dev).cpu().numpy()
         with timer.phase("host-post"):
             img = np.clip(img[::-1], 0.0, 1.0)  # row 0 top; Screen clamp
-        GLOBAL_TIMER.add("AccPathTracer.render",
-                         timer.get(render_phase).total_s)
         return img

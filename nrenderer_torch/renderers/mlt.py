@@ -46,7 +46,6 @@ from __future__ import annotations
 
 import hashlib
 import os
-import time
 from typing import NamedTuple
 
 import numpy as np
@@ -63,7 +62,7 @@ from ..scene.arrays import SceneArrays, build_scene_arrays
 from ..scene.model import Scene
 from ..server.component import RenderComponent, RenderResult
 from ..server.registry import get_server, register_renderer
-from ..utils.timing import GLOBAL_TIMER, PhaseTimer
+from ..utils.timing import GLOBAL_TIMER
 
 PI = float(np.pi)
 LIGHT_ID = -3.0
@@ -881,62 +880,59 @@ def render_mlt(scene: Scene, chains: int = 1024, mutations: int = 256,
          mesh_mxu.enabled(), chains, n_init, block, cap, width, height,
          mutations, seed)).encode()).hexdigest()
     logger = get_server().logger
-    timer = PhaseTimer()
+    # each phase is a span "MetropolisLightTransport.<phase>" of GLOBAL_TIMER
+    timer = GLOBAL_TIMER.scope("MetropolisLightTransport")
     wh = (float(width), float(height))
-    t0 = time.perf_counter()
+    with timer.phase("render"):
+        loaded = (_load_checkpoint(checkpoint_path, fingerprint, dev)
+                  if checkpoint_path else None)
+        if loaded is not None:
+            ch, b, start = loaded
+            logger.log(f"MLT: resumed at block {start}/{n_blocks} "
+                       f"(b = {b:.6g}) from {checkpoint_path}")
+        else:
+            start = 0
+            with timer.phase("b-estimate"):
+                steps = max(1, n_init // chains)
+                total = 0.0
+                for i in range(steps):
+                    u = state_uniforms(ns, chains, i, 0,
+                                       bounce_seed(seed, SEED_B), dev)
+                    total += float(kern.sample(u, wh)[1].sum())
+                b = total / (steps * chains)
+            if not np.isfinite(b) or b <= 0:
+                logger.warning("MLT: brightness estimate b <= 0")
+                return np.zeros((height, width, 4), np.float32)
+            logger.log(f"MLT: b = {b:.6g}")
+            with timer.phase("chain-init"):
+                u = state_uniforms(ns, chains, 0, 0,
+                                   bounce_seed(seed, SEED_INIT), dev)
+                contribs, sc = kern.sample(u, wh)
+                zc = torch.zeros((chains,), device=dev)
+                ch = _Chains(film=torch.zeros((cap + 1, 3), device=dev),
+                             u=u, contribs=contribs, sc=sc, w_acc=zc)
 
-    loaded = (_load_checkpoint(checkpoint_path, fingerprint, dev)
-              if checkpoint_path else None)
-    if loaded is not None:
-        ch, b, start = loaded
-        logger.log(f"MLT: resumed at block {start}/{n_blocks} (b = {b:.6g}) "
-                   f"from {checkpoint_path}")
-    else:
-        start = 0
-        with timer.phase("b-estimate"):
-            steps = max(1, n_init // chains)
-            total = 0.0
-            for i in range(steps):
-                u = state_uniforms(ns, chains, i, 0,
-                                   bounce_seed(seed, SEED_B), dev)
-                total += float(kern.sample(u, wh)[1].sum())
-            b = total / (steps * chains)
-        if not np.isfinite(b) or b <= 0:
-            logger.warning("MLT: brightness estimate b <= 0")
-            return np.zeros((height, width, 4), np.float32)
-        logger.log(f"MLT: b = {b:.6g}")
-        with timer.phase("chain-init"):
-            u = state_uniforms(ns, chains, 0, 0,
-                               bounce_seed(seed, SEED_INIT), dev)
-            contribs, sc = kern.sample(u, wh)
-            zc = torch.zeros((chains,), device=dev)
-            ch = _Chains(film=torch.zeros((cap + 1, 3), device=dev), u=u,
-                         contribs=contribs, sc=sc, w_acc=zc)
-
-    preview_every = int(os.environ.get("NR_MLT_PREVIEW_BLOCKS", "0"))
-    m_seed = bounce_seed(seed, SEED_MUTATE)
-    for i in range(start, n_blocks):
-        with timer.phase("mutate-blocks"):
-            for j in range(block):
-                ch = mutation_step(kern, ch, i * block + j, b, m_seed)
-        if checkpoint_path:
-            _save_checkpoint(checkpoint_path, ch, b, i + 1, fingerprint)
-        if (preview_every > 0 and i + 1 < n_blocks
-                and (i + 1 - start) % preview_every == 0):
-            with timer.phase("preview"):
-                part = _flush(ch, width, height)
-                get_server().screen.set(
-                    tonemap(part, width, height, chains, (i + 1) * block),
-                    width, height)
-    with timer.phase("film-flush"):
-        film = _flush(ch, width, height)
+        preview_every = int(os.environ.get("NR_MLT_PREVIEW_BLOCKS", "0"))
+        m_seed = bounce_seed(seed, SEED_MUTATE)
+        for i in range(start, n_blocks):
+            with timer.phase("mutate-blocks"):
+                for j in range(block):
+                    ch = mutation_step(kern, ch, i * block + j, b, m_seed)
+            if checkpoint_path:
+                _save_checkpoint(checkpoint_path, ch, b, i + 1, fingerprint)
+            if (preview_every > 0 and i + 1 < n_blocks
+                    and (i + 1 - start) % preview_every == 0):
+                with timer.phase("preview"):
+                    part = _flush(ch, width, height)
+                    get_server().screen.set(
+                        tonemap(part, width, height, chains, (i + 1) * block),
+                        width, height)
+        with timer.phase("film-flush"):
+            film = _flush(ch, width, height)
     total_mut = n_blocks * block
     # the flush waits for the device, so these phases cover the mutations
     dt = (timer.get("mutate-blocks").total_s
           + timer.get("film-flush").total_s)
-    GLOBAL_TIMER.add("MLT.mutate", dt)
-    GLOBAL_TIMER.add("MetropolisLightTransport.render",
-                     time.perf_counter() - t0)
     rate = chains * (total_mut - start * block) / max(dt, 1e-9) / 1e3
     logger.log(f"phases: {timer.summary()} ({rate:.1f} Kmut/s)")
     if kern.tri_bvh is not None:

@@ -27,7 +27,7 @@ from ..scene.arrays import SceneArrays, build_scene_arrays
 from ..scene.model import Scene
 from ..server.component import RenderComponent, RenderResult
 from ..server.registry import get_server, register_renderer
-from ..utils.timing import PhaseTimer
+from ..utils.timing import GLOBAL_TIMER
 
 
 def pixel_grid(width: int, height: int, offset: float, device):
@@ -150,13 +150,13 @@ class RayCastRenderer(RenderComponent):
 
     def render(self, scene: Scene) -> RenderResult:
         dev = check_device(self.device)
-        timer = PhaseTimer()
+        timer = GLOBAL_TIMER.scope("RayCast")
         w = scene.render_option.width
         h = scene.render_option.height
         with timer.phase("scene-prep"):
             arrays = build_scene_arrays(scene)
             cam = make_camera(scene.camera, device=dev)
-        with timer.phase(f"render[{dev.type}]"):
+        with timer.phase("render"):
             # .cpu() waits for the device, so the phase covers the ops
             img = render_raycast(arrays, cam, w, h, device=dev).cpu().numpy()
         img = img[::-1]  # bottom-up scan -> row 0 = top

@@ -4,14 +4,14 @@ Rebuild of the reference `ComponentManager`
 (`code/app/include/manager/ComponentManager.hpp:19-70`): `exec(info, scene)`
 creates the component via the factory and runs `RenderComponent.exec` on a
 background thread with state transitions IDLING -> READY -> RUNNING -> FINISH
-plus wall-clock timing, and catches unexpected termination
-(`ComponentManager.hpp:46-63`).  Unlike the reference's detached thread, the
-thread is joinable (`wait()`), and errors are captured rather than lost."""
+and catches unexpected termination (`ComponentManager.hpp:46-63`); the
+reference's wall clock is the renderers' spans (`utils/timing.py`).  Unlike
+the reference's detached thread, the thread is joinable (`wait()`), and
+errors are captured rather than lost."""
 from __future__ import annotations
 
 import enum
 import threading
-import time
 from typing import Optional
 
 from ..scene.model import Scene
@@ -31,8 +31,6 @@ class ComponentManager:
         self._state = State.IDLING
         self._lock = threading.Lock()
         self._thread: Optional[threading.Thread] = None
-        self._t0 = 0.0
-        self._t1 = 0.0
         self._result: Optional[RenderResult] = None
         self._error: Optional[BaseException] = None
 
@@ -40,11 +38,6 @@ class ComponentManager:
     def state(self) -> State:
         with self._lock:
             return self._state
-
-    @property
-    def exec_seconds(self) -> float:
-        with self._lock:
-            return max(0.0, self._t1 - self._t0)
 
     @property
     def result(self) -> Optional[RenderResult]:
@@ -75,11 +68,9 @@ class ComponentManager:
         def on_start():
             with self._lock:
                 self._state = State.RUNNING
-                self._t0 = time.perf_counter()
 
         def on_finish():
             with self._lock:
-                self._t1 = time.perf_counter()
                 self._state = State.FINISH
 
         def run():
@@ -91,7 +82,6 @@ class ComponentManager:
                 get_server().logger.error(f"Unexpected termination: {exc!r}")
                 with self._lock:
                     self._error = exc
-                    self._t1 = time.perf_counter()
                     self._state = State.FINISH
 
         self._thread = threading.Thread(target=run, daemon=True)
