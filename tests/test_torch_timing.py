@@ -87,15 +87,22 @@ def test_worker_thread_spans_take_the_root():
 def test_render_command_spans(renderer, tmp_path):
     """Exactly the command's spans: the root, the parse, the renderer's
     scene prep, render and post on the manager thread (parented to the
-    root), the PNG write; one render id a command."""
+    root), the PNG write with its quantise-filter and deflate inside it;
+    one render id a command."""
     root, spans = _command(_argv(renderer, tmp_path / "a.png"))
     names = sorted(s.name for s in spans)
     assert names == sorted([
         "cli.render", "cli.parse", f"{renderer}.scene-prep",
-        f"{renderer}.render", f"{renderer}.host-post", "cli.png"])
-    assert all(s.parent == root.id for s in spans if s is not root)
-    assert all(root.t0 <= s.t0 <= s.t1 <= root.t1 for s in spans)
+        f"{renderer}.render", f"{renderer}.host-post", "cli.png",
+        "png.quantise-filter", "png.deflate"])
     by = {s.name: s for s in spans}
+    inner = ("png.quantise-filter", "png.deflate")
+    assert all(s.parent == root.id for s in spans
+               if s is not root and s.name not in inner)
+    assert all(by[n].parent == by["cli.png"].id for n in inner)
+    assert by["cli.png"].t0 <= by[inner[0]].t0 <= by[inner[0]].t1 \
+        <= by[inner[1]].t0 <= by[inner[1]].t1 <= by["cli.png"].t1
+    assert all(root.t0 <= s.t0 <= s.t1 <= root.t1 for s in spans)
     order = ["cli.parse", f"{renderer}.scene-prep", f"{renderer}.render",
              f"{renderer}.host-post", "cli.png"]
     assert all(by[a].t1 <= by[b].t0 for a, b in zip(order, order[1:]))
@@ -217,7 +224,10 @@ def test_profile_all_threads_shows_both_threads_ranges(tmp_path):
     assert set(threads) == {
         "nr:cli.render", "nr:cli.parse", "nr:cli.png",
         "nr:SimplePathTracer.scene-prep", "nr:SimplePathTracer.render",
-        "nr:SimplePathTracer.host-post"}
+        "nr:SimplePathTracer.host-post", "nr:png.quantise-filter",
+        "nr:png.deflate"}
     main = threads["nr:cli.render"]
     assert threads["nr:cli.png"] == main
+    assert threads["nr:png.quantise-filter"] == threads["nr:png.deflate"] \
+        == main
     assert threads["nr:SimplePathTracer.render"].isdisjoint(main)
