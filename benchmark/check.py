@@ -4,10 +4,11 @@ reference's recomputation of the same pixels.
 Which renders and pixels are drawn from the run's seed: every render
 whose draw says so (`check.every`), at most `check.renders` of them, and
 always the window's last render; in each, `check.pixels` distinct pixels.
-The reference (`reference/`) recomputes those pixels from the scene file
-and the render's seed at the render's size, samples and depth, and
-quantises them as the PNG writer does.  Two numbers are compared, each with its limit from
-the traffic file (`limits`):
+The configuration's reference (`reference_for`) recomputes those pixels
+from the configuration's files and the render's seed at the render's
+size, samples and depth, and quantises them as the PNG writer does.  Two
+numbers are compared, each with its limit from the traffic file
+(`limits`):
 
 - `max_gap`: the largest difference, in 8-bit levels, of any checked
   channel from the reference's;
@@ -18,12 +19,15 @@ window without a finished render is not correct either."""
 from __future__ import annotations
 
 import hashlib
+import importlib.util
+from pathlib import Path
+from types import ModuleType
 from typing import Dict, List, Optional
 
 import numpy as np
 import torch
 
-from reference import png, scene, tracer
+from reference import png, tracer
 
 
 def draw(seed: int, *key) -> int:
@@ -54,13 +58,19 @@ def chosen(renders: List[dict], limit: int) -> List[dict]:
     return out
 
 
-def reference_pixels(config: dict, traffic: dict, tables, ids, seed: int,
-                     device, dtype=torch.float32, stats=None) -> np.ndarray:
-    return tracer.render_pixels(
-        tables, scene.default_camera(), ids, traffic["width"],
-        traffic["height"], traffic["spp"], traffic["depth"], seed,
-        config["estimator"] == "bsdf", dtype=dtype,
-        device=device, stats=stats)
+def reference_for(config: dict, root) -> ModuleType:
+    """The configuration's reference module (`config["reference"]`, else
+    "analytic"; the contract is `reference/__init__.py`'s), loaded by its
+    path under the checkout `root`, so that a checkout's new files are
+    the ones read."""
+    name = config.get("reference", "analytic")
+    if not name.isidentifier():
+        raise ValueError(f"reference {name!r} is not a module name")
+    path = Path(root) / "benchmark" / "reference" / f"{name}.py"
+    spec = importlib.util.spec_from_file_location(f"reference_{name}", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
 
 def compare(config: dict, traffic: dict, root, seed: int,
@@ -68,7 +78,8 @@ def compare(config: dict, traffic: dict, root, seed: int,
             ) -> Dict[str, float]:
     """The compared numbers over the chosen renders (see the module doc);
     `stats` gains the reference's sample and bounce counts."""
-    tables = scene.load_tables(str(root / config["scene"]))
+    ref = reference_for(config, root)
+    tables = ref.load(config, root)
     w, h = traffic["width"], traffic["height"]
     chk = traffic["check"]
     worst, differ, total, unreadable = 0, 0, 0, 0
@@ -83,8 +94,8 @@ def compare(config: dict, traffic: dict, root, seed: int,
         if img.shape[:2] != (h, w):
             unreadable += 1
             continue
-        want = reference_pixels(config, traffic, tables, ids, r["seed"],
-                                device, stats=stats)
+        want = ref.render_pixels(tables, config, traffic, ids, r["seed"],
+                                 device, torch.float32, stats)
         gap = np.abs(img[rows, cols, :3].astype(np.int64)
                      - want.astype(np.int64))
         worst = max(worst, int(gap.max()))

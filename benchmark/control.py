@@ -1,7 +1,7 @@
-"""The check's control: the reference in the nearest precision below the
-one the configuration states (bfloat16 for float32), put in the
-renderer's place and judged by the check itself (`check.compare`,
-`check.judge`).
+"""The check's control: the configuration's reference
+(`check.reference_for`) in the nearest precision below the one the
+configuration states (bfloat16 for float32), put in the renderer's place
+and judged by the check itself (`check.compare`, `check.judge`).
 
     python3 benchmark/control.py --workload cornell.final --seeds 1,2,3
 
@@ -29,7 +29,7 @@ import torch
 
 import check
 from harness import ROOT, load_spec
-from reference import png, scene, tracer
+from reference import png, tracer
 
 
 def control_run(spec: dict, seed: int, renders: int, device,
@@ -38,7 +38,8 @@ def control_run(spec: dict, seed: int, renders: int, device,
     whose PNGs hold the reference's pixels computed in `dtype`."""
     config, traffic = spec["config"], spec["traffic"]
     w, h, chk = traffic["width"], traffic["height"], traffic["check"]
-    tables = scene.load_tables(str(ROOT / config["scene"]))
+    ref = check.reference_for(config, ROOT)
+    tables = ref.load(config, ROOT)
     with tempfile.TemporaryDirectory(prefix="nrbench.control.") as tmp:
         window = [{"k": k, "seed": check.render_seed(seed, k), "ok": True,
                    "kept": check.kept(seed, k, chk["every"]),
@@ -49,8 +50,8 @@ def control_run(spec: dict, seed: int, renders: int, device,
                 w, h, chk["pixels"], check.pixel_rng(seed, r["k"]))
             img = np.zeros((h, w, 4), np.uint8)
             img[..., 3] = 255
-            img[rows, cols, :3] = check.reference_pixels(
-                config, traffic, tables, ids, r["seed"], device, dtype=dtype)
+            img[rows, cols, :3] = ref.render_pixels(
+                tables, config, traffic, ids, r["seed"], device, dtype, None)
             png.write(r["out"], img)
         numbers = check.compare(config, traffic, ROOT, seed, window, device)
     return check.judge(numbers, traffic["limits"], 0, len(window))

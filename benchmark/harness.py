@@ -2,10 +2,11 @@
 the check, the result line.
 
 The cell (`BENCHMARK.json` `workloads`) names a configuration (a scene,
-the renderer that renders it, the reference's estimator:
-`configs/<name>.json`) and a traffic mix (`traffic/<name>.json`: width,
-height, spp, depth, which renders and pixels the check reads, and the
-check's limits).  A run:
+the renderer that renders it, the reference's estimator, and optionally
+OBJ files `"obj"`, an environment map `"env_map"` and the reference
+module `"reference"`: `configs/<name>.json`) and a traffic mix
+(`traffic/<name>.json`: width, height, spp, depth, which renders and
+pixels the check reads, and the check's limits).  A run:
 
 1. checks that CUDA has the devices the cell asks for (else exits 2 and
    prints no result), builds or loads the renderer's kernel and host
@@ -17,7 +18,7 @@ check's limits).  A run:
    own render seed drawn from `--seed` and its index; a render that
    starts inside the window is waited for;
 3. reads the device's peak memory, frees the renderer's cached memory and
-   checks the PNGs (`check.py`) against the reference;
+   checks the PNGs (`check.py`) against the configuration's reference;
 4. refuses (exits 1, no result) if JAX or the JAX package is loaded;
 5. prints the numbers compared, then the result line: with `--trace 0`
    the cell's end-to-end metrics, with `--trace 1` its per-layer metrics,
@@ -47,8 +48,6 @@ from pathlib import Path
 BENCH = Path(__file__).resolve().parent
 ROOT = BENCH.parent
 FORBIDDEN = ("jax", "jaxlib", "flax", "nrenderer_tpu")
-RENDER_PHASE = {"SimplePathTracer": "SimplePathTracer.render",
-                "AccPathTracer": "AccPathTracer.render"}
 
 
 class SpecError(ValueError):
@@ -101,21 +100,33 @@ def load_reader(name: str, bench: Path = BENCH):
 
 
 def cli_argv(spec: dict, seed: int, out: str, device: str) -> list:
+    """The user's `render` command for one render of the cell: the
+    configuration's scene, then each of its OBJ files (`"obj"`, a list of
+    checkout-relative paths, in order; an OBJ's MTL and textures come
+    with it), the renderer, the traffic's shape, and the configuration's
+    environment map (`"env_map"`, a checkout-relative PNG) if it names
+    one."""
     c, t = spec["config"], spec["traffic"]
-    return ["render", "--scene", str(ROOT / c["scene"]),
-            "--renderer", c["renderer"], "--width", str(t["width"]),
-            "--height", str(t["height"]), "--spp", str(t["spp"]),
-            "--depth", str(t["depth"]), "--seed", str(seed),
-            "--out", out, "--device", device]
+    argv = ["render", "--scene", str(ROOT / c["scene"])]
+    for path in c.get("obj", []):
+        argv += ["--obj", str(ROOT / path)]
+    argv += ["--renderer", c["renderer"], "--width", str(t["width"]),
+             "--height", str(t["height"]), "--spp", str(t["spp"]),
+             "--depth", str(t["depth"]), "--seed", str(seed),
+             "--out", out, "--device", device]
+    if "env_map" in c:
+        argv += ["--env-map", str(ROOT / c["env_map"])]
+    return argv
 
 
 class Spans:
     """Host spans (name, start, end in perf_counter seconds) around the
     renderer's layers, recorded while installed: the scene parse
-    (`io.scn.load_scn`), the renderer's call ("scene-prep": its host work
-    around the render phase), the render phase (`render_simple_pt`,
-    `render_bsdf_pt`), the PNG write (`io.image.write_png`); the harness
-    adds "cli" around each command."""
+    (`io.scn.load_scn`, `io.obj.load_obj`), the renderer's call
+    ("scene-prep": its host work around the render phase), the render
+    phase (`render_simple_pt`, `render_bsdf_pt`, and AccPathTracer's mesh
+    routes whole, their BVH build with them), the PNG write
+    (`io.image.write_png`); the harness adds "cli" around each command."""
 
     def __init__(self):
         self.spans = []
@@ -143,14 +154,17 @@ class Spans:
         self._undo.append((owner, attr, orig))
 
     def install(self) -> None:
-        from nrenderer_torch.io import image, scn
+        from nrenderer_torch.io import image, obj, scn
         from nrenderer_torch.renderers import acc_pt, simple_pt
         self.wrap(scn, "load_scn", "parse")
+        self.wrap(obj, "load_obj", "parse")
         self.wrap(image, "write_png", "png")
         self.wrap(simple_pt.SimplePathTracerRenderer, "render", "scene-prep")
         self.wrap(acc_pt.AccPathTracerRenderer, "render", "scene-prep")
         self.wrap(simple_pt, "render_simple_pt", "render")
         self.wrap(acc_pt, "render_bsdf_pt", "render")
+        self.wrap(acc_pt.AccPathTracerRenderer, "_render_megamesh", "render")
+        self.wrap(acc_pt.AccPathTracerRenderer, "_render_hybrid", "render")
 
     def remove(self) -> None:
         for owner, attr, orig in reversed(self._undo):
@@ -190,7 +204,7 @@ def run_cell(spec: dict, seed: int, seconds: float, trace: bool,
     from nrenderer_torch.utils.timing import GLOBAL_TIMER
 
     config, traffic = spec["config"], spec["traffic"]
-    phase = RENDER_PHASE[config["renderer"]]
+    phase = f"{config['renderer']}.render"
     tmp = Path(tempfile.mkdtemp(prefix="nrbench."))
     shared_out = str(tmp / "render.png")
     spans = Spans() if trace else None
@@ -281,14 +295,14 @@ def run_cell(spec: dict, seed: int, seconds: float, trace: bool,
         failed = sum(not r["ok"] for r in renders)
         correct, shown = check.judge(numbers, traffic["limits"], failed,
                                      sum(r["ok"] for r in renders))
-        from reference import scene
-        tables = scene.load_tables(str(ROOT / config["scene"]))
+        ref = check.reference_for(config, ROOT)
+        tables = ref.load(config, ROOT)
         record = {"renders": renders, "window_start": window_start,
                   "setup_s": setup_s, "trace": trace_rec,
                   "launches": launches, "work": stats, "traffic": traffic,
                   "config": config,
-                  "tables": {"counts": scene.primitive_counts(tables),
-                             "floats": scene.table_floats(tables)}}
+                  "tables": {"counts": ref.counts(tables),
+                             "floats": ref.table_floats(tables)}}
         metrics = {}
         for m in (spec["per_layer"] if trace else spec["end_to_end"]):
             value = load_reader(m["name"])(record)

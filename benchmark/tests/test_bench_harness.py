@@ -1,17 +1,21 @@
 """The benchmark's files: every name and unit in `BENCHMARK.json` and every
 file under `configs/`, `traffic/` and `metrics/` parses and keeps to the
 naming rules; every per-layer metric moves an end-to-end metric that each
-of its cells reports; and a new configuration, traffic mix, cell and
-metric are picked up from new files alone."""
+of its cells reports; the cells' commands are as they were; and a new
+configuration (with OBJ files and a reference of its own), traffic mix,
+cell and metric are picked up from new files alone."""
 import json
 import re
 import shutil
 import sys
+import time
 from pathlib import Path
 
 BENCH = Path(__file__).resolve().parent.parent
 ROOT = BENCH.parent
 sys.path[:0] = [str(BENCH), str(ROOT)]
+
+import pytest  # noqa: E402
 
 import harness  # noqa: E402
 
@@ -82,6 +86,12 @@ def test_files_parse():
         assert cfg["name"] == c["name"] and cfg["reduced"] == c["reduced"]
         assert (ROOT / cfg["scene"]).is_file()
         assert cfg["estimator"] in ("diffuse", "bsdf")
+        files = cfg.get("obj", []) + ([cfg["env_map"]] if "env_map" in cfg
+                                      else [])
+        for path in files:
+            assert (ROOT / path).is_file(), path
+        ref = cfg.get("reference", "analytic")
+        assert (BENCH / "reference" / f"{ref}.py").is_file(), ref
     for w in SPEC["workloads"]:
         t = json.loads((BENCH / "traffic" / f"{w['traffic']}.json")
                        .read_text())
@@ -105,13 +115,54 @@ def test_every_metric_has_a_reader_and_each_cell_reports_enough():
                 m["name"], cell)
 
 
-def test_new_files_are_picked_up_without_editing_any(tmp_path):
+@pytest.mark.parametrize("cell,scene,renderer", [
+    ("cornell.final", "cornell_box.scn", "SimplePathTracer"),
+    ("glass.final", "pt_glass_box.scn", "AccPathTracer")])
+def test_cells_commands_are_frozen(cell, scene, renderer):
+    argv = harness.cli_argv(harness.load_spec(cell), 2 ** 31 + 1, "o.png",
+                            "cuda")
+    assert argv == ["render", "--scene", f"{ROOT}/benchmark/scenes/{scene}",
+                    "--renderer", renderer, "--width", "512", "--height",
+                    "512", "--spp", "2048", "--depth", "20", "--seed",
+                    "2147483649", "--out", "o.png", "--device", "cuda"]
+
+
+# a mesh configuration's reference of its own, as a new file: its tables,
+# counts and (black) pixels mark what went through it
+STUB_REFERENCE = """
+import numpy as np
+
+
+def load(config, root):
+    return {"faces": 960 * len(config["obj"])}
+
+
+def counts(tables):
+    return {"spheres": 0, "triangles": tables["faces"], "planes": 5,
+            "lights": 1}
+
+
+def table_floats(tables):
+    return 4242
+
+
+def render_pixels(tables, config, traffic, ids, seed, device, dtype, stats):
+    if stats is not None:
+        stats["stub_renders"] = stats.get("stub_renders", 0) + 1
+    return np.zeros((len(ids), 3), np.uint8)
+"""
+
+
+def test_new_files_are_picked_up_without_editing_any(tmp_path, monkeypatch):
     root = tmp_path / "checkout"
     shutil.copytree(BENCH, root / "benchmark",
                     ignore=shutil.ignore_patterns("__pycache__"))
     shutil.copy(ROOT / "BENCHMARK.json", root / "BENCHMARK.json")
-    before = {p: p.read_bytes() for p in (root / "benchmark").rglob("*")
-              if p.is_file()}
+    for path in ("resource/mesh_box.scn", "resource/obj/blob_960.obj"):
+        (root / path).parent.mkdir(parents=True, exist_ok=True)
+        shutil.copy(ROOT / path, root / path)
+    before = {p: p.read_bytes() for d in ("benchmark", "resource")
+              for p in (root / d).rglob("*") if p.is_file()}
     b = root / "benchmark"
     cfg = json.loads((b / "configs" / "cornell.json").read_text())
     cfg["name"] = "cornell2"
@@ -121,12 +172,26 @@ def test_new_files_are_picked_up_without_editing_any(tmp_path):
     (b / "traffic" / "tiny.json").write_text(json.dumps(tr))
     (b / "metrics" / "renders_done.tiny.py").write_text(
         "def read(rec):\n    return float(len(rec['renders']))\n")
+    glass = json.loads((b / "configs" / "glass.json").read_text())
+    mesh = dict(glass, name="mesh", scene="resource/mesh_box.scn",
+                obj=["resource/obj/blob_960.obj"], reference="stub_mesh")
+    (b / "configs" / "mesh.json").write_text(json.dumps(mesh))
+    (b / "reference" / "stub_mesh.py").write_text(STUB_REFERENCE)
+    tr = dict(tr, width=16, height=16, spp=2, depth=4,
+              check=dict(tr["check"], every=1, renders=2, pixels=256))
+    (b / "traffic" / "meshtiny.json").write_text(json.dumps(tr))
     spec = json.loads((root / "BENCHMARK.json").read_text())
     spec["configs"].append({"name": "cornell2", "source": "a copy",
                             "file": "benchmark/configs/cornell2.json",
                             "reduced": [], "why": "a test"})
+    spec["configs"].append({"name": "mesh", "source": "a test",
+                            "file": "benchmark/configs/mesh.json",
+                            "reduced": [], "why": "a test"})
     spec["workloads"].append({"name": "cornell2.tiny", "config": "cornell2",
                               "traffic": "tiny", "chips": 1, "why": "a test"})
+    spec["workloads"].append({"name": "mesh.tiny", "config": "mesh",
+                              "traffic": "meshtiny", "chips": 1,
+                              "why": "a test"})
     spec["end_to_end"].append({"name": "tiny_s", "unit": "s",
                                "better": "lower", "bound": 0.05,
                                "source": "host_clock",
@@ -145,6 +210,23 @@ def test_new_files_are_picked_up_without_editing_any(tmp_path):
     assert [m["name"] for m in got["per_layer"]] == ["renders_done.tiny"]
     read = harness.load_reader("renders_done.tiny", bench=b)
     assert read({"renders": [1, 2, 3]}) == 3.0
+    # the mesh cell: its OBJ on the command line right after the scene,
+    # its own reference behind the check and the record's tables
+    monkeypatch.setattr(harness, "ROOT", root)
+    got = harness.load_spec("mesh.tiny", root=root)
+    argv = harness.cli_argv(got, 1, "o.png", "cpu")
+    assert argv[1:5] == ["--scene", f"{root}/resource/mesh_box.scn",
+                         "--obj", f"{root}/resource/obj/blob_960.obj"]
+    assert "--env-map" not in argv
+    result = harness.run_cell(got, 2 ** 31 + 41, 0.3, False,
+                              time.perf_counter(), device="cpu")
+    rec = result["_record"]
+    assert result["failed"] == 0 and result["attempted"] >= 1
+    assert rec["tables"] == {"counts": {"spheres": 0, "triangles": 960,
+                                        "planes": 5, "lights": 1},
+                             "floats": 4242}
+    assert rec["work"]["stub_renders"] >= 1
+    assert result["checked"]["max_gap"]["value"] > 0 and not result["correct"]
     # the old cells read as before, and no file that was there changed
     assert harness.load_spec("cornell.final", root=root)["per_layer"] == \
         harness.load_spec("cornell.final")["per_layer"]

@@ -1,7 +1,7 @@
 """What the benchmark's processes load: neither JAX nor the JAX package
 (compared by each module's whole top-level name), after the harness and
 the reference are imported and after the command refuses for want of a
-card; and the reference loads nothing of the renderer."""
+card; and no module of the reference loads anything of the renderer."""
 import json
 import os
 import subprocess
@@ -42,8 +42,11 @@ def test_harness_and_refusal_load_no_jax():
 
 
 def test_reference_loads_nothing_of_the_renderer():
+    names = sorted(n[:-3] for n in os.listdir(os.path.join(BENCH, "reference"))
+                   if n.endswith(".py") and n != "__init__.py")
+    assert {"analytic", "png", "scene", "tracer"} <= set(names)
     loaded = _top_level_after(
-        "from reference import png, scene, tracer")
+        "import " + ", ".join(f"reference.{n}" for n in names))
     assert not loaded & (FORBIDDEN | {"nrenderer_torch"})
 
 
