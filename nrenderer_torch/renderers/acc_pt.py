@@ -168,7 +168,10 @@ def progressive_loop(checkpoint_path, seed, timer, w, h, spp, pcall,
     `timer` times the loop as `render` (every pass, the first included,
     with the previews and checkpoint writes between them), and inside it
     the passes as `first-pass` and `render-pass` and the previews as
-    `host-preview`.  Returns the image, row 0 = top."""
+    `host-preview`; inside each pass, `pass-wait` runs from the pass's
+    launch through the return of its film's copy to the host, and
+    `film-add` is the add of that film into the host sum.  Returns the
+    image, row 0 = top."""
     from ..server.checkpoint import (
         load_checkpoint, render_fingerprint, save_checkpoint)
     film = np.zeros((w * h, 3), np.float32)
@@ -187,7 +190,10 @@ def progressive_loop(checkpoint_path, seed, timer, w, h, spp, pcall,
         for step in range(start, n_steps):
             with timer.phase("first-pass" if step == start
                              else "render-pass"):
-                film += render_step(step).cpu().numpy()
+                with timer.phase("pass-wait"):
+                    part = render_step(step).cpu().numpy()
+                with timer.phase("film-add"):
+                    film += part
             done = (step + 1) * pcall
             if (step + 1) % preview_every == 0 or step == n_steps - 1:
                 with timer.phase("host-preview"):

@@ -119,7 +119,8 @@ def render_progressive(ss, cam, width, height, spp, depth, seed=0,
     ambient is one; `textures`: the scene's textures when faces carry
     maps.  `timer` (by default `GLOBAL_TIMER.scope("SimplePathTracer")`)
     times the loop as `render`, every pass and preview inside it, and its
-    passes as `first-pass` and `render-pass`, its previews as
+    passes as `first-pass` and `render-pass` (each holding `pass-wait`
+    and `film-add`, `acc_pt.progressive_loop`), its previews as
     `host-preview`."""
     from ..server.checkpoint import camera_key
     from .acc_pt import progressive_loop

@@ -30,7 +30,7 @@ import time
 from dataclasses import dataclass
 from typing import Dict, List, NamedTuple, Optional
 
-# a render command records 8 spans (the progressive routes 3 a pass); a
+# a render command records 8 spans (the progressive routes 5 a pass); a
 # 51 s window of 512², 2048 spp renders ~1200, of 128², 16 spp drafts
 # (~2700 renders) ~22,000
 SPAN_CAPACITY = 1 << 16
