@@ -41,8 +41,13 @@ exits non-zero without a result line:
      `blob_960.obj` at 64x64/16/4 and 500x500/4/20 and
      `pt_bsdf_mesh_tex_kernel` on `tex_grid.obj` at 64x64/16/4 and
      256x256/4/6, with the sweep's schedule counts (triangle-test lane
-     slots of the per-lane and the warp-cooperative sweep); every film bit
-     for bit;
+     slots of the per-lane and the warp-cooperative sweep) and the loop's
+     counters (`pt_cuda.mesh_loop_slots`: the live lane slots held to the
+     plain version's bounces and all its slots to the CPU model of the
+     loop, `mesh_slots`, exactly); every film bit for bit; then B1e at the
+     mesh cell's launch (`ico_5120.obj`, 500x500, 32 spp, depth 20) timed,
+     with its counters, and bit for bit on a band of 8 rows through the
+     ball (as phase 32's B1e);
   9. `mesh_sweep_kernel` on `ico_5120.obj` against its plain version, 2^20
      rays aimed at the mesh, natural and front-to-back block order: every
      output bit for bit (t and idx on every ray), with time, bound and
@@ -354,8 +359,8 @@ KEPT_PTXAS = {
     "15pt_dense_kernelILb1ELb0ELb1ELb1EE": (56, 0, 0, 60),
     "15pt_dense_kernelILb0ELb1ELb1ELb1EE": (32, 0, 0, 61),
     "15pt_dense_kernelILb1ELb1ELb1ELb1EE": (56, 0, 0, 59),
-    "14pt_mesh_kernelILb0EE": (56, 20, 20, 72),
-    "14pt_mesh_kernelILb1EE": (80, 28, 28, 80),
+    "14pt_mesh_kernelILb0EE": (32, 0, 0, 79),
+    "14pt_mesh_kernelILb1EE": (56, 0, 0, 85),
     "17mesh_sweep_kernelILb0EE": (0, 0, 0, 56),
     "17mesh_sweep_kernelILb1EE": (0, 0, 0, 63)}
 
@@ -550,7 +555,10 @@ def phase_parity(width, height, spp, depth, seed=0, scene=SCENE,
                                 mesh=mesh_t, tex=tex_t, stats=stats)
         return film
 
+    if mesh:
+        pt_cuda.mesh_loop_slots(reset=True)
     lin_k = kernel()
+    counters = pt_cuda.mesh_loop_slots(reset=True) if mesh else None
     lin_p = plain(work)
     torch.cuda.synchronize()
     img = lambda f: torch.sqrt(torch.clamp(f * (1.0 / spp), min=0.0))
@@ -570,7 +578,12 @@ def phase_parity(width, height, spp, depth, seed=0, scene=SCENE,
         "bounces_per_sample": work.get("bounces", 0) / work["samples"],
         **({"slab_tests": work["slab_tests"],
             "tri_tests": work.get("tri_tests", 0),
-            "schedule": _pt_schedule(work["schedule"])} if mesh else {}),
+            "schedule": _pt_schedule(work["schedule"]),
+            # the loop's counters beside the CPU prediction
+            "loop_slots": counters, "loop_slots_cpu": mesh_slots(
+                work["path_bounces"], min(spp, pt_cuda.launch_plan(
+                    True, n_pix)[1]))}
+           if mesh else {}),
         # the flat loop in lane slots (pt_cuda.loop_slots): at this shape's
         # launches, the nested loop beside it
         **({"schedule": pt_cuda.loop_slots(
@@ -585,6 +598,11 @@ def phase_parity(width, height, spp, depth, seed=0, scene=SCENE,
     if st["max_abs_err"] != 0.0:
         raise AssertionError(f"{name}: the film differs from the plain "
                              f"version's (max |d| {st['max_abs_err']})")
+    if mesh and (counters["live"], counters["slots"]) != (
+            work["bounces"], st["loop_slots_cpu"]["grouped"]):
+        raise AssertionError(f"{name}: the loop counted {counters}, the "
+                             f"plain version {work['bounces']} bounces and "
+                             f"the model {st['loop_slots_cpu']}")
     return st
 
 
@@ -1422,24 +1440,41 @@ LARGE_BLOCK_CORR_MIN = 0.95
 B1E_BAND_ROWS = (137, 8)
 
 
-def phase_b1e_large(obj, width=500, height=500, spp=32, depth=20) -> dict:
-    """Phase 32's B1e at 640 blocks: one launch of the megamesh route's
-    32-spp pass at 500x500, depth 20, timed; then, on `B1E_BAND_ROWS`
-    (4000 pixels, the same 32 spp), the kernel against its plain version
-    bit for bit, with both times (the plain version's while it counts)
-    and the bound from the plain version's counts on the band (the whole
-    launch's plain version would take minutes at 640 blocks)."""
+def mesh_slots(path_bounces, launch_spp: int) -> dict:
+    """The CPU prediction (`pt_cuda.loop_slots`) of the mesh forms' lane
+    slots beside their counters: the useful share of the nested loop, of
+    the flat loop and of the mesh forms' grouped loop (its slots
+    are the counters' on the same pixels)."""
+    from nrenderer_torch.ops import pt_cuda
+    got = pt_cuda.loop_slots(path_bounces, launch_spp,
+                             regen=pt_cuda.MESH_REGEN_EIGHTHS)
+    return {k: got[k] for k in ("grouped", "nested_share", "flat_share",
+                                "grouped_share")}
+
+
+def phase_b1e_launch(obj, phase, band_rows, width=500, height=500, spp=32,
+                     depth=20) -> dict:
+    """B1e at `obj`'s blocks (phase 8: `ico_5120.obj`, the mesh cell's; phase
+    32: the 81,920-face icosphere): one launch of the megamesh route's
+    32-spp pass at 500x500, depth 20, timed, with its loop counters
+    (`pt_cuda.mesh_loop_slots`); then, on the rows `band_rows` (first row,
+    count; the same 32 spp), the kernel against its plain version bit for
+    bit, with both times (the plain version's while it counts), the bound
+    from the plain version's counts on the band (the whole launch's plain
+    version would take minutes at 640 blocks) and the CPU prediction of
+    the loop's lane slots there (`mesh_slots`)."""
     from nrenderer_torch.ops import pt_cuda
     from nrenderer_torch.ops.bvh import build_mesh_accel
     from nrenderer_torch.ops.mesh_cuda import make_mesh_tables
     from nrenderer_torch.ops.pt_core import make_mat_channels, scene_epsilon
-    print(f"== phase 32: pt_bsdf_mesh_kernel at {os.path.basename(obj)}, "
-          f"{width}x{height}, {spp} spp, depth {depth}")
+    print(f"== phase {phase}: pt_bsdf_mesh_kernel at "
+          f"{os.path.basename(obj)}, {width}x{height}, {spp} spp, depth "
+          f"{depth}")
     ss, cam, _, arrays = _setup("cuda", MESH_SCENE, objs=(obj,))
     mt = make_mesh_tables(build_mesh_accel(arrays,
                                            make_mat_channels(ss)).bt, "cuda")
     t_min = scene_epsilon(ss)
-    row0, rows = B1E_BAND_ROWS
+    row0, rows = band_rows
     pix0, n_band = row0 * width, rows * width
 
     def run(fn, film_rows, **kw):
@@ -1452,9 +1487,11 @@ def phase_b1e_large(obj, width=500, height=500, spp=32, depth=20) -> dict:
     name = "pt_bsdf_mesh_kernel"
     n0 = pt_cuda.KERNEL_LAUNCHES[name]
     launch = lambda: run(pt_cuda.pt_accumulate, width * height)
+    pt_cuda.mesh_loop_slots(reset=True)
     launch()
     torch.cuda.synchronize()
     launches = pt_cuda.KERNEL_LAUNCHES[name] - n0
+    counters = pt_cuda.mesh_loop_slots(reset=True)
     launch_ms = _time_ms(launch, 3)
     band = dict(pix0=pix0, n_pix=n_band)
     kernel = lambda: run(pt_cuda.pt_accumulate, n_band, **band)
@@ -1470,7 +1507,9 @@ def phase_b1e_large(obj, width=500, height=500, spp=32, depth=20) -> dict:
     st = {"kernel": name, "blocks": mt.n_blocks,
           "launch_shape": [width, height, spp, depth],
           "launches_per_pass": launches, "launch_ms": launch_ms,
+          "loop_slots": counters,
           "band_pixels": [pix0, n_band],
+          "band_loop_slots_cpu": mesh_slots(work["path_bounces"], spp),
           "max_abs_err": float((lin_k - lin_p).abs().max()),
           "finite": bool(torch.isfinite(lin_k).all()),
           "kernel_ms": _time_ms(kernel, 3),
@@ -1555,7 +1594,7 @@ def phase_large_mesh(ico_pixels, obj, width=500, height=500, spp=256,
             or lin["block_corr"] < LARGE_BLOCK_CORR_MIN:
         raise AssertionError(f"{name}'s image outside the band of "
                              f"ico_5120's: {lin}")
-    st["b1e"] = phase_b1e_large(obj)
+    st["b1e"] = phase_b1e_launch(obj, 32, B1E_BAND_ROWS)
     st["pipe"], _ = phase_pipe_main_shape(obj=obj, phase=32)
     st["phase_seconds"] = time.perf_counter() - t_phase
     print(f"phase 32 (large mesh) took {st['phase_seconds']:.1f} s")
@@ -2713,6 +2752,11 @@ def main(argv=None) -> int:
         st = phase_parity(size, size, 4, depth, **kw)
         st["max_abs_err"] = max(r["max_abs_err"] for r in runs + [st])
         parity[st["kernel"]] = st
+    # B1e at the mesh cell's launch: ico_5120.obj, 500x500, 32 spp, depth 20
+    b1e_cell = phase_b1e_launch(ICO, 8, B1E_BAND_ROWS)
+    parity["pt_bsdf_mesh_kernel"]["max_abs_err"] = max(
+        parity["pt_bsdf_mesh_kernel"]["max_abs_err"],
+        b1e_cell["max_abs_err"])
     phase_bands()
     sweep = phase_sweep()
     mxu = phase_mxu_sweep()
@@ -2818,10 +2862,12 @@ def main(argv=None) -> int:
         "bound_ms": st["bound_ms"], "bound_by": st["bound_by"],
         "library_ms": None, "shape": st["shape"],
         "sharded_launches": sharded_launches.get(name, 0),
-        **({"large_mesh": {k: large["b1e"][k] for k in (
-            "blocks", "launch_shape", "launch_ms", "band_pixels",
-            "kernel_ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err",
-            "schedule")}} if name == "pt_bsdf_mesh_kernel" else {}),
+        **({f"{row}_mesh": {k: b1e[k] for k in (
+            "blocks", "launch_shape", "launch_ms", "loop_slots",
+            "band_pixels", "band_loop_slots_cpu", "kernel_ms", "plain_ms",
+            "bound_ms", "bound_by", "max_abs_err", "schedule")}
+            for row, b1e in (("cell", b1e_cell), ("large", large["b1e"]))}
+           if name == "pt_bsdf_mesh_kernel" else {}),
         **({"progressive_pass": {
             k: held[k] for k in ("kernel_ms", "plain_ms", "bound_ms",
                                  "bound_by", "max_abs_err", "shape")}}

@@ -68,7 +68,7 @@
 // same device functions there); against the JAX kernel on the CPU the last
 // ulp of the transcendentals differs.
 //
-// Design of the dense pool (pt_dense_kernel): one flat loop per thread whose
+// Design (pt_dense_kernel, pt_mesh_kernel): one flat loop per thread whose
 // iteration is one bounce of whichever sample the thread is on; the iteration
 // that ends a path adds the sample into the pixel's sum and starts the next
 // sample (path regeneration), so the lanes of a warp stay in the loop body
@@ -79,18 +79,18 @@
 // others scatter, nearly every iteration: at 1.5 bounces a sample the env
 // forms ran 1.04-1.15x faster than a nested loop on an H100, the textured quad
 // (97% of a nested loop's slots useful already) 1.4x slower (PERF.md §6).  The
-// grid is persistent: as many blocks as fit on the card at once, each thread
-// taking its next pixel from a counter.  The mesh forms keep a nested loop
-// (pt_mesh_kernel): one thread per pixel, looping over its samples and their
-// bounces; a lane whose path has ended (a dead path changes nothing in the
-// estimator) stays in the bounce loop with no ray until the warp's last path
-// ends, so the warp sweep keeps all 32 lanes.  Pixel ids follow the JAX
-// kernel's numbering, pid = py * W + px with py = 0 the bottom row, so both
-// draw the same hash values.  The scene is a small packed float32 table in
-// device memory; every thread of a warp reads the same address at the same
-// time, so the reads are broadcasts served from L1.  The env map and its bin
-// table are read per miss (at most two reads per sample).  The camera basis
-// and t_min are kernel arguments.
+// dense pool's grid is persistent: as many blocks as fit on the card at
+// once, each thread taking its next pixel from a counter.  The mesh forms
+// keep a plain grid, and a lane whose path ended waits until half the
+// warp's lanes with samples left have ended theirs, and they start their
+// next samples together: the warp sweep needs all 32 lanes at every call,
+// and rays that start together enter the same blocks (pt_mesh_kernel).
+// Pixel ids follow the JAX kernel's numbering, pid = py * W + px with
+// py = 0 the bottom row, so both draw the same hash values.  The scene is a
+// small packed float32 table in device memory; every thread of a warp reads
+// the same address at the same time, so the reads are broadcasts served
+// from L1.  The env map and its bin table are read per miss (at most two
+// reads per sample).  The camera basis and t_min are kernel arguments.
 //
 // The film is a linear (W*H, 3) float32 SUM that each launch adds samples
 // [sp0, sp0 + n_spp) into IN PLACE, one sample after another per pixel: a
@@ -103,20 +103,17 @@
 //
 // What bounds it on the H100: FP32 issue (about 16 primitive tests per bounce
 // for the Cornell box, plus the lobe's math), with the table's loads beside it,
-// and warp divergence: in the mesh forms' nested loop as paths die at different
-// bounces, in every form as lanes of a warp take different lobes of the
-// material switch or, in the flat loop, start a sample (or look up a texel)
-// while others scatter; memory traffic is one film read and write per pixel per
-// launch plus a few env texels per sample.
+// and warp divergence, as lanes of a warp take different lobes of the
+// material switch or start a sample (or look up a texel) while others
+// scatter; memory traffic is one film read and write per pixel per launch
+// plus a few env texels per sample.
 // The mesh form adds per bounce a slab test per block and ~53 operations
 // per triangle of each entered block (the sweep's bound, mesh_sweep.cuh);
 // the warp sweep tests a block few lanes enter with the whole warp, so
 // lanes that enter different blocks no longer serialise 128 tests each.
-// The texture form adds one or two texel reads per hit.  Not done: the
-// flat loop in the mesh forms (slower there: the warp sweep needs every
-// lane at each call); per-scene specialisation; sorting of rays by
-// material; FMA contraction (about 11% faster, but not bit for bit with
-// the plain version).
+// The texture form adds one or two texel reads per hit.  Not done:
+// per-scene specialisation; sorting of rays by material; FMA contraction
+// (about 11% faster, but not bit for bit with the plain version).
 //
 // Built with nvcc for sm_90a without --use_fast_math (the hit tests and the
 // hash need IEEE division and sqrt) and with -fmad=false (see above; the
@@ -549,99 +546,158 @@ __device__ __forceinline__ float sphere_plane_hit(
   return t_best;
 }
 
-// The BSDF estimator with the blocked pool swept by the warp sweep.  The warp
-// sweep needs all 32 lanes at every call, so the bounce loop runs while any
-// lane of the warp still has a live path, and a lane whose path has ended (or
-// that lies past the image) sweeps with no ray, as a helper; every lane then
-// starts the next sample together.  (A flat loop, each lane starting its next
-// sample as soon as its path ends, gives the same film but was slower on the
-// card: the lanes starting a sample and the lanes scattering diverge in every
-// iteration, and it saves no sweep work, see chip_smoke.py phase 8's schedule
-// counts.)
+// The BSDF estimator with the blocked pool swept by the warp sweep, one
+// thread a pixel on a plain grid, in one flat loop per thread: an
+// iteration is one bounce of whichever sample the lane is on.  The warp
+// sweep needs all 32 lanes at every call, so every lane runs every
+// iteration while any lane of the warp has samples left; a lane with no
+// path (its path ended, its pixel done, or past the range) sweeps with no
+// ray, a helper with cap -inf.  A lane whose path ends adds the sample
+// into its pixel's sum and waits; the waiting lanes start their next
+// samples together once kRegenEighths / 8 of the lanes with samples left
+// wait.  Measured on the mesh cell's launch (ico_5120, 40 blocks, 500x500,
+// 32 spp, depth 20) on an H100 (PERF.md §6):
+//   - the nested loop this replaced (samples around bounces, every lane
+//     waiting for the warp's longest path): 35% of lane slots live, 47.3-
+//     47.9 ms; each iteration pays the sweep's slab step for each block;
+//   - each lane starting its next sample at once (kRegenEighths 0): 77-79%
+//     live, yet 46.2-47.1 ms: the lanes' rays drift apart in bounce, so
+//     fewer lanes enter a block together and the sweep takes 46% more
+//     blocks a lane at a time (its sparse steps, each a serial chain of
+//     shuffles);
+//   - half (4): 65% live, camera rays starting together, 41.5-42.3 ms;
+//     3, 5 and 6 were up to 1.5% slower, 8 (the nested schedule) 49.1 ms;
+//   - a persistent grid, lanes taking pixels from a counter, lost the
+//     coherence of a warp's 32 neighbouring pixels (2-3% slower); warps
+//     taking 32 pixels at a time matched the plain grid.
+// The loop's one exit is its test: a branch inside the body rejoins at the
+// body's end.  The film is read once and written once per pixel, the
+// samples added in order, each with the plain version's float operations
+// and hash arguments: its sums bit for bit.  The launch bound leaves the
+// loop 79 registers (85 textured) and no spill; ptxas took 72 and spilled
+// 8 B without it, at 6 blocks an SM 77: 1-3% slower each.
+//
+// `loop_slots` (two counters, device): each warp adds at its exit the lane
+// slots it ran (32 a loop iteration) and those of lanes with a path
+// (the bounces), from the loop's own ballots (pt_cuda.mesh_loop_slots;
+// pt_cuda.loop_slots' "grouped" model gives the same slots).
+constexpr int kRegenEighths = 4;
+
 template <bool kTex>
-__global__ void __launch_bounds__(128)
+__global__ void __launch_bounds__(128, 5)
 pt_mesh_kernel(float* __restrict__ film, const float* __restrict__ scene,
                const SceneCounts nc, const CamArgs cam, const int width,
                const int pix0, const int pix_end, const int sp0,
                const int n_spp, const int depth, const uint32_t seed,
                const nr_mesh::MeshArgs mesh,
-               const float* __restrict__ tex_tab, const int n_tex) {
+               const float* __restrict__ tex_tab, const int n_tex,
+               unsigned long long* __restrict__ loop_slots) {
   const int pid = pix0 + blockIdx.x * blockDim.x + threadIdx.x;
-  const bool in_image = pid < pix_end;
-  const int py = pid / width;
-  const int px = pid - py * width;
-  const float pxf = (float)px;
-  const float pyf = (float)py;
-  const uint32_t upid = (uint32_t)pid;
+  if (n_spp <= 0) return;
 
   const float* __restrict__ sph = scene;
   const float* __restrict__ pln = sph + nc.n_sph * SPH_STRIDE;
   const float* __restrict__ al = pln + nc.n_pln * PLN_STRIDE;
   const float* __restrict__ mat = al + nc.n_al * AL_STRIDE;
   const float* __restrict__ amb = mat + nc.n_mat * MAT_STRIDE;
-  const float amb_r = amb[0], amb_g = amb[1], amb_b = amb[2];
 
+  if (depth <= 0) {  // every sample is the ambient term alone
+    if (pid >= pix_end) return;
+    float fr = film[3 * pid + 0];
+    float fg = film[3 * pid + 1];
+    float fb = film[3 * pid + 2];
+    for (int k = 0; k < n_spp; ++k) {
+      const float tr = 1.0f, tg = 1.0f, tb = 1.0f;
+      float rr = 0.0f, rg = 0.0f, rb = 0.0f;
+      rr += tr * amb[0];
+      rg += tg * amb[1];
+      rb += tb * amb[2];
+      fr += rr;
+      fg += rg;
+      fb += rb;
+    }
+    film[3 * pid + 0] = fr;
+    film[3 * pid + 1] = fg;
+    film[3 * pid + 2] = fb;
+    return;
+  }
+
+  bool has_px = pid < pix_end;  // the lane has a pixel with samples left
+  bool alive = has_px;          // and a path at its bounce b
+  const int py = pid / width;
+  const int px = pid - py * width;
   float fr = 0.0f, fg = 0.0f, fb = 0.0f;
-  if (in_image) {
+  if (has_px) {
     fr = film[3 * pid + 0];
     fg = film[3 * pid + 1];
     fb = film[3 * pid + 2];
   }
-  for (int k = 0; k < n_spp; ++k) {
-    float ox, oy, oz, dx, dy, dz;
-    camera_ray(cam, upid, (uint32_t)(sp0 + k), seed, pxf, pyf, ox, oy, oz,
-               dx, dy, dz);
+  int k = 0;  // the sample, from sp0
+  int b = 0;  // its bounce
+  float ox, oy, oz, dx, dy, dz;
+  camera_ray(cam, (uint32_t)pid, (uint32_t)sp0, seed, (float)px, (float)py,
+             ox, oy, oz, dx, dy, dz);
+  float tr = 1.0f, tg = 1.0f, tb = 1.0f;
+  unsigned iters = 0, live = 0;  // the warp's loop iterations, live lanes
+  for (unsigned work; (work = __ballot_sync(nr_mesh::kFullMask, has_px));) {
+    // lanes whose path has ended start their next sample together, once
+    // kRegenEighths / 8 of the lanes with work wait
+    const unsigned waiting =
+        __ballot_sync(nr_mesh::kFullMask, has_px && !alive);
+    if (waiting != 0u &&
+        8 * __popc(waiting) >= kRegenEighths * __popc(work) && !alive &&
+        has_px) {
+      b = 0;
+      camera_ray(cam, (uint32_t)pid, (uint32_t)(sp0 + k), seed, (float)px,
+                 (float)py, ox, oy, oz, dx, dy, dz);
+      tr = 1.0f;
+      tg = 1.0f;
+      tb = 1.0f;
+      alive = true;
+    }
+    ++iters;
+    live += __popc(__ballot_sync(nr_mesh::kFullMask, alive));
+    const uint32_t upid = (uint32_t)pid;
     const uint32_t sp = (uint32_t)(sp0 + k);
-    float tr = 1.0f, tg = 1.0f, tb = 1.0f;
+    const uint32_t bseed = seed + (uint32_t)b * 0x9E3779B1u;
+    float nx = 0.0f, ny = 0.0f, nz = 0.0f;
+    int m_best = 0;
+    float t_best = -INFINITY;
+    if (alive) {
+      t_best = sphere_plane_hit(sph, pln, nc, cam.t_min, ox, oy, oz, dx, dy,
+                                dz, nx, ny, nz, m_best);
+    }
+    nr_mesh::SweepHit sh;
+    nr_mesh::warp_sweep<kTex>(mesh, ox, oy, oz, dx, dy, dz, cam.t_min,
+                              t_best, -1, sh);
+    if (!alive) continue;
+    float hu = 0.0f, hv = 0.0f, htex = -1.0f;
+    if (sh.idx >= 0.0f) {
+      t_best = sh.t;
+      nx = sh.nx;
+      ny = sh.ny;
+      nz = sh.nz;
+      m_best = mesh_mat_row(sh.mat, nc.n_mat);
+      if constexpr (kTex) {
+        hu = sh.u;
+        hv = sh.v;
+        htex = sh.tex;
+      }
+    }
+    float t_l = INFINITY, lr_ = 0.0f, lg_ = 0.0f, lb_ = 0.0f;
+    for (int i = 0; i < nc.n_al; ++i) {
+      const float* p = al + i * AL_STRIDE;
+      const float th = patch_t(p, ox, oy, oz, dx, dy, dz, cam.t_min);
+      if (th < t_l) {
+        t_l = th;
+        lr_ = p[13];
+        lg_ = p[14];
+        lb_ = p[15];
+      }
+    }
+    // the sample's radiance, added into the pixel's sum when its path ends
     float rr = 0.0f, rg = 0.0f, rb = 0.0f;
-    bool alive = in_image;
-    for (int b = 0; b < depth; ++b) {
-      if (!__any_sync(nr_mesh::kFullMask, alive)) break;
-      const uint32_t bseed = seed + (uint32_t)b * 0x9E3779B1u;
-      float nx = 0.0f, ny = 0.0f, nz = 0.0f;
-      int m_best = 0;
-      float t_best = -INFINITY;
-      if (alive) {
-        t_best = sphere_plane_hit(sph, pln, nc, cam.t_min, ox, oy, oz, dx,
-                                  dy, dz, nx, ny, nz, m_best);
-      }
-      nr_mesh::SweepHit sh;
-      nr_mesh::warp_sweep<kTex>(mesh, ox, oy, oz, dx, dy, dz, cam.t_min,
-                                t_best, -1, sh);
-      if (!alive) continue;
-      float hu = 0.0f, hv = 0.0f, htex = -1.0f;
-      if (sh.idx >= 0.0f) {
-        t_best = sh.t;
-        nx = sh.nx;
-        ny = sh.ny;
-        nz = sh.nz;
-        m_best = mesh_mat_row(sh.mat, nc.n_mat);
-        if constexpr (kTex) {
-          hu = sh.u;
-          hv = sh.v;
-          htex = sh.tex;
-        }
-      }
-      float t_l = INFINITY, lr_ = 0.0f, lg_ = 0.0f, lb_ = 0.0f;
-      for (int i = 0; i < nc.n_al; ++i) {
-        const float* p = al + i * AL_STRIDE;
-        const float th = patch_t(p, ox, oy, oz, dx, dy, dz, cam.t_min);
-        if (th < t_l) {
-          t_l = th;
-          lr_ = p[13];
-          lg_ = p[14];
-          lb_ = p[15];
-        }
-      }
-      if (!((t_best < INFINITY) && (t_best < t_l))) {
-        if (t_l < INFINITY) {
-          rr += tr * lr_;
-          rg += tg * lg_;
-          rb += tb * lb_;
-        }
-        alive = false;
-        continue;
-      }
+    if ((t_best < INFINITY) && (t_best < t_l)) {
       const float u1 = hash_uniform(upid, sp, 4u, bseed);
       const float u2 = hash_uniform(upid, sp, 5u, bseed);
       const float* mt = mat + m_best * MAT_STRIDE;
@@ -664,20 +720,36 @@ pt_mesh_kernel(float* __restrict__ film, const float* __restrict__ scene,
       dx = nd.x;
       dy = nd.y;
       dz = nd.z;
+      alive = ++b < depth;
+      if (!alive) {  // depth cap: ambient constant
+        rr += tr * amb[0];
+        rg += tg * amb[1];
+        rb += tb * amb[2];
+      }
+    } else {
+      if (t_l < INFINITY) {  // the light comes first
+        rr += tr * lr_;
+        rg += tg * lg_;
+        rb += tb * lb_;
+      }
+      alive = false;
     }
-    if (alive) {
-      rr += tr * amb_r;
-      rg += tg * amb_g;
-      rb += tb * amb_b;
+    if (!alive) {  // the path ended: its sample into the pixel's sum
+      fr += rr;
+      fg += rg;
+      fb += rb;
+      if (++k == n_spp) {  // the pixel is done
+        film[3 * pid + 0] = fr;
+        film[3 * pid + 1] = fg;
+        film[3 * pid + 2] = fb;
+        has_px = false;
+      }
     }
-    fr += rr;
-    fg += rg;
-    fb += rb;
   }
-  if (!in_image) return;
-  film[3 * pid + 0] = fr;
-  film[3 * pid + 1] = fg;
-  film[3 * pid + 2] = fb;
+  if ((threadIdx.x & 31) == 0) {
+    atomicAdd(loop_slots, 32ull * iters);
+    atomicAdd(loop_slots + 1, (unsigned long long)live);
+  }
 }
 
 // The dense pool, one kernel: B1a (pt_diffuse_kernel), B1b
@@ -1154,7 +1226,9 @@ extern "C" {
 // `mesh_uvs` with textures); `tex_tab` (device): n_tex binned textures;
 // `next_pixel` (device, one int; every form but the mesh ones): the pixel
 // counter, zeroed here before the launch; `dense_rec` (device; form 0):
-// the primitive records (pt_cuda.dense_records).
+// the primitive records (pt_cuda.dense_records); `loop_slots` (device, two
+// counters; the mesh forms): their loop's lane slots and live ones,
+// added to.
 int nr_pt_render(float* film, const float* scene, const int* counts,
                  const float* cam, int width, int height, int pix0,
                  int n_pix, int sp0, int n_spp,
@@ -1163,7 +1237,8 @@ int nr_pt_render(float* film, const float* scene, const int* counts,
                  const float* mesh_tris, const float* mesh_uvs,
                  const float* mesh_bb, int n_blocks, int block,
                  const float* tex_tab, int n_tex, int* next_pixel,
-                 const float* dense_rec, void* stream) {
+                 const float* dense_rec, unsigned long long* loop_slots,
+                 void* stream) {
   SceneCounts nc{counts[0], counts[1], counts[2], counts[3], counts[4]};
   CamArgs ca;
   const float* c = cam;
@@ -1233,13 +1308,14 @@ int nr_pt_render(float* film, const float* scene, const int* counts,
     }
   }
   // the mesh forms: pt_mesh_kernel on a plain grid
-  if (form != 5 && form != 13) return (int)cudaErrorInvalidValue;
+  if ((form != 5 && form != 13) || loop_slots == nullptr)
+    return (int)cudaErrorInvalidValue;
   const auto mesh_kernel =
       form == 13 ? pt_mesh_kernel<true> : pt_mesh_kernel<false>;
   mesh_kernel<<<blocks, threads, 0, st>>>(film, scene, nc, ca, width, pix0,
                                           pix_end, sp0, n_spp, depth,
                                           (uint32_t)seed, mesh, tex_tab,
-                                          n_tex);
+                                          n_tex, loop_slots);
   return (int)cudaGetLastError();
 }
 

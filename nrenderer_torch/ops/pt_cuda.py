@@ -11,9 +11,12 @@ those five with binned surface textures (`textures`).  The kernel,
 source header says what it computes and how.  Every form without a mesh
 (the dense, env and texture forms) runs one flat bounce loop per pixel with
 path regeneration on a persistent grid (`pt_dense_kernel`), in launches of
-`DENSE_PIXEL_SAMPLES_PER_LAUNCH`; the mesh forms keep a plain grid and
-`PIXEL_SAMPLES_PER_LAUNCH` (`launch_plan`).  `loop_slots` counts the flat
-loop's lane slots from the plain version's per-path bounce counts.
+`DENSE_PIXEL_SAMPLES_PER_LAUNCH`; the mesh forms run a flat loop around
+the warp sweep whose lanes start their next samples in groups
+(`pt_mesh_kernel`, `MESH_REGEN_EIGHTHS`), on a plain grid, in launches of
+`PIXEL_SAMPLES_PER_LAUNCH` (`launch_plan`).  `loop_slots` counts the
+loops' lane slots from the plain version's per-path bounce counts; on the
+card the mesh forms count their own (`mesh_loop_slots`).
 
 `pt_accumulate` is the wrapper: for a film tensor on a CUDA device it
 launches the kernel instantiation the form needs (and raises if the build or
@@ -49,6 +52,7 @@ as one call.  Entry points return the JAX contract: `render_simple_pt` /
 from __future__ import annotations
 
 import ctypes
+import threading
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -304,7 +308,7 @@ def _kernels() -> ctypes.CDLL:
         lib.nr_pt_render.argtypes = [
             vp, vp, ctypes.POINTER(ci), ctypes.POINTER(ctypes.c_float),
             ci, ci, ci, ci, ci, ci, ci, ci, ci, vp, vp, ci, ci, vp, vp, vp,
-            ci, ci, vp, ci, vp, vp, vp]
+            ci, ci, vp, ci, vp, vp, vp, vp]
         lib.nr_pt_render.restype = ci
         lib.nr_hash_uniform_fill.argtypes = [vp, vp, vp, vp, vp, ci, vp]
         lib.nr_hash_uniform_fill.restype = ci
@@ -434,6 +438,54 @@ def launch_plan(mesh: bool, n_pix: int) -> tuple:
     return not mesh, max(1, per // n_pix)
 
 
+# The mesh forms' regeneration share (csrc/pt_kernel.cu kRegenEighths): a
+# lane whose path ended waits until this many eighths of the warp's lanes
+# with samples left wait, then they start their next samples together.
+MESH_REGEN_EIGHTHS = 4
+
+# The mesh forms' loop counters, one (2,) int64 tensor a device, allocated
+# at the first mesh launch there: the lane slots the loop ran and those
+# of lanes with a path, added by each warp as it leaves.
+_LOOP_SLOTS = {}
+_LOOP_SLOTS_LOCK = threading.Lock()
+
+
+def _loop_slot_counters(device: torch.device) -> torch.Tensor:
+    with _LOOP_SLOTS_LOCK:
+        key = str(device)
+        if key not in _LOOP_SLOTS:
+            _LOOP_SLOTS[key] = torch.zeros(2, dtype=torch.int64,
+                                           device=device)
+        return _LOOP_SLOTS[key]
+
+
+def mesh_loop_slots(device="cuda", reset: bool = False) -> Optional[dict]:
+    """The mesh forms' loop counters on a CUDA `device` since the first
+    mesh launch there (or the last reset): "slots", the lane slots their
+    loop ran (32 a warp iteration), "live", those of lanes with a path
+    (the bounces, as the plain version's stats count them), and
+    "live_share".  Synchronises the device; None without a card or before
+    any mesh launch there.  `reset` zeroes them after reading.  Raises
+    ValueError for a device that is not CUDA."""
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        raise ValueError(f"the loop counters live on a CUDA device, not "
+                         f"{dev}")
+    if not torch.cuda.is_available():
+        return None
+    if dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    counters = _LOOP_SLOTS.get(str(dev))
+    if counters is None:
+        return None
+    torch.cuda.synchronize(dev)
+    slots, live = (int(x) for x in counters.tolist())
+    if reset:
+        counters.zero_()
+    return {"slots": slots, "live": live,
+            "live_share": live / slots if slots else 0.0}
+
+
 def _pt_accumulate_cuda(film, ss, cam, width, height, sp0, n_spp, depth,
                         seed, t_min, name, bsdf, env, mesh, tex, pix0,
                         n_pix) -> None:
@@ -469,6 +521,7 @@ def _pt_accumulate_cuda(film, ss, cam, width, height, sp0, n_spp, depth,
         if persistent else None
     rec = torch.as_tensor(dense_records(table, counts), device=film.device) \
         if form == 0 else None
+    slots = None if mesh is None else _loop_slot_counters(film.device)
     with torch.cuda.device(film.device):
         stream = torch.cuda.current_stream().cuda_stream
         for c0 in range(0, n_spp, per_launch):
@@ -482,7 +535,8 @@ def _pt_accumulate_cuda(film, ss, cam, width, height, sp0, n_spp, depth,
                                    None if next_pixel is None
                                    else next_pixel.data_ptr(),
                                    None if rec is None else rec.data_ptr(),
-                                   stream)
+                                   None if slots is None
+                                   else slots.data_ptr(), stream)
             _check_launch(lib, err, name)
             KERNEL_LAUNCHES[name] += 1
 
@@ -548,7 +602,7 @@ def pt_accumulate_plain(film: torch.Tensor, ss: StaticScene,
     list under "enter", "schedule" holds `mesh_cuda.schedule_counts` of
     the sweeps grouped as two loops would run them: "lockstep" (the warp's
     lanes at the same sample and bounce, ended paths waiting for the
-    warp's longest: the kernels' loop) and "flat" (each lane at its own
+    warp's longest: the nested loop) and "flat" (each lane at its own
     bounce count, starting its next sample as soon as a path ends)."""
     dev = film.device
     cam = CameraParams(*(x.to(dev) for x in cam))
@@ -672,12 +726,16 @@ def _sweep_groups(sched: list, enters: list, alive_at: list,
 
 
 def loop_slots(path_bounces: torch.Tensor, launch_spp: int,
-               resident: Optional[int] = None) -> dict:
-    """Lane slots (one lane for one bounce iteration) of the bounce loops
-    of the forms without a mesh, from each path's bounce count (`path_bounces`, the
-    (n_pix, n_spp) tensor of `pt_accumulate_plain`'s stats), with pixel p
-    in lane p % 32 of warp p // 32; a ragged last warp's missing lanes
-    count as idle slots:
+               resident: Optional[int] = None,
+               regen: Optional[int] = None) -> dict:
+    """Lane slots (one lane for one bounce iteration) of the path-tracing
+    kernel's bounce loops, from each path's bounce count (`path_bounces`,
+    the (n_pix, n_spp) tensor of `pt_accumulate_plain`'s stats), with pixel
+    p in lane p % 32 of warp p // 32; a ragged last warp's missing lanes
+    count as idle slots.  A slot is one iteration of one lane whether or
+    not it has a path: in the mesh forms every lane of a warp runs every
+    iteration (the warp sweep needs all 32), so their slots are the
+    warp's iterations times 32 in the same way:
 
     - "useful": the bounces themselves, the sum of the counts;
     - "nested": a loop over samples around a loop over bounces, the warp's
@@ -689,7 +747,12 @@ def loop_slots(path_bounces: torch.Tensor, launch_spp: int,
     - "persistent", with `resident` lanes (a multiple of 32): the flat loop
       with each lane taking its next pixel from a counter when it has done
       one, in the order lanes become free (ties by lane); per warp and
-      launch, 32 x the largest total over its lanes.
+      launch, 32 x the largest total over its lanes;
+    - "grouped", with `regen` (eighths; the mesh forms'
+      MESH_REGEN_EIGHTHS): the mesh forms' loop, where a lane whose path
+      ended waits and the waiting lanes start their next samples together
+      once 8 x waiting >= regen x (lanes with samples left), per warp and
+      launch (regen 0 is the flat loop, 8 the nested one).
 
     "<loop>_share" is useful / slots."""
     n_pix, n_spp = path_bounces.shape
@@ -701,17 +764,52 @@ def loop_slots(path_bounces: torch.Tensor, launch_spp: int,
            "nested": WARP * int(per_warp.amax(dim=1).sum()), "flat": 0}
     if resident is not None:
         out["persistent"] = 0
+    if regen is not None:
+        out["grouped"] = 0
     for s0 in range(0, n_spp, launch_spp):
+        if regen is not None:
+            out["grouped"] += _grouped_slots(
+                per_warp[:, :, s0:s0 + launch_spp], regen)
         tot = pb[:, s0:s0 + launch_spp].sum(dim=1)
         out["flat"] += WARP * int(tot.reshape(n_warps, WARP).amax(dim=1)
                                   .sum())
         if resident is not None:
             out["persistent"] += _persistent_slots(tot[:n_pix].tolist(),
                                                    resident)
-    for loop in ("nested", "flat", "persistent"):
+    for loop in ("nested", "flat", "persistent", "grouped"):
         if loop in out:
             out[f"{loop}_share"] = out["useful"] / max(out[loop], 1)
     return out
+
+
+def _grouped_slots(pb: torch.Tensor, regen: int) -> int:
+    """Lane slots of one launch of the mesh forms' loop (pt_mesh_kernel)
+    over the (n_warps, 32, samples) path lengths `pb`, all warps stepped
+    together; a lane whose counts are all 0 has no pixel."""
+    n = pb.shape[2]
+    if n == 0:
+        return 0
+    k = torch.zeros(pb.shape[:2], dtype=torch.int64)
+    has = pb[:, :, 0] > 0          # a pixel with samples left
+    rem = pb[:, :, 0].clone()      # bounces left in the lane's path
+    alive = has.clone()
+    slots = 0
+    while bool(has.any()):
+        waiting = has & ~alive
+        n_wait = waiting.sum(dim=1, keepdim=True)
+        go = (n_wait > 0) & (8 * n_wait >= regen * has.sum(dim=1,
+                                                          keepdim=True))
+        start = waiting & go
+        rem = torch.where(start, pb.gather(2, k.clamp(max=n - 1)[..., None])
+                          [..., 0], rem)
+        alive = alive | start
+        slots += WARP * int(has.any(dim=1).sum())
+        rem = rem - alive.long()
+        ended = alive & (rem == 0)
+        alive = alive & ~ended
+        k = k + ended.long()
+        has = has & ~(ended & (k == n))
+    return slots
 
 
 def _persistent_slots(work: list, resident: int) -> int:

@@ -138,7 +138,8 @@ class _Lib:
         self.calls.append({"pix0": a[6], "n_pix": a[7], "sp0": a[8],
                            "n_spp": a[9], "form": a[12],
                            "next_pixel": a[24] is not None,
-                           "rec": a[25] is not None})
+                           "rec": a[25] is not None,
+                           "loop_slots": a[26]})
         return 0
 
 
@@ -147,10 +148,12 @@ class _Lib:
 def test_wrapper_follows_launch_plan(monkeypatch, env_scene, quad, key):
     """`_pt_accumulate_cuda` launches each form as `launch_plan` says: a
     pixel counter for the persistent grid, the float4 records for B1a
-    alone, and the spp split into its launch size."""
+    alone, the spp split into its launch size, and the mesh forms' loop
+    counters, one pair a device, the same at every launch."""
     bsdf, env, mesh, tex = key
     lib = _Lib()
     monkeypatch.setattr(pt_cuda, "_kernels", lambda: lib)
+    monkeypatch.setattr(pt_cuda, "_LOOP_SLOTS", {})
     monkeypatch.setattr(torch.cuda, "device",
                         lambda d: contextlib.nullcontext())
     monkeypatch.setattr(torch.cuda, "current_stream",
@@ -179,3 +182,20 @@ def test_wrapper_follows_launch_plan(monkeypatch, env_scene, quad, key):
         assert (c["pix0"], c["n_pix"], c["form"]) == (pix0, n_pix, form)
         assert c["next_pixel"] is persistent
         assert c["rec"] is (form == 0)
+    counters = pt_cuda._LOOP_SLOTS.get("cpu")
+    assert [c["loop_slots"] for c in lib.calls] == (
+        [counters.data_ptr()] * len(lib.calls) if mesh
+        else [None] * len(lib.calls))
+    if mesh:
+        assert counters.dtype == torch.int64 and tuple(counters.shape) == (2,)
+
+
+def test_mesh_loop_slots_reader(monkeypatch):
+    """The mesh forms' counter reader takes CUDA devices only, and gives
+    nothing without a card or before a mesh launch on the device."""
+    with pytest.raises(ValueError, match="CUDA device"):
+        pt_cuda.mesh_loop_slots("cpu")
+    monkeypatch.setattr(pt_cuda, "_LOOP_SLOTS", {})
+    assert pt_cuda.mesh_loop_slots("cuda:0") is None
+    if not torch.cuda.is_available():
+        assert pt_cuda.mesh_loop_slots() is None

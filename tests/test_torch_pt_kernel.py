@@ -499,3 +499,51 @@ def test_build_staleness_counts_sources_and_headers(tmp_path):
     assert _build._stale(lib, src)
     names = [p.name for p in _build.sources() + _build.headers()]
     assert {"pt_kernel.cu", "mesh_sweep.cu", "mesh_sweep.cuh"} <= set(names)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tex", [False, True], ids=["plain", "textured"])
+def test_cuda_mesh_loop_slots(gpu, tex):
+    """The mesh forms' loop counters (`pt_cuda.mesh_loop_slots`) over two
+    launches at 37x23, 5 spp, depth 6 (`blob_960.obj` in `mesh_box.scn`,
+    `tex_grid.obj` in `tex_grid.scn`): the films are the plain version's
+    bit for bit, the live lane slots its bounces, all the slots those of
+    the CPU model of the loop (`pt_cuda.loop_slots`' "grouped") on its
+    path lengths; a reset reads them and starts again from zero."""
+    from nrenderer_torch import load_obj
+    from nrenderer_torch.ops.bvh import build_mesh_accel
+    from nrenderer_torch.ops.mesh_cuda import make_mesh_tables
+    from nrenderer_torch.ops.pt_core import make_mat_channels
+    res = pathlib.Path(__file__).resolve().parent.parent / "resource"
+    scene = load_scn(str(res / ("tex_grid.scn" if tex else "mesh_box.scn")))
+    load_obj(str(res / "obj" / ("tex_grid.obj" if tex else "blob_960.obj")),
+             scene, material=0)
+    arrays = build_scene_arrays(scene)
+    ss = make_static_scene(arrays)
+    cam = make_camera(scene.camera, device=gpu)
+    t_min = scene_epsilon(ss)
+    m = make_mesh_tables(build_mesh_accel(arrays, make_mat_channels(ss)).bt,
+                         gpu)
+    tx = pt_cuda.make_tex_tables(arrays.textures, gpu) if tex else None
+    w, h = 37, 23
+    kw = dict(bsdf=True, mesh=m, tex=tx)
+    pt_cuda.pt_accumulate(torch.zeros((w * h, 3), device=gpu), ss, cam, w,
+                          h, 0, 1, 6, 0, t_min, **kw)
+    pt_cuda.mesh_loop_slots(gpu, reset=True)
+    st = {}
+    lin_k = torch.zeros((w * h, 3), device=gpu)
+    lin_p = torch.zeros((w * h, 3), device=gpu)
+    for sp0, n in ((0, 2), (2, 3)):
+        pt_cuda.pt_accumulate(lin_k, ss, cam, w, h, sp0, n, 6, 0, t_min, **kw)
+        pt_cuda.pt_accumulate_plain(lin_p, ss, cam, w, h, sp0, n, 6, 0, t_min,
+                                    stats=st, **kw)
+    got = pt_cuda.mesh_loop_slots(gpu, reset=True)
+    assert torch.equal(lin_k, lin_p)
+    assert got["live"] == st["bounces"] > 0
+    pb = st["path_bounces"]
+    assert got["slots"] == sum(
+        pt_cuda.loop_slots(pb[:, c0:c1], c1 - c0,
+                           regen=pt_cuda.MESH_REGEN_EIGHTHS)["grouped"]
+        for c0, c1 in ((0, 2), (2, 5)))
+    assert got["live_share"] == got["live"] / got["slots"]
+    assert pt_cuda.mesh_loop_slots(gpu)["slots"] == 0

@@ -66,6 +66,30 @@ def test_persistent_slots_by_hand():
     assert two == 32 * (6 + 10)
 
 
+def test_grouped_slots_by_hand():
+    """The mesh forms' grouped loop: a lane whose path ended waits until
+    `regen` eighths of the lanes with samples left wait."""
+    pb = _hand_paths()
+    # regen 4 (the kernels'): warp 0 starts samples 1-3 with 30-31 lanes
+    # waiting, then pixels 0 and 1 take turns, each starting alone as one
+    # of the two lanes left: 8 iterations; warp 1 runs 3 + 7 (pixel 33)
+    assert pt_cuda.loop_slots(pb, 4, regen=4)["grouped"] == 32 * (8 + 10)
+    # regen 6: one waiting lane of two waits for the other: 10 + 10
+    assert pt_cuda.loop_slots(pb, 4, regen=6)["grouped"] == 32 * (10 + 10)
+    # regen 0 starts a sample as soon as a path ends (the flat loop), 8
+    # when every lane's has (the nested loop)
+    for launch in (1, 2, 4):
+        assert pt_cuda.loop_slots(pb, launch, regen=0)["grouped"] \
+            == pt_cuda.loop_slots(pb, launch)["flat"]
+        assert pt_cuda.loop_slots(pb, launch, regen=8)["grouped"] \
+            == pt_cuda.loop_slots(pb, launch)["nested"]
+    assert "grouped" not in pt_cuda.loop_slots(pb, 4)
+    # the model's share is the kernel's (csrc/pt_kernel.cu kRegenEighths)
+    src = (RES.parent / pt_cuda.KERNEL_SOURCE).read_text()
+    assert f"constexpr int kRegenEighths = {pt_cuda.MESH_REGEN_EIGHTHS};" \
+        in src
+
+
 @pytest.fixture(scope="module")
 def cornell():
     scene = load_scn(str(RES / "cornell_box.scn"))
@@ -120,3 +144,40 @@ def test_path_bounces_depth_zero(cornell):
     assert int(st["path_bounces"].sum()) == 0 and "bounces" not in st
     slots = pt_cuda.loop_slots(st["path_bounces"], 2)
     assert slots["useful"] == slots["nested"] == slots["flat"] == 0
+
+
+@pytest.fixture(scope="module")
+def mesh_cell():
+    """The mesh cell's scene and mesh (`benchmark/configs/bvh_bunny.json`):
+    `mesh_box.scn` with `ico_5120.obj`, 40 blocks of 128."""
+    from nrenderer_torch import load_obj
+    from nrenderer_torch.ops.bvh import build_mesh_accel
+    from nrenderer_torch.ops.mesh_cuda import make_mesh_tables
+    from nrenderer_torch.ops.pt_core import make_mat_channels
+    bench = RES.parent / "benchmark"
+    scene = load_scn(str(bench / "scenes" / "mesh_box.scn"))
+    load_obj(str(bench / "obj" / "ico_5120.obj"), scene, material=0)
+    arrays = build_scene_arrays(scene)
+    ss = make_static_scene(arrays)
+    mt = make_mesh_tables(build_mesh_accel(arrays,
+                                           make_mat_channels(ss)).bt, "cpu")
+    return ss, make_camera(scene.camera, device="cpu"), mt
+
+
+def test_mesh_loop_slots_on_a_band(mesh_cell):
+    """The mesh form's loop on a band of the mesh cell (two warps of row
+    250 of 500x500, 8 spp, depth 20): the useful slots are the plain
+    version's bounces, and the mesh forms' grouped loop's share of them
+    lies between the nested loop's (every lane waits for the warp's
+    longest path) and the flat loop's (none waits)."""
+    ss, cam, mt = mesh_cell
+    st = {}
+    pt_cuda.pt_accumulate_plain(torch.zeros((64, 3)), ss, cam, 500, 500, 0,
+                                8, 20, 0, scene_epsilon(ss), bsdf=True,
+                                mesh=mt, stats=st, pix0=250 * 500, n_pix=64)
+    pb = st["path_bounces"]
+    assert tuple(pb.shape) == (64, 8) and int(pb.max()) <= 20
+    slots = pt_cuda.loop_slots(pb, 8, regen=pt_cuda.MESH_REGEN_EIGHTHS)
+    assert slots["useful"] == st["bounces"] == int(pb.sum())
+    assert slots["nested_share"] < slots["grouped_share"] \
+        < slots["flat_share"] <= 1.0
