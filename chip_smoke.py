@@ -189,7 +189,7 @@ exits non-zero without a result line:
 Phases 13, 14 (both rows), 18 and 29's hybrid half measure the hybrid
 route: 14, 18 and 29 pin the CPU's megamesh limit (1024 triangles, the
 card's too before its crossover was measured;
-`acc_pt.pinned_megamesh_max_tris`) for their runs, so ico_5120.obj stays
+`routes.pinned_megamesh_max_tris`) for their runs, so ico_5120.obj stays
 on it whatever the card's threshold (phase 29's ranks render the plan of
 the launching process); 13 and 16 build the hybrid render function
 directly, and phase 15's env map takes the hybrid route on any pool.
@@ -1155,7 +1155,7 @@ def _hybrid_fn(objs, width, height, depth, chunk):
     from nrenderer_torch.ops.bvh import build_mesh_accel
     from nrenderer_torch.ops.mesh_cuda import make_mesh_tables
     from nrenderer_torch.ops.pt_core import make_mat_channels
-    from nrenderer_torch.renderers.acc_pt import build_render_fn
+    from nrenderer_torch.renderers._wavefront import build_render_fn
     ss, cam, _, arrays = _setup("cuda", MESH_SCENE, objs=objs)
     mt = make_mesh_tables(build_mesh_accel(arrays,
                                            make_mat_channels(ss)).bt, "cuda")
@@ -1298,8 +1298,8 @@ def _hybrid_pinned():
     """The CPU's megamesh limit (1024) pinned for a run: the hybrid-route
     phases on ico_5120.obj keep the route they have always measured,
     whatever the card's limit."""
-    from nrenderer_torch.renderers import acc_pt
-    return acc_pt.pinned_megamesh_max_tris(acc_pt.MEGAMESH_MAX_TRIS)
+    from nrenderer_torch.renderers import routes
+    return routes.pinned_megamesh_max_tris(routes.MEGAMESH_MAX_TRIS)
 
 
 def phase_hybrid_path(obj=ICO, width=500, height=500, spp=256,
@@ -1537,7 +1537,7 @@ def phase_large_mesh(ico_pixels, obj, width=500, height=500, spp=256,
     LARGE_BLOCK_CORR_MIN; then B1e (`phase_b1e_large`) and the mesh pipe
     (phase 13 at this mesh: B3a, B2, B3b bit for bit) at its 640 blocks."""
     from nrenderer_torch import cli
-    from nrenderer_torch.parallel.mesh import plan_route
+    from nrenderer_torch.renderers.routes import plan_route
     from nrenderer_torch.server.registry import get_server
     from nrenderer_torch.utils.timing import GLOBAL_TIMER
     t_phase = time.perf_counter()
@@ -2085,7 +2085,7 @@ def phase_progressive(main_px, width=512, height=512, spp=2048,
     version bit for bit and timed; the env and textured forms under
     --progressive; an empty scene's pass."""
     from nrenderer_torch.ops.pt_cuda import _int32
-    from nrenderer_torch.renderers.simple_pt import pick_chunk
+    from nrenderer_torch.renderers.routes import pick_chunk
     chunk = pick_chunk(width, height, spp)
     out = os.path.join(ROOT, "build", "smoke_progressive.png")
     argv = _cli_argv(SCENE, "SimplePathTracer", width, height, spp, depth,
@@ -2142,7 +2142,7 @@ def phase_resume(width=512, height=512, spp=64, depth=20) -> dict:
     print(f"== phase 22: resume on the card, {width}x{height}, {spp} spp, "
           f"depth {depth}")
     from nrenderer_torch import cli
-    from nrenderer_torch.renderers import simple_pt
+    from nrenderer_torch.renderers import routes
     from nrenderer_torch.server.registry import get_server
     ckpt = os.path.join(ROOT, "build", "smoke_resume.npz")
     if os.path.exists(ckpt):
@@ -2153,7 +2153,7 @@ def phase_resume(width=512, height=512, spp=64, depth=20) -> dict:
     if cli.main(argv + ["--progressive"]) != 0:
         raise AssertionError("uninterrupted progressive render failed")
     whole = get_server().screen.get_pixels().copy()
-    real = simple_pt.pt_accumulate
+    real = routes.pt_accumulate
     calls = []
 
     def dies_on_third(*args, **kw):
@@ -2162,15 +2162,15 @@ def phase_resume(width=512, height=512, spp=64, depth=20) -> dict:
             raise KeyboardInterrupt("interrupted")
         return real(*args, **kw)
 
-    simple_pt.pt_accumulate = dies_on_third
+    routes.pt_accumulate = dies_on_third
     try:
         rc = cli.main(argv + ["--checkpoint", ckpt])
     except KeyboardInterrupt:
         rc = None
     finally:
-        simple_pt.pt_accumulate = real
+        routes.pt_accumulate = real
     spp_done = int(np.load(ckpt)["spp_done"])
-    chunk = simple_pt.pick_chunk(width, height, spp)
+    chunk = routes.pick_chunk(width, height, spp)
     if rc is not None or spp_done != 2 * chunk:
         raise AssertionError(f"interrupted render: rc {rc}, checkpoint at "
                              f"{spp_done} spp, not {2 * chunk}")

@@ -14,7 +14,7 @@ route on the same device, printing one line per path:
 - the mesh routes: AccPathTracer on `resource/mesh_box.scn` with
   `resource/obj/blob_960.obj` (megamesh) and `ico_5120.obj` (the hybrid
   route, which the GPU's threshold would not pick for it: the line pins
-  the CPU's `acc_pt.MEGAMESH_MAX_TRIS`).
+  the CPU's `routes.MEGAMESH_MAX_TRIS`).
 
 Pixel bands must equal the one-device film's rows bit for bit; sample and
 chain sharding must agree within RTOL (the final sum's order is all that
@@ -67,7 +67,7 @@ def run(n: int, device_type: str = "cuda", shard: str = "samples") -> bool:
     from ..parallel.group import make_devices
     from ..parallel.mesh import render_sharded
     from ..parallel.mlt import render_mlt_sharded
-    from ..renderers import acc_pt
+    from ..renderers import routes
     devices = make_devices(n, device_type)
     mlt_kw = dict(chains=64 * n, mutations=16, n_init=512)
     # (label, renderer, scene, the megamesh limit pinned for the path)
@@ -80,7 +80,7 @@ def run(n: int, device_type: str = "cuda", shard: str = "samples") -> bool:
          _scene("mesh_box.scn", "blob_960.obj", spp=32 * n), None),
         ("AccPT mesh ico_5120", "AccPathTracer",
          _scene("mesh_box.scn", "ico_5120.obj", spp=4),
-         acc_pt.MEGAMESH_MAX_TRIS),
+         routes.MEGAMESH_MAX_TRIS),
     ]
     ok = True
     for label, renderer, scene, limit in paths:
@@ -92,7 +92,7 @@ def run(n: int, device_type: str = "cuda", shard: str = "samples") -> bool:
             mode = "chains"
         else:
             with (contextlib.nullcontext() if limit is None else
-                  acc_pt.pinned_megamesh_max_tris(limit)):
+                  routes.pinned_megamesh_max_tris(limit)):
                 out = render_sharded(scene, devices, renderer, shard)
                 want = _one_device(scene, renderer, device_type)
             mode = shard

@@ -14,15 +14,12 @@ the renderer would pick, on its share of the work:
   rank 0 (JAX's `out_specs=P(axis)`, `_build_sharded_film_pixels :133`).
   No reduction.
 
-A route's unit is what its one-device render sums in order: samples for
-the dense kernel forms (SimplePathTracer's one-shot render, AccPathTracer's
-megakernel) and for the hybrid mesh route; passes of `pcall` samples at
-seed `seed * 100003 + step` for the megamesh route, the checkpointed
-megakernel and SimplePathTracer's progressive route; chunks of samples for
-the hybrid route when it renders in passes.  AccPathTracer picks its route
-by the one-device rules (`renderers/acc_pt.py`), in place of JAX's
-`n_tri > 64` switch; the launching process plans the route and hands its
-plan to the ranks, which render it whatever their own rules would pick.
+A route's unit is what its one-device render sums in order (samples, or
+passes of samples: `renderers/routes.py`, which plans and builds every
+route for the one-device renderers and for the ranks alike).  The
+launching process plans the route (`routes.plan_route`) and hands its
+plan to the ranks, which build it (`routes.make_route`) whatever their
+own rules would pick.
 
 Every random number comes from the counter-based hash keyed by the global
 pixel, sample and seed, so a rank that renders a global range draws what a
@@ -46,37 +43,14 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from ..renderers.routes import Plan, Route, make_route, plan_route, tone_map
 from .group import (
     DEFAULT_TIMEOUT_S, Rank, all_reduce_sum, barrier, broadcast_value,
     check_devices, gather_rows, launch,
 )
 
-RENDERERS = ("SimplePathTracer", "AccPathTracer")
 SHARDS = ("samples", "pixels")
 MAX_PASSES = 16   # the resumable route's most passes (JAX's)
-
-
-class Plan(NamedTuple):
-    """How a route's work divides: `n_units` units of `unit_spp` samples,
-    summed in order (`unit` "samples" or "passes"); `chunk`: the hybrid
-    route's wavefront chunk in samples."""
-    kind: str
-    unit: str
-    n_units: int
-    unit_spp: int
-    chunk: int = 0
-
-
-class Route(NamedTuple):
-    """A one-device route on one rank: `film(u0, n, pix0, n_pix)` is the
-    linear film SUM ((n_pix, 3) float32, on the rank's device) of units
-    [u0, u0 + n) of pixels [pix0, pix0 + n_pix), each unit summed in
-    order as the one-device render sums it."""
-    plan: Plan
-    film: Callable
-    device_gamma: bool      # the one-device render tone-maps with torch
-    fingerprint: tuple
-    fingerprint_arrays: tuple
 
 
 class ShardedRender(NamedTuple):
@@ -88,163 +62,6 @@ class ShardedRender(NamedTuple):
     launches: dict               # kernel launches, summed over the ranks
     seconds: dict                # rank 0's render, wait, collective, total
     backend: str                 # the process group's backend
-
-
-def _prep(scene):
-    from ..ops.intersect import make_static_scene
-    from ..scene.arrays import build_scene_arrays
-    arrays = build_scene_arrays(scene)
-    return arrays, make_static_scene(arrays)
-
-
-def plan_route(scene, renderer: str, resumable: bool, device_type: str,
-               arrays=None, ss=None) -> Plan:
-    """The route `renderer` takes for `scene` on one device and how its
-    work divides; `resumable`: the render runs in checkpointed passes."""
-    from ..ops.pt_cuda import check_supported
-    from ..renderers import acc_pt
-    from ..renderers.simple_pt import pick_chunk
-    ro = scene.render_option
-    w, h, spp = ro.width, ro.height, ro.samples_per_pixel
-    if spp < 1:
-        raise ValueError(f"spp must be at least 1, got {spp}")
-    if arrays is None:
-        arrays, ss = _prep(scene)
-    if renderer == "SimplePathTracer":
-        check_supported(ss)
-        if resumable:
-            chunk = pick_chunk(w, h, spp)
-            return Plan("progressive", "passes", spp // chunk, chunk)
-        return Plan("dense", "samples", spp, 1)
-    if renderer != "AccPathTracer":
-        raise ValueError(f"no sharded route for {renderer!r}: use one of "
-                         f"{', '.join(RENDERERS)} (MetropolisLightTransport "
-                         "shards its chains: parallel/mlt.py)")
-    n_tri = int(np.asarray(arrays.tri_valid).sum())
-    acc_type = int(getattr(ro, "acc_type", 1))
-    if acc_pt.accelerates(acc_type, n_tri):
-        if acc_pt.takes_hybrid(n_tri, ss.ambient_type == 1, device_type):
-            chunk = pick_chunk(w, h, spp, budget_rays=acc_pt.
-                               HYBRID_BUDGET_RAYS[device_type])
-            n_steps = spp // chunk
-            if n_steps > 4 or (resumable and n_steps > 1):
-                return Plan("hybrid", "passes", n_steps, chunk, chunk)
-            return Plan("hybrid", "samples", spp, 1, chunk)
-        pcall = acc_pt.megamesh_pass_spp(spp)
-        return Plan("megamesh", "passes", spp // pcall, pcall)
-    check_supported(ss)
-    if resumable and spp > 1:
-        pcall = acc_pt.checkpoint_pass_spp(spp)
-        return Plan("megakernel", "passes", spp // pcall, pcall)
-    return Plan("megakernel", "samples", spp, 1)
-
-
-def make_route(scene, renderer: str, resumable: bool, device,
-               seed: int, plan: Optional[Plan] = None) -> Route:
-    """The route `plan` names (by default `plan_route`'s), with its tables
-    on `device`."""
-    from ..ops.bvh import build_mesh_accel
-    from ..ops.camera import make_camera
-    from ..ops.mesh_cuda import make_mesh_tables
-    from ..ops.pt_core import make_mat_channels, scene_epsilon
-    from ..ops.pt_cuda import (
-        _int32, make_env_tables, make_tex_tables, pt_accumulate,
-    )
-    from ..renderers.acc_pt import (
-        STAGED_MIN_DEPTH, _device_textures, build_render_fn,
-    )
-    from ..server.checkpoint import camera_key
-    dev = torch.device(device)
-    arrays, ss = _prep(scene)
-    if plan is None:
-        plan = plan_route(scene, renderer, resumable, dev.type, arrays, ss)
-    ro = scene.render_option
-    w, h, depth = ro.width, ro.height, ro.depth
-    cam = make_camera(scene.camera, device=dev)
-    t_min = scene_epsilon(ss)
-    env_map = arrays.env_map if ss.ambient_type == 1 else None
-    textures = arrays.textures if ss.tri_uv else None
-    bsdf = renderer == "AccPathTracer"
-    fp = (renderer, plan, ss, camera_key(cam), w, h, ro.samples_per_pixel,
-          depth, seed)
-    fp_arrays = (((np.asarray(env_map),) if env_map is not None else ())
-                 + tuple(textures or ()))
-
-    def zeros(n_pix):
-        return torch.zeros((n_pix, 3), dtype=torch.float32, device=dev)
-
-    if plan.kind in ("megamesh", "hybrid"):
-        ma = build_mesh_accel(arrays, make_mat_channels(ss))
-        if textures and ma.bt.tex is None:
-            textures = None   # no per-face UVs made it into the pool
-        mesh = make_mesh_tables(ma.bt, dev)
-    # samples(sp0, n, pix0, n_pix): the film of samples [sp0, sp0 + n) at
-    # the render's seed; one_pass(step, ...): the one-device route's pass
-    if plan.kind == "hybrid":
-        env = (_device_textures((env_map,), dev)[0]
-               if env_map is not None else None)
-        tex = _device_textures(textures, dev) if textures else None
-        fns = {}
-
-        def samples(sp0, n, pix0, n_pix):
-            if (pix0, n_pix) not in fns:
-                fns[(pix0, n_pix)] = build_render_fn(
-                    ss, cam, w, h, depth, plan.chunk, tri_bvh=mesh,
-                    env_map=env, textures=tex,
-                    staged=depth >= STAGED_MIN_DEPTH, pix0=pix0,
-                    n_pix=n_pix)
-            return fns[(pix0, n_pix)](seed, sp0, n)
-
-        def one_pass(step, pix0, n_pix):   # chunks at the render's seed
-            return samples(step * plan.unit_spp, plan.unit_spp, pix0, n_pix)
-    else:
-        kw = dict(bsdf=bsdf,
-                  env=make_env_tables(env_map, dev)
-                  if env_map is not None else None,
-                  tex=make_tex_tables(textures, dev) if textures else None)
-        if plan.kind == "megamesh":
-            kw["mesh"] = mesh
-
-        def samples(sp0, n, pix0, n_pix, pass_seed=seed):
-            return pt_accumulate(zeros(n_pix), ss, cam, w, h, sp0, n, depth,
-                                 pass_seed, t_min, pix0=pix0, n_pix=n_pix,
-                                 **kw)
-
-        def one_pass(step, pix0, n_pix):
-            # samples [0, pcall) at seed seed * 100003 + step
-            pass_seed = seed * 100003 + step
-            return samples(0, plan.unit_spp, pix0, n_pix,
-                           _int32(pass_seed) if plan.kind == "progressive"
-                           else pass_seed)
-
-    if plan.unit == "samples":
-        film = samples
-    else:
-        def film(u0, n, pix0, n_pix):
-            f = zeros(n_pix)
-            for step in range(u0, u0 + n):   # each pass's film on its own
-                f += one_pass(step, pix0, n_pix)
-            return f
-    # the dense one-shot routes tone-map with torch (`gamma_image`), the
-    # others with numpy, as their renderers do
-    device_gamma = plan.unit == "samples" and plan.kind != "hybrid"
-    return Route(plan, film, device_gamma, fp, fp_arrays)
-
-
-def tone_map(film, spp: int, width: int, height: int,
-             device_gamma: bool) -> np.ndarray:
-    """The one-device route's image of a linear film SUM (a tensor on the
-    rank's device, or an array): (H, W, 3), row 0 = top, clipped to
-    [0, 1].  The dense forms' `pt_cuda.gamma_image` runs on the film's
-    device, as their renderers run it (a GPU's square root and the CPU's
-    can differ in the last bit); the passes' tone map is numpy's."""
-    if device_gamma:
-        from ..ops.pt_cuda import gamma_image
-        img = gamma_image(film, spp, width, height).cpu().numpy()
-    else:
-        f = film.cpu().numpy() if torch.is_tensor(film) else film
-        img = np.sqrt(np.maximum(f / spp, 0.0)).reshape(height, width, 3)
-    return np.clip(img[::-1], 0.0, 1.0)
 
 
 def _launch_counts() -> dict:
@@ -405,16 +222,15 @@ def _resumable_rank(rank: Rank, scene, renderer: str, shard: str, seed: int,
     route = make_route(scene, renderer, True, rank.device, seed, plan)
     ro = scene.render_option
     w, h, spp = ro.width, ro.height, ro.samples_per_pixel
-    plan = route.plan
     passes = pass_count(plan, shard, rank.world)
     upp = plan.n_units // passes
     pass_spp = spp // passes
     film = np.zeros((w * h, 3), np.float32)
     start, fingerprint = 0, None
     if rank.rank == 0 and checkpoint_path:
-        fingerprint = render_fingerprint(
-            ("multichip", shard, rank.world, rank.devices, passes)
-            + route.fingerprint, arrays=route.fingerprint_arrays)
+        parts, arrays = route.fingerprint(
+            ("multichip", shard, rank.world, rank.devices, passes))
+        fingerprint = render_fingerprint(parts, arrays=arrays)
         loaded = load_checkpoint(checkpoint_path, fingerprint)
         if loaded is not None:
             from ..server.registry import get_server

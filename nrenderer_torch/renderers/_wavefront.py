@@ -35,16 +35,25 @@ the rounding of those per-stage sums.  Built with `pix0`/`n_pix`, they
 trace pixels [pix0, pix0 + n_pix) only (a band of rows, for a render
 split across devices): lanes number the range's pixels, while the draws
 and the camera ray keep the global pixel id, so the band is the full
-film's rows."""
+film's rows.
+
+`build_render_fn` is the route's film over AccPathTracer's five-lobe
+bounce (`make_bsdf_bounce`, `trace_bsdf_wavefront`; the JAX renderer's
+`acc_pt.py:53-161`), staged or plain."""
 from __future__ import annotations
 
-from typing import Callable
+from typing import Callable, Optional
 
 import numpy as np
 import torch
 
 from ..ops.camera import CameraParams
-from ..ops.pt_core import bounce_seed, hash_uniform
+from ..ops.env import sample_env_map_v3
+from ..ops.intersect import StaticScene
+from ..ops.pt_core import (
+    bounce_seed, bsdf_bounce, finish_ambient, hash_uniform,
+    make_mat_channels, scene_epsilon,
+)
 from ..ops.pt_cuda import camera_rays
 from ..ops.soa import V3
 from ..ops.stream_compact import (
@@ -218,3 +227,76 @@ def build_staged_wavefront_fn(cam: CameraParams, width: int, height: int,
         return film
 
     return render
+
+
+def make_bsdf_bounce(ss: StaticScene, t_min: float, tri_bvh=None,
+                     env_map: Optional[torch.Tensor] = None, textures=None):
+    """`bounce(o, d, thr, rad, alive, u1, u2, u3, coherent=False)`: one
+    `bsdf_bounce` over the scene, and with an env map its exact lookup
+    added at every miss (misses keep their direction and throughput), as
+    the JAX package's XLA bounce does (`acc_pt.py:69-93, :120-142`)."""
+    mat_ch = make_mat_channels(ss)
+
+    def bounce(o, d, thr, rad, alive, u1, u2, u3, coherent=False):
+        out = bsdf_bounce(ss, mat_ch, o, d, thr, rad, alive, u1, u2, u3,
+                          t_min=t_min, tri_bvh=tri_bvh,
+                          with_miss=env_map is not None, textures=textures,
+                          coherent=coherent)
+        if env_map is None:
+            return out
+        o, d, thr, rad, alive, miss = out
+        env = sample_env_map_v3(env_map, d)
+        ew = miss.to(torch.float32)
+        return o, d, thr, V3(rad.x + ew * thr.x * env.x,
+                             rad.y + ew * thr.y * env.y,
+                             rad.z + ew * thr.z * env.z), alive
+
+    return bounce
+
+
+def trace_bsdf_wavefront(ss: StaticScene, o: V3, d: V3, pid: torch.Tensor,
+                         sp: torch.Tensor, seed: int, depth: int,
+                         env_map=None, tri_bvh=None, t_min: float = None,
+                         textures=None) -> V3:
+    """The (N,)-ray wavefront of the five-lobe estimator: `depth` bounces
+    drawing the kernel's uniforms for pixels `pid` and samples `sp`, then
+    the depth cap's ambient; returns the radiance (`acc_pt.py:53-99`)."""
+    if t_min is None:
+        t_min = scene_epsilon(ss)
+    bounce = make_bsdf_bounce(ss, t_min, tri_bvh, env_map, textures)
+    ones = torch.ones_like(o.x)
+    zeros = torch.zeros_like(o.x)
+    thr, rad = V3(ones, ones, ones), V3(zeros, zeros, zeros)
+    alive = torch.ones_like(o.x, dtype=torch.bool)
+    for b in range(depth):
+        o, d, thr, rad, alive = bounce(o, d, thr, rad, alive,
+                                       *bounce_uniforms(pid, sp, seed, b))
+    return finish_ambient(ss, thr, rad, alive)
+
+
+def build_render_fn(ss: StaticScene, cam, width: int, height: int,
+                    depth: int, chunk: int, tri_bvh=None, env_map=None,
+                    textures=None, staged: bool = False, pix0: int = 0,
+                    n_pix: int = None, t_min: float = None):
+    """`render(seed, sp0, n_spp)`: the linear film SUM ((W*H, 3)) of
+    samples [sp0, sp0 + n_spp) (of pixels [pix0, pix0 + n_pix) only, the
+    film (n_pix, 3), when they are given), by the staged wavefront
+    (`staged`; the camera bounce peeled off as the coherent variant when
+    there is a mesh pipe) or the plain one (`acc_pt.py:102-161`).
+    `tri_bvh`: the mesh tables (`mesh_cuda.MeshTables`) whose pool runs
+    the mesh pipe; `env_map`: an (He, We, 3) tensor; `textures`: (H, W,
+    3) tensors; `t_min`: the scene's epsilon, when the caller has it."""
+    if t_min is None:
+        t_min = scene_epsilon(ss)
+    if staged:
+        return build_staged_wavefront_fn(
+            cam, width, height, chunk,
+            make_bsdf_bounce(ss, t_min, tri_bvh, env_map, textures),
+            lambda thr, rad, alive: finish_ambient(ss, thr, rad, alive),
+            depth, peel_first=tri_bvh is not None, pix0=pix0, n_pix=n_pix)
+    return build_wavefront_fn(
+        cam, width, height, chunk,
+        lambda o, d, pid, sp, seed: trace_bsdf_wavefront(
+            ss, o, d, pid, sp, seed, depth, env_map=env_map,
+            tri_bvh=tri_bvh, t_min=t_min, textures=textures),
+        pix0=pix0, n_pix=n_pix)

@@ -202,12 +202,12 @@ def test_checkpoint_interrupted_and_resumed_equals_uninterrupted(
     """A --checkpoint render that dies after two of its eight passes and is
     run again resumes from the saved film and ends with the image of the
     render that was never interrupted."""
-    from nrenderer_torch.renderers import acc_pt
+    from nrenderer_torch.renderers import routes
     scene = ENV if env else GLASS
     whole = _render(scene, 12, 10, 16, 3, env=env, seed=3,
                     checkpoint_path=str(tmp_path / "whole.npz"))
-    assert acc_pt.checkpoint_pass_spp(16) == 2
-    real = acc_pt.pt_accumulate
+    assert routes.checkpoint_pass_spp(16) == 2
+    real = routes.pt_accumulate
     calls = []
 
     def dies_on_third(*args, **kw):
@@ -217,14 +217,14 @@ def test_checkpoint_interrupted_and_resumed_equals_uninterrupted(
         return real(*args, **kw)
 
     ckpt = tmp_path / "film.npz"
-    monkeypatch.setattr(acc_pt, "pt_accumulate", dies_on_third)
+    monkeypatch.setattr(routes, "pt_accumulate", dies_on_third)
     with pytest.raises(KeyboardInterrupt):
         _render(scene, 12, 10, 16, 3, env=env, seed=3,
                 checkpoint_path=str(ckpt))
     assert calls == [300009, 300010, 300011]   # seed * 100003 + step
     from nrenderer_torch.server.checkpoint import load_checkpoint
     assert int(np.load(ckpt)["spp_done"]) == 4
-    monkeypatch.setattr(acc_pt, "pt_accumulate", real)
+    monkeypatch.setattr(routes, "pt_accumulate", real)
     resumed = _render(scene, 12, 10, 16, 3, env=env, seed=3,
                       checkpoint_path=str(ckpt))
     np.testing.assert_array_equal(resumed, whole)
@@ -280,7 +280,7 @@ def test_refusals_name_the_roadmap_item():
     pool render; acc_type 0 keeps a 65-triangle pool on the dense kernel,
     as in JAX.  The dense kernel itself still refuses a pool past its
     limit, naming the mesh routes."""
-    from nrenderer_torch.renderers.acc_pt import MEGAMESH_MAX_TRIS
+    from nrenderer_torch.renderers.routes import MEGAMESH_MAX_TRIS
     comp = AccPathTracerRenderer(device="cpu")
     px = comp.render(_mesh_scene(3, textured=True)).pixels
     assert px.shape == (4, 4, 4) and np.isfinite(px).all()

@@ -67,6 +67,17 @@ COUNTERPARTS = {
         "ops/pt_cuda.py:render_pt_linear", "B1a-e's linear film"),
     "ops/pt_pallas.py:render_bsdf_pt_pallas": (
         "ops/pt_cuda.py:render_bsdf_pt", "B1b-e's renderer entry"),
+    "renderers/simple_pt.py:pick_chunk": (
+        "renderers/routes.py:pick_chunk",
+        "the route layer's pass size, which SimplePathTracer's progressive "
+        "route and AccPathTracer's hybrid route both read"),
+    "renderers/acc_pt.py:trace_bsdf_wavefront": (
+        "renderers/_wavefront.py:trace_bsdf_wavefront",
+        "the hybrid route's film loops live beside the wavefront, below the "
+        "route layer"),
+    "renderers/acc_pt.py:build_render_fn": (
+        "renderers/_wavefront.py:build_render_fn",
+        "the hybrid route's film, built by renderers/routes.py"),
     "ops/vecmath.py:cross": ("ops/soa.py:cross3", "SoA components"),
     "ops/vecmath.py:dot": ("ops/soa.py:dot3", "SoA components"),
     "ops/vecmath.py:norm": ("ops/soa.py:norm3", "SoA components"),

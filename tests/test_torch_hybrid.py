@@ -45,10 +45,9 @@ from nrenderer_torch.ops.pt_core import (
 )
 from nrenderer_torch.ops.pt_cuda import pt_accumulate_plain
 from nrenderer_torch.ops.soa import V3
-from nrenderer_torch.renderers import _wavefront, acc_pt
-from nrenderer_torch.renderers.acc_pt import (
-    AccPathTracerRenderer, build_render_fn,
-)
+from nrenderer_torch.renderers import _wavefront, routes
+from nrenderer_torch.renderers._wavefront import build_render_fn
+from nrenderer_torch.renderers.acc_pt import AccPathTracerRenderer
 from nrenderer_torch.scene import model
 from nrenderer_torch.server.registry import get_server
 
@@ -395,7 +394,7 @@ def test_textured_hybrid_route(monkeypatch):
     from nrenderer_torch.ops.texture import resolve_diffuse
     scene = _tiled_grid()
     arrays, ss, cam, mt = _inputs(scene)
-    assert len(ss.tri) == 1152 > acc_pt.MEGAMESH_MAX_TRIS
+    assert len(ss.tri) == 1152 > routes.MEGAMESH_MAX_TRIS
     assert mt.uvs is not None
     rng = np.random.default_rng(4)
     n = 2000
@@ -468,11 +467,11 @@ def test_hybrid_checkpoint_resume_equals_uninterrupted(tmp_path,
     (samples [step * chunk, (step + 1) * chunk) at the render's seed); one
     that dies in its third chunk resumes and ends with the image of the
     render that was never interrupted."""
-    monkeypatch.setitem(acc_pt.HYBRID_BUDGET_RAYS, "cpu", 8 * 6 * 2)
+    monkeypatch.setitem(routes.HYBRID_BUDGET_RAYS, "cpu", 8 * 6 * 2)
     whole = AccPathTracerRenderer(
         device="cpu", seed=3, checkpoint_path=str(tmp_path / "w.npz")
     ).render(_ico_scene(8, 6, 8, 3)).pixels
-    real = acc_pt.build_render_fn
+    real = routes.build_render_fn
     calls = []
 
     def dies_on_third(*args, **kw):
@@ -486,14 +485,14 @@ def test_hybrid_checkpoint_resume_equals_uninterrupted(tmp_path,
         return render
 
     ckpt = tmp_path / "film.npz"
-    monkeypatch.setattr(acc_pt, "build_render_fn", dies_on_third)
+    monkeypatch.setattr(routes, "build_render_fn", dies_on_third)
     with pytest.raises(KeyboardInterrupt):
         AccPathTracerRenderer(device="cpu", seed=3,
                               checkpoint_path=str(ckpt)).render(
             _ico_scene(8, 6, 8, 3))
     assert calls == [(3, 0, 2), (3, 2, 2), (3, 4, 2)]
     assert int(np.load(ckpt)["spp_done"]) == 4
-    monkeypatch.setattr(acc_pt, "build_render_fn", real)
+    monkeypatch.setattr(routes, "build_render_fn", real)
     resumed = AccPathTracerRenderer(
         device="cpu", seed=3, checkpoint_path=str(ckpt)).render(
         _ico_scene(8, 6, 8, 3)).pixels
@@ -502,7 +501,7 @@ def test_hybrid_checkpoint_resume_equals_uninterrupted(tmp_path,
 
 
 def test_stage_plan_and_pick_chunk():
-    from nrenderer_torch.renderers.simple_pt import pick_chunk
+    from nrenderer_torch.renderers.routes import pick_chunk
     assert _wavefront.stage_plan(20) == [(0, 1), (6, 2), (11, 4), (16, 8)]
     assert _wavefront.stage_plan(8) == [(0, 1), (6, 2)]
     assert _wavefront.stage_plan(5) == [(0, 1)]

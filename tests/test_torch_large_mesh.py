@@ -4,9 +4,9 @@ The 20,480-face icosphere (160 blocks of 128) renders through the hybrid
 route's plain versions, and its film is the same bit for bit whether the
 host library or its numpy versions (NR_NO_NATIVE=1) loaded the file and
 built the BVH.  The CPU keeps the megamesh limit of 1024 triangles, the
-card reads its own (`acc_pt.megamesh_max_tris`), and `parallel.mesh`'s
-`plan_route` takes the renderer's rule, on the launching process, whose
-plan the ranks render."""
+card reads its own (`routes.megamesh_max_tris`), and the renderer and a
+sharded render's launching process both plan with `routes.plan_route`,
+whose plan the ranks render."""
 import os
 import pathlib
 import sys
@@ -20,10 +20,9 @@ from nrenderer_torch.ops.bvh import build_mesh_accel
 from nrenderer_torch.ops.mesh_cuda import make_mesh_tables
 from nrenderer_torch.ops.pt_core import make_mat_channels
 from nrenderer_torch.parallel import mesh as pmesh
-from nrenderer_torch.renderers import acc_pt
-from nrenderer_torch.renderers.acc_pt import (
-    AccPathTracerRenderer, build_render_fn,
-)
+from nrenderer_torch.renderers import acc_pt, routes
+from nrenderer_torch.renderers._wavefront import build_render_fn
+from nrenderer_torch.renderers.acc_pt import AccPathTracerRenderer
 
 torch.set_num_threads(1)
 
@@ -106,7 +105,7 @@ def test_large_mesh_film_is_the_same_with_either_build(ico_20480,
     bt_p, film_p, img_p, _ = _hybrid_film(ico_20480, monkeypatch, "1")
     assert bt_n.n_blocks == 160
     assert chip_smoke._same_tables(bt_n, bt_p)
-    assert pmesh.plan_route(scene, "AccPathTracer", False,
+    assert routes.plan_route(scene, "AccPathTracer", False,
                             "cpu").kind == "hybrid"
     assert torch.isfinite(film_n).all() and float(film_n.sum()) > 0
     assert torch.equal(film_n, film_p)
@@ -114,32 +113,32 @@ def test_large_mesh_film_is_the_same_with_either_build(ico_20480,
 
 
 def test_cpu_keeps_1024_and_the_card_reads_its_own():
-    assert acc_pt.MEGAMESH_MAX_TRIS == 1024
-    assert acc_pt.megamesh_max_tris("cpu") == 1024
-    assert acc_pt.megamesh_max_tris("cuda") == acc_pt.MEGAMESH_MAX_TRIS_CUDA
-    assert acc_pt.MEGAMESH_MAX_TRIS_CUDA >= 1024
+    assert routes.MEGAMESH_MAX_TRIS == 1024
+    assert routes.megamesh_max_tris("cpu") == 1024
+    assert routes.megamesh_max_tris("cuda") == routes.MEGAMESH_MAX_TRIS_CUDA
+    assert routes.MEGAMESH_MAX_TRIS_CUDA >= 1024
     for dev in ("cpu", "cuda"):
-        limit = acc_pt.megamesh_max_tris(dev)
-        assert not acc_pt.takes_hybrid(limit, False, dev)
-        assert acc_pt.takes_hybrid(limit + 1, False, dev)
-        assert acc_pt.takes_hybrid(65, True, dev)   # under an env map
-    with acc_pt.pinned_megamesh_max_tris(7):
-        assert acc_pt.megamesh_max_tris("cpu") == 7
-        assert acc_pt.megamesh_max_tris("cuda") == 7
-    assert acc_pt.megamesh_max_tris("cpu") == 1024
+        limit = routes.megamesh_max_tris(dev)
+        assert not routes.takes_hybrid(limit, False, dev)
+        assert routes.takes_hybrid(limit + 1, False, dev)
+        assert routes.takes_hybrid(65, True, dev)   # under an env map
+    with routes.pinned_megamesh_max_tris(7):
+        assert routes.megamesh_max_tris("cpu") == 7
+        assert routes.megamesh_max_tris("cuda") == 7
+    assert routes.megamesh_max_tris("cpu") == 1024
     with pytest.raises(KeyError):
-        with acc_pt.pinned_megamesh_max_tris(0):
+        with routes.pinned_megamesh_max_tris(0):
             raise KeyError("restored on the way out")
-    assert acc_pt.megamesh_max_tris("cuda") == acc_pt.MEGAMESH_MAX_TRIS_CUDA
+    assert routes.megamesh_max_tris("cuda") == routes.MEGAMESH_MAX_TRIS_CUDA
 
 
 @pytest.mark.parametrize("limit", [959, 960])
 def test_plan_route_agrees_with_the_renderer(limit, monkeypatch):
-    """The renderer and `plan_route` read one rule: pinned at 959 the
-    960-face blob takes the hybrid route, at 960 the megamesh route, on
-    either device type; the renderer takes the route the plan names."""
+    """The renderer plans with `plan_route` and takes the route its plan
+    names: pinned at 959 the 960-face blob takes the hybrid route, at 960
+    the megamesh route, on either device type."""
     scene = _scene(RES / "obj" / "blob_960.obj", size=4, spp=1, depth=1)
-    taken = []
+    taken, plans = [], []
     monkeypatch.setattr(
         AccPathTracerRenderer, "_render_hybrid",
         lambda self, *a, **k: taken.append("hybrid") or np.zeros((4, 4, 3)))
@@ -147,19 +146,21 @@ def test_plan_route_agrees_with_the_renderer(limit, monkeypatch):
         AccPathTracerRenderer, "_render_megamesh",
         lambda self, *a, **k: taken.append("megamesh")
         or np.zeros((4, 4, 3)))
+    monkeypatch.setattr(acc_pt, "plan_route", lambda *a, **k: plans.append(
+        routes.plan_route(*a, **k)) or plans[-1])
     want = "hybrid" if limit < 960 else "megamesh"
-    with acc_pt.pinned_megamesh_max_tris(limit):
+    with routes.pinned_megamesh_max_tris(limit):
         for dev in ("cpu", "cuda"):
-            assert pmesh.plan_route(scene, "AccPathTracer", False,
-                                    dev).kind == want
+            assert routes.plan_route(scene, "AccPathTracer", False,
+                                     dev).kind == want
         AccPathTracerRenderer(device="cpu").render(scene)
-    assert taken == [want]
+    assert [p.kind for p in plans] == taken == [want]
     # the CPU's own limit: 5120 faces take the hybrid route
     ico = _scene(RES / "obj" / "ico_5120.obj", size=4, spp=1, depth=1)
-    assert pmesh.plan_route(ico, "AccPathTracer", False,
-                            "cpu").kind == "hybrid"
-    assert pmesh.plan_route(ico, "AccPathTracer", False, "cuda").kind == (
-        "hybrid" if acc_pt.MEGAMESH_MAX_TRIS_CUDA < 5120 else "megamesh")
+    assert routes.plan_route(ico, "AccPathTracer", False,
+                             "cpu").kind == "hybrid"
+    assert routes.plan_route(ico, "AccPathTracer", False, "cuda").kind == (
+        "hybrid" if routes.MEGAMESH_MAX_TRIS_CUDA < 5120 else "megamesh")
 
 
 def test_ranks_render_the_launching_plan():
@@ -168,12 +169,12 @@ def test_ranks_render_the_launching_plan():
     to the hybrid route here, renders on it on two spawned CPU ranks,
     whose own limit would send it to the megamesh route."""
     scene = _scene(RES / "obj" / "blob_960.obj", size=8, spp=2, depth=2)
-    plan = pmesh.Plan("hybrid", "samples", 2, 1, 2)
-    route = pmesh.make_route(scene, "AccPathTracer", False, "cpu", 0, plan)
+    plan = routes.Plan("hybrid", "samples", 2, 1, 2)
+    route = routes.make_route(scene, "AccPathTracer", False, "cpu", 0, plan)
     assert route.plan == plan
-    assert pmesh.make_route(scene, "AccPathTracer", False, "cpu",
+    assert routes.make_route(scene, "AccPathTracer", False, "cpu",
                             0).plan.kind == "megamesh"
-    with acc_pt.pinned_megamesh_max_tris(0):
+    with routes.pinned_megamesh_max_tris(0):
         out = pmesh.render_sharded(scene, ["cpu", "cpu"], "AccPathTracer",
                                    "samples", threads=1, timeout=300)
         one = AccPathTracerRenderer(device="cpu").render(scene)

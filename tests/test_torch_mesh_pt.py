@@ -237,13 +237,13 @@ def test_megamesh_passes_and_checkpoint_resume(tmp_path, monkeypatch):
     """The megamesh route renders in passes of 32 spp with seeds
     seed * 100003 + step; a --checkpoint render that dies in its third
     pass resumes and ends with the image of the uninterrupted render."""
-    from nrenderer_torch.renderers import acc_pt
-    assert acc_pt.megamesh_pass_spp(128) == 32
-    assert acc_pt.megamesh_pass_spp(24) == 8
-    assert acc_pt.megamesh_pass_spp(7) == 1
+    from nrenderer_torch.renderers import routes
+    assert routes.megamesh_pass_spp(128) == 32
+    assert routes.megamesh_pass_spp(24) == 8
+    assert routes.megamesh_pass_spp(7) == 1
     scene = _blob_inputs()[0]
     whole = _render(scene, 10, 8, 128, 2, seed=3)
-    real = acc_pt.pt_accumulate
+    real = routes.pt_accumulate
     calls = []
 
     def dies_on_third(*args, **kw):
@@ -253,12 +253,12 @@ def test_megamesh_passes_and_checkpoint_resume(tmp_path, monkeypatch):
         return real(*args, **kw)
 
     ckpt = tmp_path / "film.npz"
-    monkeypatch.setattr(acc_pt, "pt_accumulate", dies_on_third)
+    monkeypatch.setattr(routes, "pt_accumulate", dies_on_third)
     with pytest.raises(KeyboardInterrupt):
         _render(scene, 10, 8, 128, 2, seed=3, checkpoint_path=str(ckpt))
     assert calls == [(300009, True), (300010, True), (300011, True)]
     assert int(np.load(ckpt)["spp_done"]) == 64
-    monkeypatch.setattr(acc_pt, "pt_accumulate", real)
+    monkeypatch.setattr(routes, "pt_accumulate", real)
     resumed = _render(scene, 10, 8, 128, 2, seed=3,
                       checkpoint_path=str(ckpt))
     np.testing.assert_array_equal(resumed, whole)

@@ -239,7 +239,7 @@ def test_hybrid_route_under_the_switch(monkeypatch):
     from nrenderer_torch.ops.camera import make_camera
     from nrenderer_torch.ops.intersect import make_static_scene
     from nrenderer_torch.ops.pt_core import make_mat_channels
-    from nrenderer_torch.renderers.acc_pt import build_render_fn
+    from nrenderer_torch.renderers._wavefront import build_render_fn
     scene = P.Scene()
     P.load_scn(str(RES / "mesh_box.scn"), scene)
     P.load_obj(str(RES / "obj" / "ico_5120.obj"), scene, material=0)

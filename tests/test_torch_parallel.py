@@ -27,6 +27,7 @@ import torch
 from nrenderer_torch import load_scn
 from nrenderer_torch.io.obj import load_obj
 from nrenderer_torch.parallel import mesh as pm
+from nrenderer_torch.renderers import acc_pt, routes
 from nrenderer_torch.renderers.acc_pt import AccPathTracerRenderer
 from nrenderer_torch.renderers.simple_pt import SimplePathTracerRenderer
 from nrenderer_torch.scene.model import Scene
@@ -81,21 +82,69 @@ def _dense_film(key):
     from nrenderer_torch.ops.camera import make_camera
     from nrenderer_torch.ops.pt_cuda import render_pt_linear
     scene = _scene(key)
-    _, ss = pm._prep(scene)
+    _, ss = routes.prepare(scene)
     return render_pt_linear(ss, make_camera(scene.camera, device="cpu"),
                             16, 16, 8, 3, seed=3, bsdf=key == "acc",
                             device="cpu").numpy()
 
 
-@pytest.mark.parametrize("key", ["spt", "acc"])
-def test_world_of_one_is_the_one_device_render(key):
+# every route kind and unit on a world of one: (path, resumable, route,
+# unit); SimplePathTracer's passes hold 2 samples, the hybrid route's
+# chunks 2 (budget_rays pinned), so each route in passes runs several
+WORLD_OF_ONE = {
+    "spt": ("spt", False, "dense", "samples"),
+    "acc": ("acc", False, "megakernel", "samples"),
+    "spt-progressive": ("spt", True, "progressive", "passes"),
+    "acc-passes": ("acc", True, "megakernel", "passes"),
+    "megamesh": ("megamesh", False, "megamesh", "passes"),
+    "hybrid": ("hybrid", False, "hybrid", "samples"),
+    "hybrid-passes": ("hybrid", True, "hybrid", "passes"),
+}
+
+
+def _one_device_film(key, tmp_path, monkeypatch):
+    """The one-device renderer's image and linear film SUM on the route
+    of `WORLD_OF_ONE[key]`: a dense route's film is `render_pt_linear`'s,
+    a route in passes keeps it in its checkpoint, the hybrid route in one
+    call hands it to `tone_map`."""
+    path, resumable, kind, unit = WORLD_OF_ONE[key]
+    if kind in ("dense", "megakernel") and unit == "samples":
+        return _one_device(key), _dense_film(key)
+    cls = (SimplePathTracerRenderer if PATHS[path][2] == "SimplePathTracer"
+           else AccPathTracerRenderer)
+    if unit == "passes":
+        ckpt = tmp_path / "one.npz"
+        img = cls(seed=3, device="cpu", checkpoint_path=str(ckpt)).render(
+            _scene(path)).pixels[..., :3]
+        return img, np.load(ckpt)["film"]
+    films = []
+    real = acc_pt.tone_map
+    monkeypatch.setattr(acc_pt, "tone_map", lambda film, *a: films.append(
+        film) or real(film, *a))
+    img = cls(seed=3, device="cpu").render(_scene(path)).pixels[..., :3]
+    return img, films[0]
+
+
+@pytest.mark.parametrize("key", list(WORLD_OF_ONE))
+def test_world_of_one_is_the_one_device_render(key, tmp_path, monkeypatch):
     """One rank renders the route's whole range: the one-device linear film
-    (`render_pt_linear`) and image, bit for bit."""
-    out = pm.render_sharded(_scene(key), ["cpu"], PATHS[key][2], seed=3,
-                            **LAUNCH)
-    np.testing.assert_array_equal(out.film, _dense_film(key))
-    np.testing.assert_array_equal(out.image, _one_device(key))
-    assert out.route == PATHS[key][4] and out.spp_done == 8
+    and image, bit for bit, on every route kind and unit (the resumable
+    sharded route for the routes a checkpoint puts in passes)."""
+    path, resumable, kind, unit = WORLD_OF_ONE[key]
+    if key == "spt-progressive":
+        monkeypatch.setattr(routes, "pick_chunk", lambda w, h, spp: 2)
+    if key == "hybrid-passes":
+        monkeypatch.setitem(routes.HYBRID_BUDGET_RAYS, "cpu", 16 * 16 * 2)
+    scene = _scene(path)
+    sharded = pm.render_multichip_resumable if resumable else pm.render_sharded
+    out = sharded(scene, ["cpu"], PATHS[path][2], seed=3, **LAUNCH)
+    assert out.route == kind and out.spp_done == PATHS[path][3]
+    plan = routes.plan_route(scene, PATHS[path][2], resumable, "cpu")
+    assert (plan.kind, plan.unit) == (kind, unit)
+    assert unit == "samples" or plan.n_units > 1
+    img, film = _one_device_film(key, tmp_path, monkeypatch)
+    np.testing.assert_array_equal(out.film, film)
+    np.testing.assert_array_equal(out.image, img)
 
 
 @pytest.mark.parametrize("shard", ["samples", "pixels"])
@@ -149,12 +198,12 @@ def _forms():
         return s
 
     def mesh_of(s):
-        arrays, ss = pm._prep(s)
+        arrays, ss = routes.prepare(s)
         return make_mesh_tables(
             build_mesh_accel(arrays, make_mat_channels(ss)).bt, "cpu")
 
     tex_scene = scene("tex_grid.scn", "tex_quad.obj")
-    tex = make_tex_tables(pm._prep(tex_scene)[0].textures, "cpu")
+    tex = make_tex_tables(routes.prepare(tex_scene)[0].textures, "cpu")
     blob = scene("mesh_box.scn", "blob_960.obj")
     return {
         "diffuse": (scene("cornell_box.scn"), {}),
@@ -181,7 +230,7 @@ def test_plain_pixel_range_is_the_films_rows(forms, form):
     from nrenderer_torch.ops.pt_core import scene_epsilon
     from nrenderer_torch.ops.pt_cuda import pt_accumulate_plain
     scene, kw = forms[form]
-    _, ss = pm._prep(scene)
+    _, ss = routes.prepare(scene)
     cam = make_camera(scene.camera, device="cpu")
     w, h = 12, 10
     t_min = scene_epsilon(ss)
@@ -199,7 +248,7 @@ def test_pixel_range_is_checked():
     from nrenderer_torch.ops.camera import make_camera
     from nrenderer_torch.ops.pt_cuda import pt_accumulate
     scene = _scene("spt")
-    _, ss = pm._prep(scene)
+    _, ss = routes.prepare(scene)
     cam = make_camera(scene.camera, device="cpu")
     for pix0, n in ((-1, 4), (250, 7), (0, 0)):
         with pytest.raises(ValueError, match="pixel range"):
@@ -220,9 +269,9 @@ def test_hybrid_wavefront_band_is_the_films_rows(staged):
     from nrenderer_torch.ops.mesh_cuda import make_mesh_tables
     from nrenderer_torch.ops.pt_core import make_mat_channels
     from nrenderer_torch.renderers import _wavefront
-    from nrenderer_torch.renderers.acc_pt import build_render_fn
+    from nrenderer_torch.renderers._wavefront import build_render_fn
     scene = _scene("hybrid")
-    arrays, ss = pm._prep(scene)
+    arrays, ss = routes.prepare(scene)
     mesh = make_mesh_tables(build_mesh_accel(arrays, make_mat_channels(ss))
                             .bt, "cpu")
     cam = make_camera(scene.camera, device="cpu")

@@ -1,4 +1,4 @@
-"""The progressive loop's spans inside each pass (`acc_pt.progressive_loop`):
+"""The progressive loop's spans inside each pass (`routes.progressive_loop`):
 on a megamesh render through `cli.main` on the CPU every `first-pass` and
 `render-pass` span holds one `pass-wait` span (the pass's launch through
 its film's copy to the host) and then one `film-add` span (the add into

@@ -26,9 +26,10 @@ import torch
 
 import nrenderer_torch as P
 from nrenderer_torch.interop import camera_from_numpy, static_scene_from_numpy
-from nrenderer_torch.renderers import simple_pt
+from nrenderer_torch.renderers import routes, simple_pt
+from nrenderer_torch.renderers.routes import pick_chunk
 from nrenderer_torch.renderers.simple_pt import (
-    SimplePathTracerRenderer, pick_chunk, render_progressive,
+    SimplePathTracerRenderer, render_progressive,
 )
 from nrenderer_torch.scene.model import AmbientType, Texture
 from nrenderer_torch.server.checkpoint import load_checkpoint
@@ -108,15 +109,15 @@ def test_each_pass_matches_pallas_linear(monkeypatch, env):
                 env_map=emap)))
 
     films = []
-    real = simple_pt.pt_accumulate
+    real = routes.pt_accumulate
 
     def keep(*args, **kw):
         out = real(*args, **kw)
         films.append(out.clone().numpy())
         return out
 
-    monkeypatch.setattr(simple_pt, "pick_chunk", lambda w, h, spp: PASS)
-    monkeypatch.setattr(simple_pt, "pt_accumulate", keep)
+    monkeypatch.setattr(routes, "pick_chunk", lambda w, h, spp: PASS)
+    monkeypatch.setattr(routes, "pt_accumulate", keep)
     img = render_progressive(static_scene_from_numpy(jss),
                              camera_from_numpy(jcam, device="cpu"), W, H,
                              SPP, DEPTH, seed=SEED, env_map=emap)
@@ -160,10 +161,10 @@ def test_interrupted_and_resumed_equals_uninterrupted(tmp_path, monkeypatch,
     """A checkpointed render that dies in its third of four passes and is
     run again resumes from the saved film and ends bit for bit on the
     render that was never interrupted."""
-    monkeypatch.setattr(simple_pt, "pick_chunk", lambda w, h, spp: 2)
+    monkeypatch.setattr(routes, "pick_chunk", lambda w, h, spp: 2)
     scene = _port_scene(ENV if env else CORNELL, env=env, w=12, h=10)
     whole = _render(scene, str(tmp_path / "whole.npz"))
-    real = simple_pt.pt_accumulate
+    real = routes.pt_accumulate
     seeds = []
 
     def dies_on_third(*args, **kw):
@@ -173,12 +174,12 @@ def test_interrupted_and_resumed_equals_uninterrupted(tmp_path, monkeypatch,
         return real(*args, **kw)
 
     ckpt = tmp_path / "film.npz"
-    monkeypatch.setattr(simple_pt, "pt_accumulate", dies_on_third)
+    monkeypatch.setattr(routes, "pt_accumulate", dies_on_third)
     with pytest.raises(KeyboardInterrupt):
         _render(scene, str(ckpt))
     assert seeds == [SEED * 100003 + k for k in range(3)]
     assert int(np.load(ckpt)["spp_done"]) == 4
-    monkeypatch.setattr(simple_pt, "pt_accumulate", real)
+    monkeypatch.setattr(routes, "pt_accumulate", real)
     resumed = _render(scene, str(ckpt))
     np.testing.assert_array_equal(resumed, whole)
     assert np.isfinite(whole).all() and whole[..., :3].mean() > 0.02
@@ -186,21 +187,21 @@ def test_interrupted_and_resumed_equals_uninterrupted(tmp_path, monkeypatch,
 
 def _passes_run(monkeypatch, scene, ckpt):
     """Passes a checkpointed render runs (0: it resumed at the end)."""
-    real = simple_pt.pt_accumulate
+    real = routes.pt_accumulate
     n = []
 
     def count(*args, **kw):
         n.append(1)
         return real(*args, **kw)
 
-    monkeypatch.setattr(simple_pt, "pt_accumulate", count)
+    monkeypatch.setattr(routes, "pt_accumulate", count)
     _render(scene, ckpt)
-    monkeypatch.setattr(simple_pt, "pt_accumulate", real)
+    monkeypatch.setattr(routes, "pt_accumulate", real)
     return len(n)
 
 
 def test_fingerprint_refuses_changed_camera_and_env(tmp_path, monkeypatch):
-    monkeypatch.setattr(simple_pt, "pick_chunk", lambda w, h, spp: 2)
+    monkeypatch.setattr(routes, "pick_chunk", lambda w, h, spp: 2)
     ckpt = str(tmp_path / "f.npz")
     scene = _port_scene(ENV, env=True, w=8, h=6)
     assert _passes_run(monkeypatch, scene, ckpt) == 4
@@ -222,7 +223,7 @@ def test_fingerprint_refuses_changed_camera_and_env(tmp_path, monkeypatch):
 def test_previews_reach_the_screen(monkeypatch):
     """A preview every `preview_every` passes and after the last; the last
     is the returned image."""
-    monkeypatch.setattr(simple_pt, "pick_chunk", lambda w, h, spp: 1)
+    monkeypatch.setattr(routes, "pick_chunk", lambda w, h, spp: 1)
     scene = _port_scene(CORNELL, w=8, h=6, spp=5)
     screen = get_server().screen
     seen = []
@@ -245,7 +246,7 @@ def test_previews_reach_the_screen(monkeypatch):
 def test_env_switches(tmp_path, monkeypatch):
     """NR_PROGRESSIVE=1 takes the progressive route; NR_CHECKPOINT=<file>
     takes it with a checkpoint, as the JAX renderer reads them."""
-    monkeypatch.setattr(simple_pt, "pick_chunk", lambda w, h, spp: 2)
+    monkeypatch.setattr(routes, "pick_chunk", lambda w, h, spp: 2)
     scene = _port_scene(CORNELL, w=8, h=6)
     assert not SimplePathTracerRenderer(device="cpu").progressive
     monkeypatch.setenv("NR_PROGRESSIVE", "1")

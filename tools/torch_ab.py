@@ -66,8 +66,9 @@ rays, in both block orders; phase 10's megamesh render (`blob_960.obj`,
 megamesh/hybrid crossover: `blob_960.obj` and `ico_5120.obj` each on
 both routes (500x500, 256 spp, depth 20; a warm-up and three renders), the
 route forced by setting every megamesh limit the checkout has
-(`acc_pt.MEGAMESH_MAX_TRIS`, and the card's `MEGAMESH_MAX_TRIS_CUDA` where
-it exists) for those renders.  With
+(`routes.MEGAMESH_MAX_TRIS` and the card's `MEGAMESH_MAX_TRIS_CUDA`; in a
+checkout from before `renderers/routes.py`, `acc_pt`'s) for those
+renders.  With
 `--dense-min K,...` it then runs the `--mesh` measurements once more in a
 copy of this checkout for each K, with the warp sweep's dense-step
 threshold (`kDenseMin` in `csrc/mesh_sweep.cuh`) set to K.
@@ -117,11 +118,15 @@ import json, os, time, torch, chip_smoke as c
 from nrenderer_torch import cli
 from nrenderer_torch.renderers import acc_pt
 from nrenderer_torch.utils.timing import GLOBAL_TIMER
+try:
+    from nrenderer_torch.renderers import routes as rules
+except ImportError:   # a checkout from before the route layer
+    rules = acc_pt
 c.phase_build()
 out = {}
 # the megamesh limits a checkout has (an older one lacks the card's own)
 LIMITS = [n for n in ("MEGAMESH_MAX_TRIS", "MEGAMESH_MAX_TRIS_CUDA")
-          if hasattr(acc_pt, n)]
+          if hasattr(rules, n)]
 
 
 def renders(label, scene, renderer, size, spp, depth, env, objs=(),
@@ -134,9 +139,9 @@ def renders(label, scene, renderer, size, spp, depth, env, objs=(),
     os.makedirs(os.path.dirname(png), exist_ok=True)
     argv = c._cli_argv(scene, renderer, size, size, spp, depth, png,
                        env=env, objs=objs) + list(extra)
-    saved = [getattr(acc_pt, n) for n in LIMITS]
+    saved = [getattr(rules, n) for n in LIMITS]
     for n in LIMITS if limit is not None else ():
-        setattr(acc_pt, n, limit)
+        setattr(rules, n, limit)
     try:
         assert cli.main(argv) == 0
         phases, walls = [], []
@@ -150,7 +155,7 @@ def renders(label, scene, renderer, size, spp, depth, env, objs=(),
                           - g0)
     finally:
         for n, v in zip(LIMITS, saved):
-            setattr(acc_pt, n, v)
+            setattr(rules, n, v)
     out[label] = {"render_phase_s": phases, "cli_s": walls}
 '''
 
@@ -265,7 +270,7 @@ print("RESULT", json.dumps(out))
 '''
 
 CROSSOVER = COMMON + r'''
-from nrenderer_torch.parallel.mesh import plan_route
+from nrenderer_torch.renderers.routes import plan_route
 objs = [c.BLOB, c.ICO, *c.large_fixtures()]
 # the host's mesh prep with the host library and with the numpy versions
 out["mesh_prep_s"] = {os.path.basename(o): c.mesh_prep_seconds(o)
@@ -273,7 +278,7 @@ out["mesh_prep_s"] = {os.path.basename(o): c.mesh_prep_seconds(o)
 for obj in objs:
     name = os.path.splitext(os.path.basename(obj))[0]
     for route, limit in (("megamesh", 1 << 30), ("hybrid", 0)):
-        with acc_pt.pinned_megamesh_max_tris(limit):
+        with rules.pinned_megamesh_max_tris(limit):
             scene = c._scene_of(c.MESH_SCENE, 500, 500, 256, 20, (obj,))
             assert plan_route(scene, "AccPathTracer", False,
                               "cuda").kind == route
