@@ -51,6 +51,7 @@ its pixels, as the whole render draws it."""
 from __future__ import annotations
 
 import contextlib
+import threading
 from typing import Callable, NamedTuple, Optional
 
 import numpy as np
@@ -396,6 +397,22 @@ def tone_map(film, spp: int, width: int, height: int,
     return np.clip(img[::-1], 0.0, 1.0)
 
 
+# Passes of the progressive loop, and those whose host work (the add into
+# the host sum, the preview and the checkpoint write) ended while the next
+# pass was still on the card: read before and after a render to see how
+# much of the loop's host work the device hid.
+PASS_OVERLAP = {"passes": 0, "hidden": 0}
+_COUNT_LOCK = threading.Lock()
+
+
+class _Pass(NamedTuple):
+    """A launched pass: `host`, its film on the host once `copied` has
+    completed (the CUDA event after its copy; None for a film computed on
+    the CPU, which is there already)."""
+    host: torch.Tensor
+    copied: Optional[torch.cuda.Event]
+
+
 def progressive_loop(route: Route, width: int, height: int, spp: int,
                      seed: int, checkpoint_path, timer,
                      preview_every: int = 1) -> np.ndarray:
@@ -405,11 +422,23 @@ def progressive_loop(route: Route, width: int, height: int, spp: int,
     they use disjoint seeds, so a resume under the route's one-device
     fingerprint reproduces the remaining passes exactly.  A preview is
     posted to the Screen every `preview_every` passes and after the last.
+
+    The device runs one pass ahead of the host: pass k + 1 is queued, with
+    its film's copy to the host, before pass k's film is added and
+    previewed, so on a card that host work runs under pass k + 1's kernel
+    (the copies land in page-locked memory from torch's caching host
+    allocator; on the CPU a pass runs when it is queued).  The sums,
+    previews and checkpoints are the serial loop's; when queueing pass
+    k + 1 fails, pass k is finished (added, previewed, saved) before the
+    error propagates, as the serial loop had finished it.  `PASS_OVERLAP`
+    counts the passes.
+
     `timer` times the loop as `render` (every pass, the first included,
     with the previews and checkpoint writes between them), and inside it
     the passes as `first-pass` and `render-pass` and the previews as
-    `host-preview`; inside each pass, `pass-wait` runs from the pass's
-    launch through the return of its film's copy to the host, and
+    `host-preview`; inside each pass, `pass-wait` is the time the host is
+    held by the device (the next pass's launch, and this pass's own on
+    the first, through the arrival of this pass's film on the host), and
     `film-add` is the add of that film into the host sum.  Returns the
     image, row 0 = top."""
     w, h, pcall = width, height, route.plan.unit_spp
@@ -426,14 +455,35 @@ def progressive_loop(route: Route, width: int, height: int, spp: int,
             get_server().logger.log(
                 f"resumed at {spp_done}/{spp} spp from {checkpoint_path}")
     n_steps = spp // pcall
+
+    def launch(step: int) -> _Pass:
+        """Queue pass `step` and its film's copy to the host."""
+        part = route.one_pass(step, 0, w * h)
+        host = part.to("cpu", non_blocking=True)
+        copied = None
+        if part.is_cuda:
+            copied = torch.cuda.Event()
+            copied.record(torch.cuda.current_stream(part.device))
+        return _Pass(host, copied)
+
+    img = nxt = None
+    hidden = 0
     with timer.phase("render"):
         for step in range(start, n_steps):
+            failed = None
             with timer.phase("first-pass" if step == start
                              else "render-pass"):
                 with timer.phase("pass-wait"):
-                    part = route.one_pass(step, 0, w * h).cpu().numpy()
+                    cur = nxt if step > start else launch(step)
+                    try:
+                        nxt = (launch(step + 1) if step + 1 < n_steps
+                               else None)
+                    except BaseException as e:   # re-raised below
+                        nxt, failed = None, e
+                    if cur.copied is not None:
+                        cur.copied.synchronize()
                 with timer.phase("film-add"):
-                    film += part
+                    film += cur.host.numpy()
             done = (step + 1) * pcall
             if (step + 1) % preview_every == 0 or step == n_steps - 1:
                 with timer.phase("host-preview"):
@@ -445,5 +495,19 @@ def progressive_loop(route: Route, width: int, height: int, spp: int,
             if checkpoint_path:
                 save_checkpoint(checkpoint_path, film, done, w, h, seed,
                                 fingerprint)
-    img = np.sqrt(np.maximum(film / spp, 0.0)).reshape(h, w, 3)
-    return np.clip(img[::-1], 0.0, 1.0)
+            under = nxt is not None and nxt.copied is not None \
+                and not nxt.copied.query()
+            hidden += under
+            with _COUNT_LOCK:
+                PASS_OVERLAP["passes"] += 1
+                PASS_OVERLAP["hidden"] += under
+            if failed is not None:
+                raise failed
+    if n_steps > start:
+        get_server().logger.log(
+            f"passes: {n_steps - start}, {hidden} with their host work "
+            "under the next pass")
+    if img is None:   # resumed at the end: no pass ran
+        img = np.sqrt(np.maximum(film / spp, 0.0)).reshape(h, w, 3)[::-1]
+    # the last pass's preview is the image: done == spp
+    return np.clip(img, 0.0, 1.0)

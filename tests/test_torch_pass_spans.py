@@ -1,8 +1,9 @@
 """The progressive loop's spans inside each pass (`routes.progressive_loop`):
 on a megamesh render through `cli.main` on the CPU every `first-pass` and
-`render-pass` span holds one `pass-wait` span (the pass's launch through
-its film's copy to the host) and then one `film-add` span (the add into
-the host sum), with the command's render id; and the benchmark's
+`render-pass` span holds one `pass-wait` span (the time the host is held
+by the device: the next pass's launch through this pass's film's arrival
+on the host) and then one `film-add` span (the add into the host sum),
+with the command's render id; and the benchmark's
 `pass_host_ms.megamesh` reads the render span less those waits."""
 import importlib.util
 import pathlib
