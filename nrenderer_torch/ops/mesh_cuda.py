@@ -36,6 +36,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from ..utils.timing import GLOBAL_TIMER
 from . import stream_compact
 from .bvh import BlockedTris
 from .soa import V3
@@ -544,13 +545,16 @@ def top_aabb_reach(mt: MeshTables, o: V3, d: V3, t_min: float,
                    t_cap: torch.Tensor):
     """(box min, box max, reach): the pool's top-level AABB and which rays
     can reach it with a hit nearer than their cap (the in-sweep block
-    test's rule, `mesh_pallas.py:704-724`)."""
+    test's rule, `mesh_pallas.py:704-724`).  The rays the parallel recheck
+    takes are listed on the host, which waits on the device for them: the
+    wait is spanned as `mesh-pipe.reach-wait`."""
     lo, hi = mt.bb[:, 0:3].amin(dim=0), mt.bb[:, 4:7].amax(dim=0)
     t_near, t_far = _slab(lo, hi, o, d)
     reach = ((t_near <= t_far) & (t_far >= t_min)
              & (torch.clamp(t_near, min=t_min) < t_cap))
     inv = (_inv(d.x), _inv(d.y), _inv(d.z))
-    p = torch.nonzero(_parallel(inv) & ~reach).flatten()
+    with GLOBAL_TIMER.phase("mesh-pipe.reach-wait"):
+        p = torch.nonzero(_parallel(inv) & ~reach).flatten()
     if p.numel():
         reach[p] = _enters_parallel(lo, hi, (o.x[p], o.y[p], o.z[p]),
                                     tuple(i[p] for i in inv), t_min,
@@ -596,7 +600,11 @@ def intersect_triangles_mesh(mt: MeshTables, o: V3, d: V3, t_min: float,
     the whole wavefront is swept with the zeroed caps; otherwise the
     packed rays are stably sorted by entry cell over the live prefix,
     swept front to back (B2), unsorted and unpacked (B3b) with the sweep's
-    miss values.  Every branch gives each ray the same answer.
+    miss values.  Every branch gives each ray the same answer.  The host
+    waits on the device twice a call: for the top-level test's parallel
+    rays (`mesh-pipe.reach-wait`) and, when it packs, for the pack's count
+    (`mesh-pipe.count-wait`); both are spans of `utils/timing.GLOBAL_TIMER`,
+    the time the host is held by the device.
 
     Returns (t, nx, ny, nz, mat, pid, channels) as
     `intersect_triangles_blocked` does (t = inf and pid = -1 on a miss),
@@ -610,11 +618,12 @@ def intersect_triangles_mesh(mt: MeshTables, o: V3, d: V3, t_min: float,
     n_hit = None
     if n >= MESH_COMPACT_MIN and cap < n:
         # a surviving ray has t_cap > t_min >= 0, so the pack's mask is
-        # `reach`; its count is the route's one host sync per bounce: the
-        # overflow and the sort window both read it
+        # `reach`; its count is read on the host: the overflow and the
+        # sort window both read it
         sp = stream_compact.stream_pack_channels(
             (o.x, o.y, o.z, d.x, d.y, d.z, t_cap), cap, mask_from=6)
-        n_hit = int(sp.count)
+        with GLOBAL_TIMER.phase("mesh-pipe.count-wait"):
+            n_hit = int(sp.count)
     if n_hit is not None and n_hit <= cap:
         ROUTE_COUNTS["compacted"] += 1
         out = _compacted_sweep(mt, t_min, t_cap, sp, n_hit, lo, hi, sort,

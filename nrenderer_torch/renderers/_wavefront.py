@@ -28,14 +28,24 @@ the kernel never uses, and 7000 + stage mirrors JAX's
 `fold_in(k_path, 7000 + si)`.  Each stage boundary reads one count on the
 host.
 
+Tracing (`utils/timing.GLOBAL_TIMER`): both loops span each chunk as
+`wavefront.chunk`; the staged loop spans each stage boundary (the bank,
+the roulette's count and the pack) as `wavefront.stage`, and the host's
+read of the live count inside it as `wavefront.count-wait`, the time the
+host is held by the device (the mesh pipe spans its own waits as
+`mesh-pipe.reach-wait` and `mesh-pipe.count-wait`).  `ROUTE_COUNTS`
+counts chunks, stage packs and roulette firings.
+
 The functions return the linear film SUM ((n_pix, 3) float32) over the
 samples asked for.  The staged film adds each ray's stage radiances lane
 by lane and then the samples in order, so it equals the plain film up to
-the rounding of those per-stage sums.  Built with `pix0`/`n_pix`, they
-trace pixels [pix0, pix0 + n_pix) only (a band of rows, for a render
-split across devices): lanes number the range's pixels, while the draws
-and the camera ray keep the global pixel id, so the band is the full
-film's rows.
+the rounding of those per-stage sums (none for the five-lobe bounce: a
+path gains radiance once at most, at the light hit that ends it or from
+the depth cap's ambient, so all its stage radiances but one are zero).
+Built with `pix0`/`n_pix`, they trace pixels [pix0, pix0 + n_pix) only
+(a band of rows, for a render split across devices): lanes number the
+range's pixels, while the draws and the camera ray keep the global pixel
+id, so the band is the full film's rows.
 
 `build_render_fn` is the route's film over AccPathTracer's five-lobe
 bounce (`make_bsdf_bounce`, `trace_bsdf_wavefront`; the JAX renderer's
@@ -59,15 +69,16 @@ from ..ops.soa import V3
 from ..ops.stream_compact import (
     stream_lanes_needed, stream_pack_channels, stream_unpack_channels,
 )
+from ..utils.timing import GLOBAL_TIMER
 
 STAGE_BOUNDARIES = ((6, 2), (11, 4), (16, 8))  # (first bounce, 1/size)
 ROULETTE_MARGIN = 0.97
 ROULETTE_DRAW = 7
 ROULETTE_BASE = 7000
 
-# Stage packs made and stages whose roulette fired: a caller resets and
-# reads them (the renderer logs them).
-ROUTE_COUNTS = {"stage_packs": 0, "roulette": 0}
+# Chunks traced, stage packs made and stages whose roulette fired: a
+# caller resets and reads them (the renderer logs them).
+ROUTE_COUNTS = {"chunks": 0, "stage_packs": 0, "roulette": 0}
 
 
 def reset_route_counts() -> None:
@@ -126,10 +137,12 @@ def build_wavefront_fn(cam: CameraParams, width: int, height: int,
                            device=cam.position.device)
         for c0 in range(0, n_spp, chunk):
             c = min(chunk, n_spp - c0)
-            _, pid, sp, o, d = _camera_chunk(cam, width, height, seed,
-                                             sp0 + c0, c, pix0, n_pix)
-            rad = trace_fn(o, d, pid, sp, seed)
-            _film_add(film, torch.stack(rad), c, n_pix)
+            with GLOBAL_TIMER.phase("wavefront.chunk"):
+                ROUTE_COUNTS["chunks"] += 1
+                _, pid, sp, o, d = _camera_chunk(cam, width, height, seed,
+                                                 sp0 + c0, c, pix0, n_pix)
+                rad = trace_fn(o, d, pid, sp, seed)
+                _film_add(film, torch.stack(rad), c, n_pix)
         return film
 
     return render
@@ -163,7 +176,8 @@ def build_staged_wavefront_fn(cam: CameraParams, width: int, height: int,
 
     def roulette(alive, cap: int, pid, sp, seed: int, si: int):
         """(keep mask, 1/q or None): every live ray when they fit."""
-        n_alive = int(stream_lanes_needed(alive))
+        with GLOBAL_TIMER.phase("wavefront.count-wait"):
+            n_alive = int(stream_lanes_needed(alive))
         if n_alive <= cap:
             return alive, None
         ROUTE_COUNTS["roulette"] += 1
@@ -193,13 +207,14 @@ def build_staged_wavefront_fn(cam: CameraParams, width: int, height: int,
             if si == 0 and peel:
                 b0 = 1
             if si > 0:
-                bank(acc, rad, chain)
-                cap = max(128, (n_rays // shrink) // 128 * 128)
-                keep, inv_q = roulette(alive, cap, pid, sp, seed, si)
-                keep_f = keep.to(torch.float32)
-                sp_k = stream_pack_channels(
-                    (o.x, o.y, o.z, d.x, d.y, d.z, thr.x, thr.y, thr.z,
-                     keep_f, lane), cap, mask_from=9)
+                with GLOBAL_TIMER.phase("wavefront.stage"):
+                    bank(acc, rad, chain)
+                    cap = max(128, (n_rays // shrink) // 128 * 128)
+                    keep, inv_q = roulette(alive, cap, pid, sp, seed, si)
+                    keep_f = keep.to(torch.float32)
+                    sp_k = stream_pack_channels(
+                        (o.x, o.y, o.z, d.x, d.y, d.z, thr.x, thr.y, thr.z,
+                         keep_f, lane), cap, mask_from=9)
                 ROUTE_COUNTS["stage_packs"] += 1
                 p = sp_k.packed
                 o, d = V3(p[0], p[1], p[2]), V3(p[3], p[4], p[5])
@@ -223,7 +238,9 @@ def build_staged_wavefront_fn(cam: CameraParams, width: int, height: int,
                            device=cam.position.device)
         for c0 in range(0, n_spp, chunk):
             c = min(chunk, n_spp - c0)
-            _film_add(film, trace_chunk(seed, sp0 + c0, c), c, n_pix)
+            with GLOBAL_TIMER.phase("wavefront.chunk"):
+                ROUTE_COUNTS["chunks"] += 1
+                _film_add(film, trace_chunk(seed, sp0 + c0, c), c, n_pix)
         return film
 
     return render

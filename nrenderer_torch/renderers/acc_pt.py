@@ -124,7 +124,9 @@ class AccPathTracerRenderer(RenderComponent):
                     f"--checkpoint: render fits a single pass ({spp} spp, "
                     f"chunk {plan.chunk}); nothing to snapshot")
             with timer.phase("render"):
-                film = route.film(0, spp, 0, w * h).cpu().numpy()
+                film = route.film(0, spp, 0, w * h)
+                with timer.phase("film-wait"):   # held by the device
+                    film = film.cpu().numpy()
             with timer.phase("host-post"):
                 img = tone_map(film, spp, w, h, False)
         get_server().logger.log(

@@ -25,9 +25,10 @@ The routes (`Plan.kind`):
   triangles without an env map (`acc_pt.py:297-341`): on the CPU
   `MEGAMESH_MAX_TRIS` (1024, the JAX package's figure: the plain mesh form
   is the CPU's slow path), on the card `MEGAMESH_MAX_TRIS_CUDA` (20,480,
-  the largest measured pool at which the megamesh route beat the hybrid
-  route on an H100: PERF.md §5's crossover; the JAX package's route too
-  depends on its backend, `acc_pt.py:297-303`).  The pool is packed into
+  the pool up to which the megamesh route was first measured to beat the
+  hybrid route on an H100; it now wins at 81,920 faces too, see the
+  constant; the JAX package's route too depends on its backend,
+  `acc_pt.py:297-303`).  The pool is packed into
   BVH-preorder blocks (`ops/bvh.build_mesh_accel`) and the kernel's mesh
   form runs the blocked sweep inside its bounce loop, in passes of
   `megamesh_pass_spp` samples at seeds `pass_seed`.  Textures are dropped
@@ -76,10 +77,16 @@ from ._wavefront import build_render_fn
 RENDERERS = ("SimplePathTracer", "AccPathTracer")
 BVH_THRESHOLD = 64
 MEGAMESH_MAX_TRIS = 1024  # the megamesh route's pools on the CPU
-# and on the card: the largest measured pool at which the megamesh route's
-# median CLI wall beat the hybrid route's on an H100 (500x500, 256 spp,
-# depth 20: at 20,480 faces 1.241 s against 2.864 s; at 81,920 faces
-# 4.153 s against 3.836 s; PERF.md §5, `tools/torch_ab.py --crossover`)
+# and on the card: the largest pool at which the megamesh route's median
+# CLI wall first measured below the hybrid route's on an H100 (500x500,
+# 256 spp, depth 20: at 20,480 faces 1.241 s against 2.864 s; at 81,920
+# faces 4.153 s against 3.836 s).  Since the mesh form's flat bounce loop
+# the megamesh route wins at 81,920 faces as well: 3.277 s against
+# 4.190 s, and 0.876 s against 2.969 s at 20,480 (an H100 80GB HBM3 at
+# 700 W, `tools/torch_ab.py --crossover`; PERF.md §6).  Raising the limit
+# moves the benchmark's `largemesh.hybrid` cell to the megamesh route,
+# whose passes its `hybrid` reference does not follow: the cell's
+# reference has to change first (ROADMAP D3 item 4).
 MEGAMESH_MAX_TRIS_CUDA = 20480
 ACC_TYPE0_MAX_TRIS = MAX_TRIS  # acc_type=0 (brute force) refused past this
 STAGED_MIN_DEPTH = 12  # the hybrid route stages its wavefront from here
@@ -305,6 +312,10 @@ def build_route(plan: Plan, renderer: str, ss, cam, width: int, height: int,
     # samples(sp0, n, pix0, n_pix): the film of samples [sp0, sp0 + n) at
     # the render's seed; one_pass(step, ...): the one-device route's pass
     if plan.kind == "hybrid":
+        # each chunk's camera rays read the lens radius on the host
+        # (`pt_cuda.camera_rays`): a copy held there is read without
+        # waiting on the device
+        cam = cam._replace(lens_radius=cam.lens_radius.cpu())
         log = (f"AccPathTracer: hybrid mesh route, "
                f"{'staged' if staged else 'plain'} wavefront in chunks of "
                f"{plan.chunk} spp, standalone sweep over {pool} with the "

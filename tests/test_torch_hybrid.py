@@ -256,7 +256,8 @@ def test_staged_route_matches_megamesh_plain(monkeypatch):
     w, h, spp, depth = 16, 16, 4, 13
     film = build_render_fn(ss, cam, w, h, depth, spp, tri_bvh=mt,
                            staged=True)(5, 8, spp)
-    assert _wavefront.ROUTE_COUNTS == {"stage_packs": 2, "roulette": 0}
+    assert _wavefront.ROUTE_COUNTS == {"chunks": 1, "stage_packs": 2,
+                                       "roulette": 0}
     assert mesh_cuda.ROUTE_COUNTS["compacted"] >= 6
     want = pt_accumulate_plain(torch.zeros((w * h, 3)), ss, cam, w, h, 8,
                                spp, depth, 5, scene_epsilon(ss), bsdf=True,
@@ -295,8 +296,8 @@ def test_staged_roulette_matches_unstaged():
                                staged=staged)(0, 0, spp)
         img[staged] = torch.clamp(_gamma(film, spp), max=1.0).numpy()
         if staged:
-            assert _wavefront.ROUTE_COUNTS == {"stage_packs": 2,
-                                               "roulette": 2}
+            assert _wavefront.ROUTE_COUNTS == {
+                "chunks": 1, "stage_packs": 2, "roulette": 2}
     a, b = img[True], img[False]
     print("roulette staged vs unstaged: means", a.mean(), b.mean(),
           "mean |d|", np.abs(a - b).mean())
@@ -361,7 +362,8 @@ def test_env_route_compacted_and_staged(monkeypatch):
                              env_map=env, staged=True)(0, 0, spp)
     plain = build_render_fn(ss, cam, w, h, 13, spp, tri_bvh=mt,
                             env_map=env)(0, 0, spp)
-    assert _wavefront.ROUTE_COUNTS == {"stage_packs": 2, "roulette": 0}
+    assert _wavefront.ROUTE_COUNTS == {"chunks": 2, "stage_packs": 2,
+                                       "roulette": 0}
     _bars(staged, plain, spp, "env staged vs unstaged")
 
 

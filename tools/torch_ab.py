@@ -139,9 +139,9 @@ def renders(label, scene, renderer, size, spp, depth, env, objs=(),
     os.makedirs(os.path.dirname(png), exist_ok=True)
     argv = c._cli_argv(scene, renderer, size, size, spp, depth, png,
                        env=env, objs=objs) + list(extra)
-    saved = [getattr(rules, n) for n in LIMITS]
-    for n in LIMITS if limit is not None else ():
-        setattr(rules, n, limit)
+    saved = [getattr(rules, name) for name in LIMITS]
+    for name in LIMITS if limit is not None else ():
+        setattr(rules, name, limit)
     try:
         assert cli.main(argv) == 0
         phases, walls = [], []
@@ -154,8 +154,8 @@ def renders(label, scene, renderer, size, spp, depth, env, objs=(),
             phases.append(GLOBAL_TIMER.get(f"{renderer}.render").total_s
                           - g0)
     finally:
-        for n, v in zip(LIMITS, saved):
-            setattr(rules, n, v)
+        for name, v in zip(LIMITS, saved):
+            setattr(rules, name, v)
     out[label] = {"render_phase_s": phases, "cli_s": walls}
 '''
 
