@@ -185,6 +185,13 @@ exits non-zero without a result line:
      version, with the bound from the plain version's counts); phase 13's
      mesh pipe on it (B3a, B2 and B3b bit for bit, B2 timed with its bound
      and schedule counts); the phase's seconds on a line of their own.
+33. the hybrid bounce's kernels (`wavefront_dense_hit_kernel`,
+    `wavefront_shade_kernel`) on the 81,920-face icosphere at the
+    large-mesh cell's shapes: bounce 1 of a 500x500, 64-spp chunk (16 Mi
+    lanes) and bounce 6 after the stage pack into n / 2 slots; the fused
+    bounce against the eager one and each kernel against its plain version
+    bit for bit, each kernel timed beside its bound and its plain
+    version, the whole bounce in both forms beside the mesh pipe's time.
 
 Phases 13, 14 (both rows), 18 and 29's hybrid half measure the hybrid
 route: 14, 18 and 29 pin the CPU's megamesh limit (1024 triangles, the
@@ -265,9 +272,11 @@ MESH_MEAN_BAND = (0.28, 0.55)
 # hybrid route's plain versions on the CPU.
 ICO_MEAN_BAND = (0.22, 0.5)
 HYBRID_KERNELS = ["mesh_sweep_kernel", "stream_pack_kernel",
-                  "stream_unpack_kernel"]
+                  "stream_unpack_kernel", "wavefront_dense_hit_kernel",
+                  "wavefront_shade_kernel"]
 HYBRID_MXU_KERNELS = ["mesh_sweep_mxu_kernel", "stream_pack_kernel",
-                      "stream_unpack_kernel"]
+                      "stream_unpack_kernel", "wavefront_dense_hit_kernel",
+                      "wavefront_shade_kernel"]
 # MLT (plain versions on the CPU, seed 0): cornell_box.scn near 0.47 (its
 # light 0.78; 64x64, 1024 chains x 32 mutations, depth 20), mesh_box.scn +
 # blob_960.obj near 0.47 (the blob 0.45, the floor in its shadow 0.35;
@@ -337,11 +346,12 @@ FLOPS_MXU_TRI = 90
 # pt_dense_kernel<kBsdf, kEnv, kTex, kRange> (the eight forms without a
 # mesh, 64 registers at most at 8 blocks an SM: B1a with its float4
 # records), pt_mesh_kernel<kTex> (B1e, B1d's mesh form) and
-# mesh_sweep_kernel<kUv> (B2).  A change to one kernel must leave the
-# others' figures as they are.  Each dense-pool form has a whole-film
-# instantiation (kRange false: the main path's, as before the pixel range)
-# and a range one (one or two registers more in the BSDF form and the BSDF
-# texture forms, two fewer in the diffuse texture forms).
+# mesh_sweep_kernel<kUv> (B2), and the hybrid bounce's
+# wavefront_dense_hit_kernel and wavefront_shade_kernel.  A change to one
+# kernel must leave the others' figures as they are.  Each dense-pool form
+# has a whole-film instantiation (kRange false: the main path's, as before
+# the pixel range) and a range one (one or two registers more in the BSDF
+# form and the BSDF texture forms, two fewer in the diffuse texture forms).
 KEPT_PTXAS = {
     "15pt_dense_kernelILb0ELb0ELb0ELb0EE": (24, 44, 24, 64),
     "15pt_dense_kernelILb1ELb0ELb0ELb0EE": (0, 0, 0, 61),
@@ -362,7 +372,9 @@ KEPT_PTXAS = {
     "14pt_mesh_kernelILb0EE": (32, 0, 0, 79),
     "14pt_mesh_kernelILb1EE": (56, 0, 0, 85),
     "17mesh_sweep_kernelILb0EE": (0, 0, 0, 56),
-    "17mesh_sweep_kernelILb1EE": (0, 0, 0, 63)}
+    "17mesh_sweep_kernelILb1EE": (0, 0, 0, 63),
+    "26wavefront_dense_hit_kernel": (0, 0, 0, 31),
+    "22wavefront_shade_kernel": (32, 0, 0, 48)}
 
 
 def gpu_name_power() -> str:
@@ -1601,6 +1613,186 @@ def phase_large_mesh(ico_pixels, obj, width=500, height=500, spp=256,
     return st
 
 
+# The hybrid bounce's kernels (csrc/pt_kernel.cu), for their bounds: FP32
+# operations of a live lane's dense hit and, in the shade kernel, of the
+# dense hit again, the light tests and the cheapest scatter (the
+# Lambertian lobe; the hash not counted).  Bytes: the dense-hit kernel
+# reads every lane's alive byte and a live lane's o and d, and writes every
+# lane's cap.  The shade kernel reads every lane's alive byte, a live
+# lane's o, d, throughput and the pipe's t, and a mesh winner's normal and
+# material; a lane that scatters reads its lane id and writes o, d and
+# throughput; one that ends at a light, or misses under an env map, writes
+# its alive byte and reads and writes its radiance (the miss also reads
+# its texel); a plain miss writes its alive byte alone.
+WAVE_DENSE_BYTES, WAVE_LIVE_BYTES = (1 + 4, 24), 40
+WAVE_MESH_BYTES, WAVE_SCATTER_BYTES, WAVE_END_BYTES = 16, 40, 25
+WAVE_TEXEL_BYTES, WAVE_MISS_BYTES = 12, 1
+
+
+def _wave_copy(state):
+    """A copy of a wavefront's state in the rows of one buffer."""
+    from nrenderer_torch.ops.soa import V3
+    o, d, thr, rad, alive = state
+    st = torch.stack([*o, *d, *thr, *rad]).clone()
+    return (*(V3(st[k], st[k + 1], st[k + 2]) for k in (0, 3, 6, 9)),
+            alive.clone())
+
+
+def _wave_restore(dst, src) -> None:
+    for a, b in zip((*dst[0], *dst[1], *dst[2], *dst[3], dst[4]),
+                    (*src[0], *src[1], *src[2], *src[3], src[4])):
+        a.copy_(b)
+
+
+def _timed_in_place(fn, state, reps: int) -> float:
+    """Mean device ms of `fn(copy)`, each run on a fresh copy of `state`
+    (the copies outside the timed span)."""
+    work = _wave_copy(state)
+    total = 0.0
+    for _ in range(reps):
+        _wave_restore(work, state)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn(work)
+        end.record()
+        torch.cuda.synchronize()
+        total += start.elapsed_time(end)
+    return total / reps
+
+
+def _state_err(got, want) -> int:
+    """The largest word error over two wavefront states' rows, and the
+    count of alive flags that differ (0: bit for bit)."""
+    err = max(_word_err(g, w) for g, w in zip(
+        (*got[0], *got[1], *got[2], *got[3]),
+        (*want[0], *want[1], *want[2], *want[3])))
+    return max(err, int((got[4] != want[4]).sum()))
+
+
+def _wave_case(label, ss, wt, mt, eager, fused, state, draws, b) -> dict:
+    """One bounce at one shape: the fused bounce against the eager one and
+    each kernel against its plain version, bit for bit, and each kernel
+    timed beside its bound and its plain version."""
+    from nrenderer_torch.ops import mesh_cuda, pt_cuda
+    from nrenderer_torch.ops.intersect import intersect_area_lights_unrolled
+    o, d, thr, rad, alive = state
+    n = alive.shape[0]
+    want = eager(*_wave_copy(state), draws, b)
+    err = _state_err(fused(*_wave_copy(state), draws, b), want)
+    cap = pt_cuda.wavefront_dense_hit(wt, o, d, alive)
+    dense_err = _word_err(cap, pt_cuda.wavefront_dense_hit_plain(wt, o, d,
+                                                                 alive))
+    hit = mesh_cuda.intersect_triangles_mesh(mt, o, d, wt.t_min, cap,
+                                             None)[:5]
+    shaded = _wave_copy(state)
+    pt_cuda.wavefront_shade(wt, *shaded, hit, draws, b)
+    shade_err = _state_err(shaded, pt_cuda.wavefront_shade_plain(
+        wt, *state, hit, draws, b))
+    t_l = intersect_area_lights_unrolled(ss, o, d, t_min=wt.t_min)[0]
+    ended = alive & ~want[4]
+    live, scatter = int(alive.sum()), int(want[4].sum())
+    lit = int((ended & (t_l < float("inf"))).sum())
+    misses = int(ended.sum()) - lit
+    env_misses = misses if wt.env is not None else 0
+    mesh_hits = int((alive & (hit[0] < cap)).sum())
+    per_live = len(ss.sph) * FLOPS_SPHERE + len(ss.pln) * FLOPS_PATCH
+    dense_bound = _bound(live * per_live, n * WAVE_DENSE_BYTES[0]
+                         + live * WAVE_DENSE_BYTES[1])
+    shade_bound = _bound(
+        live * (per_live + len(ss.al) * FLOPS_PATCH + FLOPS_SCATTER),
+        n + live * WAVE_LIVE_BYTES + mesh_hits * WAVE_MESH_BYTES
+        + scatter * WAVE_SCATTER_BYTES + (lit + env_misses) * WAVE_END_BYTES
+        + env_misses * WAVE_TEXEL_BYTES
+        + (misses - env_misses) * WAVE_MISS_BYTES)
+    dense_ms = _time_ms(lambda: pt_cuda.wavefront_dense_hit(wt, o, d, alive),
+                        20)
+    dense_plain_ms = _time_ms(
+        lambda: pt_cuda.wavefront_dense_hit_plain(wt, o, d, alive), 3)
+    shade_ms = _timed_in_place(
+        lambda s: pt_cuda.wavefront_shade(wt, *s, hit, draws, b), state, 20)
+    shade_plain_ms = _time_ms(lambda: pt_cuda.wavefront_shade_plain(
+        wt, *state, hit, draws, b), 3)
+    pipe_ms = _time_ms(lambda: mesh_cuda.intersect_triangles_mesh(
+        mt, o, d, wt.t_min, cap, None), 3)
+    eager_ms = _time_ms(lambda: eager(*state, draws, b), 3)
+    fused_ms = _timed_in_place(lambda s: fused(*s, draws, b), state, 3)
+    st = {"shape": label, "lanes": n, "live": live, "mesh_hits": mesh_hits,
+          "scatter": scatter, "lit": lit, "misses": misses,
+          "max_abs_err": err, "dense_hit_max_abs_err": dense_err,
+          "shade_max_abs_err": shade_err,
+          "dense_hit_ms": dense_ms, "dense_hit_plain_ms": dense_plain_ms,
+          "dense_hit_bound_ms": dense_bound[0],
+          "dense_hit_bound_by": dense_bound[1],
+          "shade_ms": shade_ms, "shade_plain_ms": shade_plain_ms,
+          "shade_bound_ms": shade_bound[0],
+          "shade_bound_by": shade_bound[1], "pipe_ms": pipe_ms,
+          "eager_bounce_ms": eager_ms, "fused_bounce_ms": fused_ms,
+          "eager_math_ms": eager_ms - pipe_ms}
+    print(json.dumps(st))
+    if err or dense_err or shade_err:
+        raise AssertionError(
+            f"{label}: the wavefront kernels differ (max word error: the "
+            f"fused bounce against the eager one {err}, the dense-hit "
+            f"kernel against its plain version {dense_err}, the shade "
+            f"kernel against its plain version {shade_err})")
+    return st
+
+
+def phase_wavefront_bounce(obj, width=500, height=500, chunk=64) -> dict:
+    """33: the hybrid bounce's kernels at the large-mesh cell's shapes:
+    bounce 1 of a chunk (500x500, 64 spp: 16 Mi lanes) and bounce 6, the
+    first after the stage pack into n / 2 slots; at each, the fused bounce
+    against the eager one and each kernel against its plain version bit
+    for bit (every state word and alive flag, every cap word), each kernel
+    timed beside its bound and its plain version, and the whole bounce in
+    both forms beside the mesh pipe's time."""
+    name = os.path.splitext(os.path.basename(obj))[0]
+    print(f"== phase 33: the hybrid bounce's kernels, {name}, {width}x"
+          f"{height}, {chunk} spp a chunk")
+    from nrenderer_torch.ops import pt_cuda
+    from nrenderer_torch.ops.bvh import build_mesh_accel
+    from nrenderer_torch.ops.mesh_cuda import make_mesh_tables
+    from nrenderer_torch.ops.pt_core import make_mat_channels, scene_epsilon
+    from nrenderer_torch.ops.stream_compact import stream_pack_channels
+    from nrenderer_torch.ops.soa import V3
+    from nrenderer_torch.renderers import _wavefront
+    ss, cam, _, arrays = _setup("cuda", MESH_SCENE, objs=(obj,))
+    mt = make_mesh_tables(build_mesh_accel(arrays, make_mat_channels(ss)).bt,
+                          "cuda")
+    t_min = scene_epsilon(ss)
+    wt = pt_cuda.make_wave_tables(ss, t_min, None, "cuda")
+    fused = _wavefront.make_bsdf_bounce(ss, t_min, mt)
+    real = _wavefront.bounce_form
+    _wavefront.bounce_form = lambda *a: "eager"
+    try:
+        eager = _wavefront.make_bsdf_bounce(ss, t_min, mt)
+    finally:
+        _wavefront.bounce_form = real
+    n_pix = width * height
+    draws, o, d = _wavefront._camera_chunk(cam, width, height, 0, 0, chunk, 0,
+                                           n_pix)
+    state = eager(*_wavefront._new_state(o, d), draws, 0, coherent=True)
+    rows = [_wave_case("bounce 1, the chunk's lanes", ss, wt, mt, eager,
+                       fused, state, draws, 1)]
+    for b in range(1, 6):
+        state = eager(*state, draws, b)
+    o, d, thr, rad, alive = state
+    cap = (chunk * n_pix // 2) // 128 * 128
+    sp_k = stream_pack_channels((*o, *d, *thr, alive.to(torch.float32),
+                                 draws.lane), cap, mask_from=9)
+    p = sp_k.packed
+    packed = (*(V3(p[k], p[k + 1], p[k + 2]) for k in (0, 3, 6)),
+              V3(*torch.zeros((3, cap), device="cuda")), p[9] > 0.0)
+    rows.append(_wave_case(
+        f"bounce 6, after the pack into {cap} slots", ss, wt, mt, eager,
+        fused, packed, draws._replace(lane=p[10].view(torch.int32)), 6))
+    return {"rows": rows,
+            "max_abs_err": max(r["max_abs_err"] for r in rows),
+            **{f"{k}_max_abs_err": max(r[f"{k}_max_abs_err"] for r in rows)
+               for k in ("dense_hit", "shade")}}
+
+
 @contextlib.contextmanager
 def _env(name: str, value):
     """The environment variable `name` set to `value` (removed when None)
@@ -2794,6 +2986,7 @@ def main(argv=None) -> int:
     phase_sharded_cli()
     large = phase_large_mesh(b2_pixels, ico_81920)
     paths.append(large)
+    wave = phase_wavefront_bounce(ico_81920)
     launches = {}
     for run in paths:
         for name, n in run["launches"].items():
@@ -2911,6 +3104,22 @@ def main(argv=None) -> int:
             "library_ms": st.get(f"{key}_library_ms"),
             "shape": st["case"],
             "sharded_launches": sharded_launches.get(name, 0)})
+    # the hybrid bounce's kernels at the large-mesh cell's first shape
+    for name, key in zip(pt_cuda.WAVEFRONT_KERNELS, ("dense_hit", "shade")):
+        st = wave["rows"][0]
+        kernels.append({
+            "name": name, "route": "cuda", "source": pt_cuda.KERNEL_SOURCE,
+            "replaces": "nrenderer_tpu/renderers/acc_pt.py:53-99, the XLA "
+                        "bounce of the stream wavefront",
+            "launches": launches.get(name, 0),
+            "max_abs_err": wave[f"{key}_max_abs_err"], "ms": st[f"{key}_ms"],
+            "plain_ms": st[f"{key}_plain_ms"],
+            "bound_ms": st[f"{key}_bound_ms"],
+            "bound_by": st[f"{key}_bound_by"], "library_ms": None,
+            "shape": st["shape"],
+            "shapes": [{k: r[k] for k in ("shape", "lanes", f"{key}_ms",
+                                          f"{key}_bound_ms")}
+                       for r in wave["rows"]]})
     print(f"whole script: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -12,9 +12,11 @@
 // pt_bsdf_env_kernel (kEnv), pt_diffuse_tex_kernel and pt_bsdf_tex_kernel
 // (kTex), pt_diffuse_env_tex_kernel and pt_bsdf_env_tex_kernel (both);
 // pt_mesh_kernel<kTex> twice: pt_bsdf_mesh_kernel (AccPathTracer's
-// megamesh route, no env map) and pt_bsdf_mesh_tex_kernel.  The Python
-// wrapper, its plain torch version and the launch counters are in
-// nrenderer_torch/ops/pt_cuda.py.
+// megamesh route, no env map) and pt_bsdf_mesh_tex_kernel.  Beside them,
+// wavefront_dense_hit_kernel and wavefront_shade_kernel run one bounce of
+// the hybrid route's wavefront around its standalone mesh pipe (see their
+// comment).  The Python wrappers, their plain torch versions and the
+// launch counters are in nrenderer_torch/ops/pt_cuda.py.
 //
 // What it computes, per pixel and per sample: a jittered camera ray (thin
 // lens when lens_r > 0) from hash_uniform(pid, sample, draw 0..3, seed), then
@@ -1199,6 +1201,167 @@ int launch_form(const DenseArgs& a, const bool whole, const int blocks,
                                                         st);
 }
 
+// The hybrid route's bounce (renderers/_wavefront.py on a card): the
+// wavefront's state lives in SoA rows in device memory between bounces,
+// and each bounce is two launches around the mesh pipe
+// (mesh_cuda.intersect_triangles_mesh, unchanged): the dense-hit kernel
+// writes the cap the pipe takes, and the shade kernel, given the pipe's
+// winner, does the rest of pt_core.bsdf_bounce for each lane in place.
+// Both read the mesh forms' scene table (spheres, planes, lights,
+// materials: a pool's triangles are the pipe's).  Each lane's float
+// operations are the plain bounce's, in its order: under -fmad=false the
+// state is the eager bounce's bit for bit (pt_cuda.wavefront_shade).
+//
+// A dead lane is left as it is.  The eager bounce adds 0 * thr * x to its
+// radiance and multiplies its throughput by 1, which leaves both unchanged
+// while the throughput is finite.
+
+// A wavefront's state: 12 float32 rows (ox oy oz dx dy dz tx ty tz rx ry
+// rz) of n lanes and the alive flags (one byte a lane, 0 or 1).
+struct WaveState {
+  float* f[12];
+  uint8_t* alive;
+};
+
+// The mesh pipe's winner of each lane: t (inf on a miss), normal, material
+// id.
+struct WaveHit {
+  const float* t;
+  const float* nx;
+  const float* ny;
+  const float* nz;
+  const float* mat;
+};
+
+// The dense primitives' closest t of each live lane, 0 for a dead one: the
+// cap of the mesh pipe (pt_core.closest_hit's t_cap).
+__global__ void __launch_bounds__(256)
+wavefront_dense_hit_kernel(const float* __restrict__ scene,
+                           const SceneCounts nc, const float t_min,
+                           const WaveState s, float* __restrict__ cap,
+                           const int n) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  float t = 0.0f;
+  if (s.alive[i]) {
+    const float* __restrict__ pln = scene + nc.n_sph * SPH_STRIDE;
+    float nx, ny, nz;
+    int m;
+    t = sphere_plane_hit(scene, pln, nc, t_min, s.f[0][i], s.f[1][i],
+                         s.f[2][i], s.f[3][i], s.f[4][i], s.f[5][i], nx, ny,
+                         nz, m);
+  }
+  cap[i] = t;
+}
+
+// ops/env.sample_env_map_v3 as torch computes it on the card: the
+// direction normalised with the floor of eps 1e-12, atan2f and asinf, and
+// each division by a constant a product with its float reciprocal (torch
+// divides a tensor by a scalar that way on CUDA).
+__device__ __forceinline__ void env_exact(const float* __restrict__ env,
+                                          const int he, const int we,
+                                          const float dx, const float dy,
+                                          const float dz, float* out) {
+  const float inv =
+      rsqrtf(fmaxf(dx * dx + dy * dy + dz * dz, (float)1e-24));
+  const float x = dx * inv, y = dy * inv, z = dz * inv;
+  const float inv_2pi = 1.0f / (float)(2.0 * PI_D);
+  const float inv_pi = 1.0f / (float)PI_D;
+  const float u = 0.5f + atan2f(z, x) * inv_2pi;
+  const float v = 0.5f - asinf(fminf(fmaxf(y, -1.0f), 1.0f)) * inv_pi;
+  const long long xi = min(max((long long)(u * (float)we), 0LL),
+                           (long long)we - 1);
+  const long long yi = min(max((long long)(v * (float)he), 0LL),
+                           (long long)he - 1);
+  const float* p = env + 3 * (yi * we + xi);
+  out[0] = p[0];
+  out[1] = p[1];
+  out[2] = p[2];
+}
+
+// pt_core.bsdf_bounce for each live lane after the mesh pipe: the dense
+// hit again, merged with the pipe's winner (closer = t_mesh < t_dense),
+// the material row of the winner, the area-light test, the draws 4-6 at
+// `bseed` keyed by the lane's pixel and sample (slot i holds chunk lane
+// lane[i]: pixel pix0 + lane % n_pix, sample sp0 + lane / n_pix), the
+// effective lobe's scatter, and the state's update in place; with `env`,
+// a miss adds throughput * the map's exact texel.
+__global__ void __launch_bounds__(256)
+wavefront_shade_kernel(const float* __restrict__ scene, const SceneCounts nc,
+                       const float t_min, const WaveState s, const WaveHit h,
+                       const int32_t* __restrict__ lane, const int n,
+                       const int n_pix, const int pix0, const int sp0,
+                       const uint32_t bseed, const float* __restrict__ env,
+                       const int env_h, const int env_w) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n || !s.alive[i]) return;
+  const float* __restrict__ pln = scene + nc.n_sph * SPH_STRIDE;
+  const float* __restrict__ al = pln + nc.n_pln * PLN_STRIDE;
+  const float* __restrict__ mat = al + nc.n_al * AL_STRIDE;
+  const float ox = s.f[0][i], oy = s.f[1][i], oz = s.f[2][i];
+  const float dx = s.f[3][i], dy = s.f[4][i], dz = s.f[5][i];
+  float nx, ny, nz;
+  int m;
+  float t = sphere_plane_hit(scene, pln, nc, t_min, ox, oy, oz, dx, dy, dz,
+                             nx, ny, nz, m);
+  const float tm = h.t[i];
+  if (tm < t) {
+    t = tm;
+    nx = h.nx[i];
+    ny = h.ny[i];
+    nz = h.nz[i];
+    m = mesh_mat_row(h.mat[i], nc.n_mat);
+  }
+  float t_l = INFINITY, lr_ = 0.0f, lg_ = 0.0f, lb_ = 0.0f;
+  for (int k = 0; k < nc.n_al; ++k) {
+    const float* p = al + k * AL_STRIDE;
+    const float th = patch_t(p, ox, oy, oz, dx, dy, dz, t_min);
+    if (th < t_l) {
+      t_l = th;
+      lr_ = p[13];
+      lg_ = p[14];
+      lb_ = p[15];
+    }
+  }
+  const float tr = s.f[6][i], tg = s.f[7][i], tb = s.f[8][i];
+  if ((t < INFINITY) && (t < t_l)) {  // the object comes first: scatter
+    // the plain form's int64 ids mod 2^32 (lanes are nonnegative)
+    const uint32_t li = (uint32_t)lane[i];
+    const uint32_t upid = (uint32_t)pix0 + li % (uint32_t)n_pix;
+    const uint32_t sp = (uint32_t)sp0 + li / (uint32_t)n_pix;
+    const float u1 = hash_uniform(upid, sp, 4u, bseed);
+    const float u2 = hash_uniform(upid, sp, 5u, bseed);
+    const float* mt = mat + m * MAT_STRIDE;
+    F3 nd, w;
+    bsdf_scatter(mt, mt + M_DIFFUSE, mt + M_ALBEDO, F3{dx, dy, dz},
+                 F3{nx, ny, nz}, u1, u2, upid, sp, bseed, &nd, &w);
+    s.f[0][i] = ox + t * dx;
+    s.f[1][i] = oy + t * dy;
+    s.f[2][i] = oz + t * dz;
+    s.f[3][i] = nd.x;
+    s.f[4][i] = nd.y;
+    s.f[5][i] = nd.z;
+    s.f[6][i] = tr * w.x;
+    s.f[7][i] = tg * w.y;
+    s.f[8][i] = tb * w.z;
+    return;
+  }
+  s.alive[i] = 0;
+  float e[3];
+  if (t_l < INFINITY) {  // the light comes first
+    e[0] = lr_;
+    e[1] = lg_;
+    e[2] = lb_;
+  } else if (env != nullptr) {  // a miss under the env map
+    env_exact(env, env_h, env_w, dx, dy, dz, e);
+  } else {
+    return;
+  }
+  s.f[9][i] = s.f[9][i] + tr * e[0];
+  s.f[10][i] = s.f[10][i] + tg * e[1];
+  s.f[11][i] = s.f[11][i] + tb * e[2];
+}
+
 __global__ void hash_fill_kernel(const int32_t* __restrict__ pid,
                                  const int32_t* __restrict__ sample,
                                  const int32_t* __restrict__ draw,
@@ -1316,6 +1479,61 @@ int nr_pt_render(float* film, const float* scene, const int* counts,
                                           pix_end, sp0, n_spp, depth,
                                           (uint32_t)seed, mesh, tex_tab,
                                           n_tex, loop_slots);
+  return (int)cudaGetLastError();
+}
+
+// The hybrid route's bounce, launch 1 of 2: `cap[i]` (device, n floats) =
+// the dense primitives' closest t of lane i (0 when dead).  `scene`
+// (device): the mesh forms' table (no triangles); `counts` (host): n_sph
+// n_tri n_pln n_al n_mat; `state` (host array of 12 device pointers): the
+// rows of WaveState, of which o and d are read; `alive` (device, n bytes).
+int nr_wavefront_dense_hit(const float* scene, const int* counts,
+                           float t_min, float* const* state,
+                           uint8_t* alive, float* cap, int n, void* stream) {
+  const SceneCounts nc{counts[0], counts[1], counts[2], counts[3],
+                       counts[4]};
+  if (nc.n_tri != 0 || n < 0) return (int)cudaErrorInvalidValue;
+  WaveState s;
+  for (int k = 0; k < 12; ++k) s.f[k] = state[k];
+  s.alive = alive;
+  const int threads = 256;
+  if (n > 0) {
+    wavefront_dense_hit_kernel<<<(n + threads - 1) / threads, threads, 0,
+                                 (cudaStream_t)stream>>>(scene, nc, t_min, s,
+                                                         cap, n);
+  }
+  return (int)cudaGetLastError();
+}
+
+// The hybrid route's bounce, launch 2 of 2: one pt_core.bsdf_bounce of
+// every live lane, given the mesh pipe's winner `hit` (host array of 5
+// device pointers: t nx ny nz mat), written into `state` and `alive` in
+// place.  `lane` (device, n int32): each slot's chunk lane, whose pixel
+// pix0 + lane % n_pix and sample sp0 + lane / n_pix key the draws at
+// `bseed`; `env` (device, (env_h, env_w, 3) float32, or null): the map a
+// miss looks up.
+int nr_wavefront_shade(const float* scene, const int* counts, float t_min,
+                       float* const* state, uint8_t* alive,
+                       const float* const* hit, const int32_t* lane, int n,
+                       int n_pix, int pix0, int sp0, int bseed,
+                       const float* env, int env_h, int env_w,
+                       void* stream) {
+  const SceneCounts nc{counts[0], counts[1], counts[2], counts[3],
+                       counts[4]};
+  if (nc.n_tri != 0 || n < 0 || n_pix < 1 || pix0 < 0 || sp0 < 0 ||
+      nc.n_mat < 1 || (env != nullptr && (env_h < 1 || env_w < 1)))
+    return (int)cudaErrorInvalidValue;
+  WaveState s;
+  for (int k = 0; k < 12; ++k) s.f[k] = state[k];
+  s.alive = alive;
+  const WaveHit h{hit[0], hit[1], hit[2], hit[3], hit[4]};
+  const int threads = 256;
+  if (n > 0) {
+    wavefront_shade_kernel<<<(n + threads - 1) / threads, threads, 0,
+                             (cudaStream_t)stream>>>(
+        scene, nc, t_min, s, h, lane, n, n_pix, pix0, sp0, (uint32_t)bseed,
+        env, env_h, env_w);
+  }
   return (int)cudaGetLastError();
 }
 

@@ -587,7 +587,10 @@ def intersect_triangles_mesh(mt: MeshTables, o: V3, d: V3, t_min: float,
     engine of `mesh_pallas.intersect_triangles_mesh`).
 
     `t_dense`: the dense primitives' hit t per ray (a triangle must beat
-    it); `alive`: rays still on their path (the others get a zero cap);
+    it); `mat_channels`: the material table whose channels the winners
+    get, or None for none (the hybrid route's shade kernel reads the
+    material table itself); `alive`: rays still on their path (the others
+    get a zero cap);
     `sort`: sort the compacted rays by entry cell (the caller passes False
     for the pixel-coherent camera bounce); `with_uv`: also the winner's
     (u, v, tex), which the sweep carries (textured pools).
@@ -607,8 +610,9 @@ def intersect_triangles_mesh(mt: MeshTables, o: V3, d: V3, t_min: float,
     the time the host is held by the device.
 
     Returns (t, nx, ny, nz, mat, pid, channels) as
-    `intersect_triangles_blocked` does (t = inf and pid = -1 on a miss),
-    plus ((u, v, tex),) with `with_uv`."""
+    `intersect_triangles_blocked` does (t = inf and pid = -1 on a miss;
+    channels None without `mat_channels`), plus ((u, v, tex),) with
+    `with_uv`."""
     n = o.x.shape[0]
     t_cap = t_dense if alive is None else torch.where(alive, t_dense, 0.0)
     cap = max(CAP_MIN, n // MESH_COMPACT_FRACTION)
@@ -636,8 +640,8 @@ def intersect_triangles_mesh(mt: MeshTables, o: V3, d: V3, t_min: float,
     t, idx, nx, ny, nz, mat = out[:6]
     miss = idx < 0
     pid = torch.where(miss, -1.0, idx.to(torch.float32))
-    res = (t, nx, ny, nz, mat, pid, channels_from_mat(mat, miss,
-                                                      mat_channels))
+    res = (t, nx, ny, nz, mat, pid, None if mat_channels is None
+           else channels_from_mat(mat, miss, mat_channels))
     return res + (tuple(out[6:9]),) if with_uv else res
 
 

@@ -61,8 +61,9 @@ import torch
 from .camera import CameraParams, shoot_v3
 from .env import (
     ENV_LANES, ENV_ROWS, bin_env_map, env_bin_lookup, env_native_lookup,
+    sample_env_map_v3,
 )
-from .intersect import StaticScene, np_dot
+from .intersect import StaticScene, intersect_scene_unrolled, np_dot
 from .mesh_cuda import WARP, MeshTables, check_tables, make_mesh_tables, \
     schedule_counts, sweep_mesh_plain
 from .pt_core import (
@@ -104,11 +105,17 @@ REPLACES = {
     + (", n_tex > 0" + (", mesh_uv" if key[2] else "") if key[3] else "")
     for key, name in KERNELS.items()}
 
+# The hybrid route's bounce on a card: the kernels `wavefront_dense_hit`
+# and `wavefront_shade` launch around the mesh pipe.
+WAVEFRONT_KERNELS = ("wavefront_dense_hit_kernel", "wavefront_shade_kernel")
+
 # Kernel launches made by `pt_accumulate` (one per spp chunk), by
-# instantiation name (the texture forms counted apart), and by
-# `hash_uniform_fill`.  Plain integers: a caller resets and reads them to
-# show that a run went through the kernels.
-KERNEL_LAUNCHES = {name: 0 for name in KERNELS.values()}
+# instantiation name (the texture forms counted apart), by the wavefront
+# wrappers (one a call) and by `hash_uniform_fill`.  Plain integers: a
+# caller resets and reads them to show that a run went through the
+# kernels.
+KERNEL_LAUNCHES = {name: 0 for name in (*KERNELS.values(),
+                                        *WAVEFRONT_KERNELS)}
 HASH_LAUNCHES = 0
 
 
@@ -312,6 +319,14 @@ def _kernels() -> ctypes.CDLL:
         lib.nr_pt_render.restype = ci
         lib.nr_hash_uniform_fill.argtypes = [vp, vp, vp, vp, vp, ci, vp]
         lib.nr_hash_uniform_fill.restype = ci
+        lib.nr_wavefront_dense_hit.argtypes = [
+            vp, ctypes.POINTER(ci), ctypes.c_float, ctypes.POINTER(vp), vp,
+            vp, ci, vp]
+        lib.nr_wavefront_dense_hit.restype = ci
+        lib.nr_wavefront_shade.argtypes = [
+            vp, ctypes.POINTER(ci), ctypes.c_float, ctypes.POINTER(vp), vp,
+            ctypes.POINTER(vp), vp, ci, ci, ci, ci, ci, vp, ci, ci, vp]
+        lib.nr_wavefront_shade.restype = ci
         lib.nr_layout.argtypes = [ci]
         lib.nr_layout.restype = ci
         lib.nr_error_string.argtypes = [ci]
@@ -919,3 +934,208 @@ def hash_uniform_fill(pid: torch.Tensor, sample: torch.Tensor,
     _check_launch(lib, err, "hash_fill_kernel")
     HASH_LAUNCHES += 1
     return out
+
+
+# ---------------------------------------------------------------------------
+# The hybrid route's bounce: a wavefront held in SoA rows, one bounce as the
+# dense-hit kernel, the mesh pipe and the shade kernel
+# ---------------------------------------------------------------------------
+
+def lane_samples(lane: torch.Tensor, n_pix: int, sp0: int, pix0: int = 0):
+    """(global pixel id, sample index) int64 of chunk lanes over pixels
+    [pix0, pix0 + n_pix): lane L is pixel pix0 + L % n_pix's sample
+    sp0 + L // n_pix (`wavefront_shade_kernel` forms the same ids mod
+    2**32, which is all the hash reads of them)."""
+    lane = lane.to(torch.int64)
+    return pix0 + lane % n_pix, sp0 + lane // n_pix
+
+
+def bounce_uniforms(pid: torch.Tensor, sp: torch.Tensor, seed: int, b: int):
+    """Bounce b's three uniforms (draws 4, 5, 6), as the kernel draws
+    them."""
+    bs = bounce_seed(seed, b)
+    return tuple(hash_uniform(pid, sp, k, bs) for k in (4, 5, 6))
+
+
+class Draws(NamedTuple):
+    """The chunk lanes a wavefront's slots hold, which key their draws:
+    slot i holds lane `lane[i]` (int32), pixel pix0 + lane % n_pix's
+    sample sp0 + lane // n_pix, drawn at `seed`."""
+    lane: torch.Tensor
+    n_pix: int
+    sp0: int
+    pix0: int
+    seed: int
+
+    def samples(self):
+        """(global pixel id, sample index) int64 of each slot."""
+        return lane_samples(self.lane, self.n_pix, self.sp0, self.pix0)
+
+    def uniforms(self, b: int):
+        """Bounce b's three uniforms of each slot."""
+        return bounce_uniforms(*self.samples(), self.seed, b)
+
+
+def bsdf_bounce_env(ss: StaticScene, mat_ch, env: Optional[torch.Tensor],
+                    o: V3, d: V3, thr: V3, rad: V3, alive, u1, u2, u3,
+                    t_min: float, tri_bvh=None, textures=None,
+                    coherent: bool = False):
+    """`pt_core.bsdf_bounce` with, under an env map ((He, We, 3) float32),
+    its exact lookup added at every miss (misses keep their direction and
+    throughput), as the JAX package's XLA bounce does (`acc_pt.py:69-93,
+    :120-142`): the plain version of the hybrid route's bounce.  Returns
+    (o, d, thr, rad, alive)."""
+    out = bsdf_bounce(ss, mat_ch, o, d, thr, rad, alive, u1, u2, u3,
+                      t_min=t_min, tri_bvh=tri_bvh, with_miss=env is not None,
+                      textures=textures, coherent=coherent)
+    if env is None:
+        return out
+    o, d, thr, rad, alive, miss = out
+    e = sample_env_map_v3(env, d)
+    ew = miss.to(torch.float32)
+    return o, d, thr, V3(rad.x + ew * thr.x * e.x, rad.y + ew * thr.y * e.y,
+                         rad.z + ew * thr.z * e.z), alive
+
+
+class WaveTables(NamedTuple):
+    """A hybrid-route scene as the wavefront kernels read it, on one
+    device: the mesh forms' table (`pack_scene(ss, mesh=True)`: spheres,
+    planes, lights and materials; the pool's triangles are the mesh
+    pipe's) and its counts, the scene's epsilon, the env map of the exact
+    lookup, and the scene and material channels the plain versions read."""
+    table: torch.Tensor
+    counts: tuple
+    t_min: float
+    env: Optional[torch.Tensor]   # (He, We, 3) float32, or None
+    ss: StaticScene
+    mat_ch: list
+
+
+def make_wave_tables(ss: StaticScene, t_min: float,
+                     env: Optional[torch.Tensor], device) -> WaveTables:
+    """The wavefront kernels' tables on `device`, once per render; `env`:
+    the (He, We, 3) float32 map on that device, or None."""
+    dev = torch.device(device)
+    if env is not None and (env.dtype != torch.float32 or env.dim() != 3
+                            or env.shape[2] != 3 or not env.is_contiguous()
+                            or env.device != dev or env.numel() >= 1 << 31):
+        raise ValueError(f"the env map must be a contiguous float32 (He, "
+                         f"We, 3) tensor on {dev}")
+    table, counts = pack_scene(ss, mesh=True)
+    tab = torch.as_tensor(table)
+    if dev.type == "cuda":
+        # the route builds these inside its render phase: a pinned,
+        # non-blocking copy keeps the host from waiting on the card there
+        tab = tab.pin_memory().to(dev, non_blocking=True)
+    return WaveTables(tab, counts, float(t_min), env, ss,
+                      make_mat_channels(ss))
+
+
+def _check_wave(wt: WaveTables, rows, alive, lane=None) -> torch.device:
+    """The wavefront's device, after checking that `rows` are float32,
+    `alive` bool and `lane` int32 (n,) contiguous tensors on the tables'
+    device, a CUDA or CPU one."""
+    dev = alive.device
+    n = alive.shape[0] if alive.dim() == 1 else -1
+    typed = [(r, torch.float32) for r in rows] + (
+        [] if lane is None else [(lane, torch.int32)])
+    ok = (alive.dtype == torch.bool and alive.is_contiguous()
+          and 0 <= n < 1 << 31 and wt.table.device == dev
+          and (wt.env is None or wt.env.device == dev)
+          and all(r.dtype == dt and tuple(r.shape) == (n,)
+                  and r.is_contiguous() and r.device == dev
+                  for r, dt in typed))
+    if not ok:
+        raise ValueError(
+            "the wavefront takes contiguous (n,) tensors on the tables' "
+            "device: float32 rays, state and hits, bool alive, int32 lanes")
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {dev}")
+    return dev
+
+
+def wavefront_dense_hit_plain(wt: WaveTables, o: V3, d: V3,
+                              alive: torch.Tensor) -> torch.Tensor:
+    """`wavefront_dense_hit` as torch ops, on any device: the closest hit
+    over the scene less its pool (`pt_core.closest_hit`'s dense part), 0
+    where `alive` is False."""
+    hit = intersect_scene_unrolled(wt.ss._replace(tri=[], tri_uv=()), o, d,
+                                   t_min=wt.t_min, mat_channels=wt.mat_ch)
+    return torch.where(alive, hit.t, 0.0)
+
+
+def wavefront_dense_hit(wt: WaveTables, o: V3, d: V3,
+                        alive: torch.Tensor) -> torch.Tensor:
+    """The dense primitives' closest t of each lane (spheres and planes),
+    0 where `alive` is False: the cap `mesh_cuda.intersect_triangles_mesh`
+    takes (`pt_core.closest_hit`'s).  On a CUDA device through
+    `wavefront_dense_hit_kernel`, on the CPU `wavefront_dense_hit_plain`;
+    the two agree bit for bit on the card."""
+    dev = _check_wave(wt, [*o, *d], alive)
+    if dev.type == "cpu":
+        return wavefront_dense_hit_plain(wt, o, d, alive)
+    lib = _kernels()
+    cap = torch.empty_like(o.x)
+    state = (ctypes.c_void_p * 12)(*(r.data_ptr() for r in (*o, *d)))
+    with torch.cuda.device(dev):
+        err = lib.nr_wavefront_dense_hit(
+            wt.table.data_ptr(), (ctypes.c_int * 5)(*wt.counts), wt.t_min,
+            state, alive.data_ptr(), cap.data_ptr(), cap.numel(),
+            torch.cuda.current_stream().cuda_stream)
+    _check_launch(lib, err, WAVEFRONT_KERNELS[0])
+    KERNEL_LAUNCHES[WAVEFRONT_KERNELS[0]] += 1
+    return cap
+
+
+def wavefront_shade_plain(wt: WaveTables, o: V3, d: V3, thr: V3, rad: V3,
+                          alive: torch.Tensor, hit, draws: Draws, b: int):
+    """`wavefront_shade` as torch ops, on any device, returning the new
+    (o, d, thr, rad, alive): `bsdf_bounce_env` over the dense primitives
+    and the pipe's winner `hit`, drawing for `draws` at bounce `b`."""
+    t, nx, ny, nz, mat = hit
+    idx = torch.where(torch.isinf(t), -1, 0)   # the pipe's miss: t inf
+    return bsdf_bounce_env(
+        wt.ss, wt.mat_ch, wt.env, o, d, thr, rad, alive, *draws.uniforms(b),
+        t_min=wt.t_min, tri_bvh=lambda o_, d_, cap: (t, idx, nx, ny, nz, mat))
+
+
+def wavefront_shade(wt: WaveTables, o: V3, d: V3, thr: V3, rad: V3,
+                    alive: torch.Tensor, hit, draws: Draws, b: int) -> None:
+    """The rest of bounce `b` of the hybrid route's wavefront after its
+    mesh pipe, IN PLACE on (o, d, thr, rad, alive): `pt_core.bsdf_bounce`
+    over the dense primitives and the pipe's winner `hit` (t, nx, ny, nz,
+    mat: `intersect_triangles_mesh`'s first five), with the env map's
+    exact lookup at misses when the tables hold one (`bsdf_bounce_env`).
+    Slot i holds chunk lane `draws.lane[i]` (nonnegative), whose pixel and
+    sample (`Draws.samples`) key the draws 4-6 at
+    `bounce_seed(draws.seed, b)`.  On a CUDA device through
+    `wavefront_shade_kernel`, on the CPU `wavefront_shade_plain`; the two
+    agree bit for bit on the card."""
+    hit = tuple(hit)
+    if len(hit) != 5:
+        raise ValueError("hit is the pipe's (t, nx, ny, nz, mat)")
+    n_pix, sp0, pix0 = draws.n_pix, draws.sp0, draws.pix0
+    if n_pix < 1 or pix0 < 0 or sp0 < 0 or max(pix0, sp0) >= 1 << 31:
+        raise ValueError(f"unsupported lane numbering: n_pix {n_pix}, "
+                         f"pix0 {pix0}, sp0 {sp0}")
+    dev = _check_wave(wt, [*o, *d, *thr, *rad, *hit], alive, draws.lane)
+    if dev.type == "cpu":
+        out = wavefront_shade_plain(wt, o, d, thr, rad, alive, hit, draws, b)
+        for dst, src in zip((*o, *d, *thr, *rad, alive),
+                            (*out[0], *out[1], *out[2], *out[3], out[4])):
+            dst.copy_(src)
+        return
+    lib = _kernels()
+    state = (ctypes.c_void_p * 12)(*(r.data_ptr()
+                                     for r in (*o, *d, *thr, *rad)))
+    hits = (ctypes.c_void_p * 5)(*(h.data_ptr() for h in hit))
+    env, env_h, env_w = (None, 0, 0) if wt.env is None else (
+        wt.env.data_ptr(), wt.env.shape[0], wt.env.shape[1])
+    with torch.cuda.device(dev):
+        err = lib.nr_wavefront_shade(
+            wt.table.data_ptr(), (ctypes.c_int * 5)(*wt.counts), wt.t_min,
+            state, alive.data_ptr(), hits, draws.lane.data_ptr(),
+            alive.numel(), n_pix, pix0, sp0, bounce_seed(draws.seed, b), env,
+            env_h, env_w, torch.cuda.current_stream().cuda_stream)
+    _check_launch(lib, err, WAVEFRONT_KERNELS[1])
+    KERNEL_LAUNCHES[WAVEFRONT_KERNELS[1]] += 1

@@ -7,10 +7,10 @@ L = s * n_pix + pid of a chunk is pixel `pid`'s sample `sp0 + s`.  Every
 random number comes from `pt_core.hash_uniform` as the path-tracing
 kernel draws it: the camera ray from draws 0-3 at `seed`
 (`pt_cuda.camera_rays`), bounce b from draws 4, 5 and 6 at
-`bounce_seed(seed, b)` (`bounce_uniforms`).  So a route that traces the
-same paths as the kernel's mesh form gives its film up to rounding, and a
-render split into calls over consecutive sample ranges gives the sums of
-one call.
+`bounce_seed(seed, b)` (`pt_cuda.bounce_uniforms`).  So a route that
+traces the same paths as the kernel's mesh form gives its film up to
+rounding, and a render split into calls over consecutive sample ranges
+gives the sums of one call.
 
 The staged wavefront packs the whole ray state into smaller buffers as
 paths die: at the bounces of `stage_plan` (6, 11 and 16) the live rays
@@ -34,7 +34,8 @@ the roulette's count and the pack) as `wavefront.stage`, and the host's
 read of the live count inside it as `wavefront.count-wait`, the time the
 host is held by the device (the mesh pipe spans its own waits as
 `mesh-pipe.reach-wait` and `mesh-pipe.count-wait`).  `ROUTE_COUNTS`
-counts chunks, stage packs and roulette firings.
+counts chunks, stage packs, roulette firings and the bounces of each
+form.
 
 The functions return the linear film SUM ((n_pix, 3) float32) over the
 samples asked for.  The staged film adds each ray's stage radiances lane
@@ -48,23 +49,33 @@ range's pixels, while the draws and the camera ray keep the global pixel
 id, so the band is the full film's rows.
 
 `build_render_fn` is the route's film over AccPathTracer's five-lobe
-bounce (`make_bsdf_bounce`, `trace_bsdf_wavefront`; the JAX renderer's
-`acc_pt.py:53-161`), staged or plain."""
+bounce (`make_bsdf_bounce`, `trace_wavefront`; the JAX renderer's
+`acc_pt.py:53-161`), staged or plain.  The bounce takes one of two forms
+by what the scene holds (`bounce_form`): over an untextured pool on a
+card, the wavefront kernels around the mesh pipe
+(`pt_cuda.wavefront_dense_hit`, the pipe, `pt_cuda.wavefront_shade`),
+which update the state in place, its rows those of one buffer a chunk's
+stage (`_new_state`, the stage packs); otherwise the torch ops of
+`pt_cuda.bsdf_bounce_env`.  The two give the same state bit for bit on
+the card.  `ROUTE_COUNTS` counts the bounces of each form."""
 from __future__ import annotations
 
-from typing import Callable, Optional
+from typing import Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
 
 from ..ops.camera import CameraParams
-from ..ops.env import sample_env_map_v3
 from ..ops.intersect import StaticScene
+from ..ops.mesh_cuda import MeshTables, intersect_triangles_mesh
 from ..ops.pt_core import (
-    bounce_seed, bsdf_bounce, finish_ambient, hash_uniform,
-    make_mat_channels, scene_epsilon,
+    bounce_seed, finish_ambient, hash_uniform, make_mat_channels,
+    scene_epsilon,
 )
-from ..ops.pt_cuda import camera_rays
+from ..ops.pt_cuda import (
+    Draws, bsdf_bounce_env, camera_rays, make_wave_tables,
+    wavefront_dense_hit, wavefront_shade,
+)
 from ..ops.soa import V3
 from ..ops.stream_compact import (
     stream_lanes_needed, stream_pack_channels, stream_unpack_channels,
@@ -76,9 +87,11 @@ ROULETTE_MARGIN = 0.97
 ROULETTE_DRAW = 7
 ROULETTE_BASE = 7000
 
-# Chunks traced, stage packs made and stages whose roulette fired: a
-# caller resets and reads them (the renderer logs them).
-ROUTE_COUNTS = {"chunks": 0, "stage_packs": 0, "roulette": 0}
+# Chunks traced, stage packs made, stages whose roulette fired, and
+# bounces run by the wavefront kernels ("fused") and by torch ops
+# ("eager"): a caller resets and reads them (the renderer logs them).
+ROUTE_COUNTS = {"chunks": 0, "stage_packs": 0, "roulette": 0,
+                "fused_bounces": 0, "eager_bounces": 0}
 
 
 def reset_route_counts() -> None:
@@ -92,20 +105,6 @@ def stage_plan(depth: int):
     return [(0, 1)] + [(b, k) for b, k in STAGE_BOUNDARIES if b < depth]
 
 
-def lane_samples(lane: torch.Tensor, n_pix: int, sp0: int, pix0: int = 0):
-    """(global pixel id, sample index) int64 of chunk lanes over pixels
-    [pix0, pix0 + n_pix)."""
-    lane = lane.to(torch.int64)
-    return pix0 + lane % n_pix, sp0 + lane // n_pix
-
-
-def bounce_uniforms(pid: torch.Tensor, sp: torch.Tensor, seed: int, b: int):
-    """Bounce b's three uniforms (draws 4, 5, 6), as the kernel draws
-    them."""
-    bs = bounce_seed(seed, b)
-    return tuple(hash_uniform(pid, sp, k, bs) for k in (4, 5, 6))
-
-
 def _film_add(film: torch.Tensor, rad: torch.Tensor, c: int,
               n_pix: int) -> None:
     """Add a chunk's (3, c * n_pix) radiance into the film, sample after
@@ -116,18 +115,44 @@ def _film_add(film: torch.Tensor, rad: torch.Tensor, c: int,
 
 def _camera_chunk(cam: CameraParams, width: int, height: int, seed: int,
                   sp0: int, c: int, pix0: int, n_pix: int):
+    """(draws, o, d) of a chunk's camera rays, lane L at slot L."""
     lane = torch.arange(c * n_pix, dtype=torch.int32,
                         device=cam.position.device)
-    pid, sp = lane_samples(lane, n_pix, sp0, pix0)
-    o, d = camera_rays(cam, pid, sp, seed, width, height)
-    return lane, pid, sp, o, d
+    draws = Draws(lane, n_pix, sp0, pix0, seed)
+    o, d = camera_rays(cam, *draws.samples(), seed, width, height)
+    return draws, o, d
+
+
+def _new_state(o: V3, d: V3):
+    """(o, d, thr, rad, alive) of rays starting at (o, d): throughput 1,
+    radiance 0, every lane alive, the float rows those of one (12, n)
+    buffer (the fused bounce writes them in place)."""
+    n = d.x.shape[0]
+    st = torch.empty((12, n), dtype=torch.float32, device=d.x.device)
+    for k, a in enumerate((*o, *d)):
+        st[k] = a
+    st[6:9] = 1.0
+    st[9:12] = 0.0
+    rows = [V3(st[k], st[k + 1], st[k + 2]) for k in (0, 3, 6, 9)]
+    return (*rows, torch.ones(n, dtype=torch.bool, device=st.device))
+
+
+def trace_wavefront(bounce_fn: Callable, finish_fn: Callable, o: V3, d: V3,
+                    draws: Draws, depth: int) -> V3:
+    """The radiance of rays (o, d): `depth` bounces of `bounce_fn`
+    (`make_bsdf_bounce`'s) drawing for `draws`, then `finish_fn(thr, rad,
+    alive)`, the depth cap's term (`acc_pt.py:53-99`)."""
+    o, d, thr, rad, alive = _new_state(o, d)
+    for b in range(depth):
+        o, d, thr, rad, alive = bounce_fn(o, d, thr, rad, alive, draws, b)
+    return finish_fn(thr, rad, alive)
 
 
 def build_wavefront_fn(cam: CameraParams, width: int, height: int,
                        chunk: int, trace_fn: Callable, pix0: int = 0,
                        n_pix: int = None) -> Callable:
     """The plain film loop (`_wavefront.py:251-305`):
-    `trace_fn(o, d, pid, sp, seed) -> V3` radiance of each camera ray.
+    `trace_fn(o, d, draws) -> V3` radiance of each camera ray.
     Returns `render(seed, sp0, n_spp)`, the film SUM of samples
     [sp0, sp0 + n_spp) of pixels [pix0, pix0 + n_pix) (all by default)."""
     n_pix = width * height - pix0 if n_pix is None else n_pix
@@ -139,9 +164,9 @@ def build_wavefront_fn(cam: CameraParams, width: int, height: int,
             c = min(chunk, n_spp - c0)
             with GLOBAL_TIMER.phase("wavefront.chunk"):
                 ROUTE_COUNTS["chunks"] += 1
-                _, pid, sp, o, d = _camera_chunk(cam, width, height, seed,
-                                                 sp0 + c0, c, pix0, n_pix)
-                rad = trace_fn(o, d, pid, sp, seed)
+                draws, o, d = _camera_chunk(cam, width, height, seed,
+                                            sp0 + c0, c, pix0, n_pix)
+                rad = trace_fn(o, d, draws)
                 _film_add(film, torch.stack(rad), c, n_pix)
         return film
 
@@ -155,8 +180,9 @@ def build_staged_wavefront_fn(cam: CameraParams, width: int, height: int,
                               n_pix: int = None) -> Callable:
     """The staged film loop (`_wavefront.py:39-248`, stream mode).
 
-    `bounce_fn(o, d, thr, rad, alive, u1, u2, u3, coherent=False) -> (o, d,
-    thr, rad, alive)` runs one bounce on the current buffer;
+    `bounce_fn(o, d, thr, rad, alive, draws, b, coherent=False) -> (o, d,
+    thr, rad, alive)` runs bounce b on the current buffer
+    (`make_bsdf_bounce`);
     `finish_fn(thr, rad, alive) -> V3` adds the depth cap's ambient term.
     `peel_first`: bounce 0 runs on its own as the coherent variant (the
     mesh pipe skips its sort for pixel-ordered camera rays; the draws, and
@@ -174,7 +200,7 @@ def build_staged_wavefront_fn(cam: CameraParams, width: int, height: int,
         for k in range(3):
             acc[k] += r[k]
 
-    def roulette(alive, cap: int, pid, sp, seed: int, si: int):
+    def roulette(alive, cap: int, draws: Draws, si: int):
         """(keep mask, 1/q or None): every live ray when they fit."""
         with GLOBAL_TIMER.phase("wavefront.count-wait"):
             n_alive = int(stream_lanes_needed(alive))
@@ -182,26 +208,21 @@ def build_staged_wavefront_fn(cam: CameraParams, width: int, height: int,
             return alive, None
         ROUTE_COUNTS["roulette"] += 1
         q = np.float32(ROULETTE_MARGIN * cap) / np.float32(n_alive)
-        u = hash_uniform(pid, sp, ROULETTE_DRAW,
-                         bounce_seed(seed, ROULETTE_BASE + si))
+        u = hash_uniform(*draws.samples(), ROULETTE_DRAW,
+                         bounce_seed(draws.seed, ROULETTE_BASE + si))
         return alive & (u < float(q)), float(np.float32(1.0) / q)
 
     def trace_chunk(seed: int, sp0: int, c: int) -> torch.Tensor:
         """Launch-aligned (3, c * n_pix) radiance of one chunk."""
         n_rays = c * n_pix
-        lane, pid, sp, o, d = _camera_chunk(cam, width, height, seed, sp0,
-                                            c, pix0, n_pix)
-        ones = torch.ones_like(o.x)
-        zeros = torch.zeros_like(o.x)
-        thr = V3(ones, ones, ones)
-        rad = V3(zeros, zeros, zeros)
-        alive = torch.ones_like(o.x, dtype=torch.bool)
+        draws, o, d = _camera_chunk(cam, width, height, seed, sp0, c, pix0,
+                                    n_pix)
+        o, d, thr, rad, alive = _new_state(o, d)
         acc = torch.zeros((3, n_rays), dtype=torch.float32, device=o.x.device)
         chain = []   # (keep mask as float, StreamPacked) per stage pack
         if peel:
-            o, d, thr, rad, alive = bounce_fn(
-                o, d, thr, rad, alive, *bounce_uniforms(pid, sp, seed, 0),
-                coherent=True)
+            o, d, thr, rad, alive = bounce_fn(o, d, thr, rad, alive, draws, 0,
+                                              coherent=True)
         for si, (b0, shrink) in enumerate(plan):
             b1 = plan[si + 1][0] if si + 1 < len(plan) else depth
             if si == 0 and peel:
@@ -210,26 +231,25 @@ def build_staged_wavefront_fn(cam: CameraParams, width: int, height: int,
                 with GLOBAL_TIMER.phase("wavefront.stage"):
                     bank(acc, rad, chain)
                     cap = max(128, (n_rays // shrink) // 128 * 128)
-                    keep, inv_q = roulette(alive, cap, pid, sp, seed, si)
+                    keep, inv_q = roulette(alive, cap, draws, si)
                     keep_f = keep.to(torch.float32)
                     sp_k = stream_pack_channels(
-                        (o.x, o.y, o.z, d.x, d.y, d.z, thr.x, thr.y, thr.z,
-                         keep_f, lane), cap, mask_from=9)
+                        (*o, *d, *thr, keep_f, draws.lane), cap, mask_from=9)
                 ROUTE_COUNTS["stage_packs"] += 1
+                # the stage's state: the packed rows, radiance anew
                 p = sp_k.packed
-                o, d = V3(p[0], p[1], p[2]), V3(p[3], p[4], p[5])
-                thr = V3(p[6], p[7], p[8]) if inv_q is None else V3(
-                    p[6] * inv_q, p[7] * inv_q, p[8] * inv_q)
+                if inv_q is not None:
+                    p[6:9] *= inv_q
+                o, d, thr = (V3(p[k], p[k + 1], p[k + 2]) for k in (0, 3, 6))
                 alive = p[9] > 0.0   # slots past the count read 0: dead
-                lane = p[10].view(torch.int32)
-                pid, sp = lane_samples(lane, n_pix, sp0, pix0)
-                zc = torch.zeros_like(p[9])
-                rad = V3(zc, zc, zc)
+                draws = draws._replace(lane=p[10].view(torch.int32))
+                r = torch.zeros((3, cap), dtype=torch.float32,
+                                device=p.device)
+                rad = V3(r[0], r[1], r[2])
                 chain.append((keep_f, sp_k))
             for b in range(b0, b1):
-                o, d, thr, rad, alive = bounce_fn(
-                    o, d, thr, rad, alive,
-                    *bounce_uniforms(pid, sp, seed, b))
+                o, d, thr, rad, alive = bounce_fn(o, d, thr, rad, alive,
+                                                  draws, b)
         bank(acc, finish_fn(thr, rad, alive), chain)
         return acc
 
@@ -246,49 +266,50 @@ def build_staged_wavefront_fn(cam: CameraParams, width: int, height: int,
     return render
 
 
+def bounce_form(tri_bvh=None, textures=None) -> str:
+    """The form of the route's bounce: "fused", the wavefront kernels
+    around the mesh pipe, when the pool's tables (`tri_bvh`, a
+    `mesh_cuda.MeshTables`) are on a CUDA device and no textures are
+    resolved; else "eager", torch ops (the CPU, a textured pool, a
+    wavefront without a pipe)."""
+    fused = (isinstance(tri_bvh, MeshTables) and not textures
+             and tri_bvh.tris.device.type == "cuda")
+    return "fused" if fused else "eager"
+
+
 def make_bsdf_bounce(ss: StaticScene, t_min: float, tri_bvh=None,
                      env_map: Optional[torch.Tensor] = None, textures=None):
-    """`bounce(o, d, thr, rad, alive, u1, u2, u3, coherent=False)`: one
-    `bsdf_bounce` over the scene, and with an env map its exact lookup
-    added at every miss (misses keep their direction and throughput), as
-    the JAX package's XLA bounce does (`acc_pt.py:69-93, :120-142`)."""
+    """`bounce(o, d, thr, rad, alive, draws, b, coherent=False) -> (o, d,
+    thr, rad, alive)`: bounce b of AccPathTracer's estimator
+    (`pt_core.bsdf_bounce`) over the scene, drawing for `draws`, and with
+    an env map its exact lookup added at every miss (misses keep their
+    direction and throughput), as the JAX package's XLA bounce does
+    (`acc_pt.py:69-93, :120-142`).  In the form `bounce_form` picks: the
+    fused form writes the state in place (its float rows distinct
+    contiguous tensors, as `_new_state` and the stage packs give them) and
+    returns them; the eager one returns new tensors."""
+    if bounce_form(tri_bvh, textures) == "fused":
+        wt = make_wave_tables(ss, t_min, env_map, tri_bvh.tris.device)
+
+        def fused(o, d, thr, rad, alive, draws, b, coherent=False):
+            ROUTE_COUNTS["fused_bounces"] += 1
+            cap = wavefront_dense_hit(wt, o, d, alive)
+            hit = intersect_triangles_mesh(tri_bvh, o, d, t_min, cap, None,
+                                           sort=not coherent)
+            wavefront_shade(wt, o, d, thr, rad, alive, hit[:5], draws, b)
+            return o, d, thr, rad, alive
+
+        return fused
     mat_ch = make_mat_channels(ss)
 
-    def bounce(o, d, thr, rad, alive, u1, u2, u3, coherent=False):
-        out = bsdf_bounce(ss, mat_ch, o, d, thr, rad, alive, u1, u2, u3,
-                          t_min=t_min, tri_bvh=tri_bvh,
-                          with_miss=env_map is not None, textures=textures,
-                          coherent=coherent)
-        if env_map is None:
-            return out
-        o, d, thr, rad, alive, miss = out
-        env = sample_env_map_v3(env_map, d)
-        ew = miss.to(torch.float32)
-        return o, d, thr, V3(rad.x + ew * thr.x * env.x,
-                             rad.y + ew * thr.y * env.y,
-                             rad.z + ew * thr.z * env.z), alive
+    def eager(o, d, thr, rad, alive, draws, b, coherent=False):
+        ROUTE_COUNTS["eager_bounces"] += 1
+        return bsdf_bounce_env(ss, mat_ch, env_map, o, d, thr, rad, alive,
+                               *draws.uniforms(b), t_min=t_min,
+                               tri_bvh=tri_bvh, textures=textures,
+                               coherent=coherent)
 
-    return bounce
-
-
-def trace_bsdf_wavefront(ss: StaticScene, o: V3, d: V3, pid: torch.Tensor,
-                         sp: torch.Tensor, seed: int, depth: int,
-                         env_map=None, tri_bvh=None, t_min: float = None,
-                         textures=None) -> V3:
-    """The (N,)-ray wavefront of the five-lobe estimator: `depth` bounces
-    drawing the kernel's uniforms for pixels `pid` and samples `sp`, then
-    the depth cap's ambient; returns the radiance (`acc_pt.py:53-99`)."""
-    if t_min is None:
-        t_min = scene_epsilon(ss)
-    bounce = make_bsdf_bounce(ss, t_min, tri_bvh, env_map, textures)
-    ones = torch.ones_like(o.x)
-    zeros = torch.zeros_like(o.x)
-    thr, rad = V3(ones, ones, ones), V3(zeros, zeros, zeros)
-    alive = torch.ones_like(o.x, dtype=torch.bool)
-    for b in range(depth):
-        o, d, thr, rad, alive = bounce(o, d, thr, rad, alive,
-                                       *bounce_uniforms(pid, sp, seed, b))
-    return finish_ambient(ss, thr, rad, alive)
+    return eager
 
 
 def build_render_fn(ss: StaticScene, cam, width: int, height: int,
@@ -305,15 +326,14 @@ def build_render_fn(ss: StaticScene, cam, width: int, height: int,
     3) tensors; `t_min`: the scene's epsilon, when the caller has it."""
     if t_min is None:
         t_min = scene_epsilon(ss)
+    bounce = make_bsdf_bounce(ss, t_min, tri_bvh, env_map, textures)
+    finish = lambda thr, rad, alive: finish_ambient(ss, thr, rad, alive)
     if staged:
         return build_staged_wavefront_fn(
-            cam, width, height, chunk,
-            make_bsdf_bounce(ss, t_min, tri_bvh, env_map, textures),
-            lambda thr, rad, alive: finish_ambient(ss, thr, rad, alive),
-            depth, peel_first=tri_bvh is not None, pix0=pix0, n_pix=n_pix)
+            cam, width, height, chunk, bounce, finish, depth,
+            peel_first=tri_bvh is not None, pix0=pix0, n_pix=n_pix)
     return build_wavefront_fn(
         cam, width, height, chunk,
-        lambda o, d, pid, sp, seed: trace_bsdf_wavefront(
-            ss, o, d, pid, sp, seed, depth, env_map=env_map,
-            tri_bvh=tri_bvh, t_min=t_min, textures=textures),
+        lambda o, d, draws: trace_wavefront(bounce, finish, o, d, draws,
+                                            depth),
         pix0=pix0, n_pix=n_pix)

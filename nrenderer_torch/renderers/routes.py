@@ -25,9 +25,9 @@ The routes (`Plan.kind`):
   triangles without an env map (`acc_pt.py:297-341`): on the CPU
   `MEGAMESH_MAX_TRIS` (1024, the JAX package's figure: the plain mesh form
   is the CPU's slow path), on the card `MEGAMESH_MAX_TRIS_CUDA` (20,480,
-  the pool up to which the megamesh route was first measured to beat the
-  hybrid route on an H100; it now wins at 81,920 faces too, see the
-  constant; the JAX package's route too depends on its backend,
+  the pool up to which the megamesh route was measured to beat the
+  hybrid route on an H100, see the constant; the JAX package's route too
+  depends on its backend,
   `acc_pt.py:297-303`).  The pool is packed into
   BVH-preorder blocks (`ops/bvh.build_mesh_accel`) and the kernel's mesh
   form runs the blocked sweep inside its bounce loop, in passes of
@@ -78,15 +78,14 @@ RENDERERS = ("SimplePathTracer", "AccPathTracer")
 BVH_THRESHOLD = 64
 MEGAMESH_MAX_TRIS = 1024  # the megamesh route's pools on the CPU
 # and on the card: the largest pool at which the megamesh route's median
-# CLI wall first measured below the hybrid route's on an H100 (500x500,
-# 256 spp, depth 20: at 20,480 faces 1.241 s against 2.864 s; at 81,920
-# faces 4.153 s against 3.836 s).  Since the mesh form's flat bounce loop
-# the megamesh route wins at 81,920 faces as well: 3.277 s against
-# 4.190 s, and 0.876 s against 2.969 s at 20,480 (an H100 80GB HBM3 at
-# 700 W, `tools/torch_ab.py --crossover`; PERF.md §6).  Raising the limit
-# moves the benchmark's `largemesh.hybrid` cell to the megamesh route,
-# whose passes its `hybrid` reference does not follow: the cell's
-# reference has to change first (ROADMAP D3 item 4).
+# CLI wall measures below the hybrid route's on an H100 (500x500, 256
+# spp, depth 20).  With the hybrid bounce in its wavefront kernels the
+# crossover lies between 20,480 and 81,920 faces: 1.012 s against
+# 1.263 s at 20,480, 3.088 s against 2.031 s at 81,920 (an H100 80GB
+# HBM3 at 700 W, `tools/torch_ab.py --crossover`; PERF.md §6).  A limit
+# past 81,920 would move the benchmark's `largemesh.hybrid` cell to the
+# slower route, whose passes its `hybrid` reference does not follow
+# (ROADMAP D3 item 4).
 MEGAMESH_MAX_TRIS_CUDA = 20480
 ACC_TYPE0_MAX_TRIS = MAX_TRIS  # acc_type=0 (brute force) refused past this
 STAGED_MIN_DEPTH = 12  # the hybrid route stages its wavefront from here

@@ -72,9 +72,9 @@ COUNTERPARTS = {
         "the route layer's pass size, which SimplePathTracer's progressive "
         "route and AccPathTracer's hybrid route both read"),
     "renderers/acc_pt.py:trace_bsdf_wavefront": (
-        "renderers/_wavefront.py:trace_bsdf_wavefront",
+        "renderers/_wavefront.py:trace_wavefront",
         "the hybrid route's film loops live beside the wavefront, below the "
-        "route layer"),
+        "route layer; build_render_fn gives it the five-lobe bounce"),
     "renderers/acc_pt.py:build_render_fn": (
         "renderers/_wavefront.py:build_render_fn",
         "the hybrid route's film, built by renderers/routes.py"),

@@ -36,7 +36,7 @@ import torch
 import nrenderer_torch as P
 from nrenderer_torch import cli
 from nrenderer_torch.io.image import read_png
-from nrenderer_torch.ops import mesh_cuda, stream_compact
+from nrenderer_torch.ops import mesh_cuda, pt_cuda, stream_compact
 from nrenderer_torch.ops.bvh import build_mesh_accel
 from nrenderer_torch.ops.camera import make_camera
 from nrenderer_torch.ops.intersect import make_static_scene
@@ -257,7 +257,8 @@ def test_staged_route_matches_megamesh_plain(monkeypatch):
     film = build_render_fn(ss, cam, w, h, depth, spp, tri_bvh=mt,
                            staged=True)(5, 8, spp)
     assert _wavefront.ROUTE_COUNTS == {"chunks": 1, "stage_packs": 2,
-                                       "roulette": 0}
+                                       "roulette": 0, "fused_bounces": 0,
+                                       "eager_bounces": depth}
     assert mesh_cuda.ROUTE_COUNTS["compacted"] >= 6
     want = pt_accumulate_plain(torch.zeros((w * h, 3)), ss, cam, w, h, 8,
                                spp, depth, 5, scene_epsilon(ss), bsdf=True,
@@ -297,7 +298,8 @@ def test_staged_roulette_matches_unstaged():
         img[staged] = torch.clamp(_gamma(film, spp), max=1.0).numpy()
         if staged:
             assert _wavefront.ROUTE_COUNTS == {
-                "chunks": 1, "stage_packs": 2, "roulette": 2}
+                "chunks": 1, "stage_packs": 2, "roulette": 2,
+                "fused_bounces": 0, "eager_bounces": depth}
     a, b = img[True], img[False]
     print("roulette staged vs unstaged: means", a.mean(), b.mean(),
           "mean |d|", np.abs(a - b).mean())
@@ -363,7 +365,8 @@ def test_env_route_compacted_and_staged(monkeypatch):
     plain = build_render_fn(ss, cam, w, h, 13, spp, tri_bvh=mt,
                             env_map=env)(0, 0, spp)
     assert _wavefront.ROUTE_COUNTS == {"chunks": 2, "stage_packs": 2,
-                                       "roulette": 0}
+                                       "roulette": 0, "fused_bounces": 0,
+                                       "eager_bounces": 2 * 13}
     _bars(staged, plain, spp, "env staged vs unstaged")
 
 
@@ -521,9 +524,10 @@ def gpu():
 
 @pytest.mark.cuda
 def test_cuda_hybrid_route_matches_plain_versions(gpu, monkeypatch):
-    """The staged route with `mesh_sweep_kernel`, `stream_pack_kernel` and
-    `stream_unpack_kernel` against the same route with their plain
-    versions on the card: bit for bit, and each kernel launched."""
+    """The staged route with `mesh_sweep_kernel`, `stream_pack_kernel`,
+    `stream_unpack_kernel` and the bounce's wavefront kernels against the
+    same route with the eager bounce, and against it with the pipe's plain
+    versions, on the card: bit for bit, and each kernel launched."""
     scene = _ico_scene(64, 48, 4, 13)
     arrays = P.build_scene_arrays(scene)
     ss = make_static_scene(arrays)
@@ -534,9 +538,18 @@ def test_cuda_hybrid_route_matches_plain_versions(gpu, monkeypatch):
     fn = build_render_fn(ss, cam, 64, 48, 13, 4, tri_bvh=mt, staged=True)
     mesh_cuda.reset_launch_counts()
     stream_compact.reset_launch_counts()
+    pt_cuda.reset_launch_counts()
     film = fn(0, 0, 4)
     assert mesh_cuda.KERNEL_LAUNCHES[mesh_cuda.KERNEL_NAME] > 0
     assert min(stream_compact.KERNEL_LAUNCHES.values()) > 0
+    assert all(pt_cuda.KERNEL_LAUNCHES[k] == 13
+               for k in pt_cuda.WAVEFRONT_KERNELS)
+    assert _wavefront.ROUTE_COUNTS["fused_bounces"] == 13
+    with monkeypatch.context() as m:
+        m.setattr(_wavefront, "bounce_form", lambda *a: "eager")
+        eager = build_render_fn(ss, cam, 64, 48, 13, 4, tri_bvh=mt,
+                                staged=True)
+        assert torch.equal(eager(0, 0, 4), film)
     sc = stream_compact
     monkeypatch.setattr(sc, "stream_pack_channels", sc.stream_pack_plain)
     monkeypatch.setattr(sc, "stream_unpack_channels", sc.stream_unpack_plain)
